@@ -1,0 +1,1 @@
+"""kernels layer of the PyTorch port (see repro_torch/__init__.py)."""

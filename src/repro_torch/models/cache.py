@@ -1,0 +1,197 @@
+"""Paged KV cache: block allocator, pool layout, scatter writes, gathers.
+
+Counterpart of the paged half of ``repro/models/cache.py``, for the
+"attn" slot kind only (rolling-window, recurrent and encoder state come
+with later slices).
+
+Layout (``PagedCache``): per-layer K/V pools ``[L, P, bs, KV, hd]``,
+per-row ``length`` [B], ``first`` [B] and ``block_tables`` [B, NB]
+(-1 = unallocated).  Row r's absolute position p lives in pool block
+``block_tables[r, p // bs]`` at offset ``p % bs``.  The reference
+consumes donated caches inside compiled programs; here the pools are
+preallocated and written in place.
+
+Invalid writes (pad tokens, finished rows, unallocated blocks) must
+write nowhere.  The reference routes them to a positive out-of-bounds
+index dropped by ``mode="drop"``; torch's ``index_copy_`` raises on an
+out-of-bounds index and wraps negative ones, so ``pool_write_plan``
+selects the valid (destination, source) pairs explicitly, once per call,
+and every layer reuses the plan.  ``pool_write_plan`` + ``paged_write``
+take the place of the reference's ``paged_write_token`` (one token per
+row, decode) and ``paged_write_seq`` (a chunk per row, prefill).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def full_kv_positions(length: torch.Tensor, s_max: int) -> torch.Tensor:
+    """Absolute positions of ``s_max`` buffer slots, -1 where unwritten:
+    ``length`` [B, 1] (per-row) -> [B, s_max]."""
+    i = torch.arange(s_max, dtype=torch.int32, device=length.device)[None]
+    return torch.where(i < length, i, torch.full_like(i, -1))
+
+
+class BlockAllocator:
+    """Host-side fixed-size KV-block allocator with reference counts.
+
+    Only decides which pool blocks are live; block contents live in the
+    device pools.  ``fork`` adds an owner for prefix sharing; a block
+    returns to the free list when its refcount reaches zero.
+    ``high_watermark``, ``forks`` and ``exhaustions`` (failed
+    ``can_alloc`` probes) are counters the schedulers report."""
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks={num_blocks} must be >= 1")
+        self.num_blocks = int(num_blocks)
+        self.refcount = np.zeros((self.num_blocks,), np.int32)
+        # stack: pop() hands out low ids first
+        self._free = list(range(self.num_blocks - 1, -1, -1))
+        self.high_watermark = 0
+        self.forks = 0
+        self.exhaustions = 0
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    def can_alloc(self, n: int) -> bool:
+        if n > len(self._free):
+            self.exhaustions += 1
+            return False
+        return True
+
+    def alloc(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise MemoryError(
+                f"KV pool exhausted: need {n} blocks, "
+                f"{len(self._free)}/{self.num_blocks} free")
+        ids = [self._free.pop() for _ in range(n)]
+        for i in ids:
+            self.refcount[i] = 1
+        self.high_watermark = max(self.high_watermark, self.in_use)
+        return ids
+
+    def free(self, ids: Sequence[int]) -> None:
+        for i in ids:
+            i = int(i)
+            if self.refcount[i] <= 0:
+                raise ValueError(f"double free of block {i}")
+            self.refcount[i] -= 1
+            if self.refcount[i] == 0:
+                self._free.append(i)
+
+    def fork(self, ids: Sequence[int]) -> List[int]:
+        """Share ``ids`` with one more owner (copy-on-write fork)."""
+        out = []
+        for i in ids:
+            i = int(i)
+            if self.refcount[i] <= 0:
+                raise ValueError(f"fork of free block {i}")
+            self.refcount[i] += 1
+            out.append(i)
+        self.forks += len(out)
+        return out
+
+
+def num_row_blocks(max_len: int, block_size: int) -> int:
+    return -(-max_len // block_size)
+
+
+@dataclass
+class PagedCache:
+    length: torch.Tensor          # [B] int32 tokens absorbed per row
+    first: torch.Tensor           # [B] int32 first valid abs position
+    block_tables: torch.Tensor    # [B, NB] int32 pool block ids, -1 free
+    k: torch.Tensor               # [L, P, bs, KV, hd]
+    v: torch.Tensor               # [L, P, bs, KV, hd]
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.k.shape[1]
+
+    def staging_row(self, table_row: torch.Tensor, length0: int,
+                    first0: int) -> "PagedCache":
+        """A one-row cache over the SAME pools: chunk writes through
+        ``table_row`` land directly in the shared pool."""
+        dev = self.length.device
+        return PagedCache(
+            length=torch.tensor([length0], dtype=torch.int32, device=dev),
+            first=torch.tensor([first0], dtype=torch.int32, device=dev),
+            block_tables=table_row.reshape(1, -1).to(torch.int32),
+            k=self.k, v=self.v)
+
+
+def init_paged_cache(num_layers: int, kv_heads: int, head_dim: int,
+                     batch: int, max_len: int, block_size: int,
+                     num_blocks: int, dtype, device) -> PagedCache:
+    """Zeroed pools of ``num_blocks`` blocks per layer, all rows empty."""
+    NB = num_row_blocks(max_len, block_size)
+    shape = (num_layers, num_blocks, block_size, kv_heads, head_dim)
+    return PagedCache(
+        length=torch.zeros(batch, dtype=torch.int32, device=device),
+        first=torch.zeros(batch, dtype=torch.int32, device=device),
+        block_tables=torch.full((batch, NB), -1, dtype=torch.int32,
+                                device=device),
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def pool_write_plan(table: torch.Tensor, abs_pos: torch.Tensor,
+                    block_size: int, pool_blocks: int,
+                    active: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Valid writes of tokens at absolute positions ``abs_pos`` [B, S]
+    (-1 = pad) through ``table`` [B, NB]: (flat pool slot [n], source
+    token [n] into the flattened [B*S] tokens).  Positions beyond the
+    table, in unallocated blocks, or in rows with ``active`` [B] False
+    are left out.  One host synchronisation (the count n)."""
+    NB = table.shape[1]
+    pos = abs_pos.long()
+    col = (pos // block_size).clamp(0, NB - 1)
+    blk = torch.gather(table.long(), 1, col)
+    valid = (pos >= 0) & (pos < NB * block_size) & (blk >= 0) \
+        & (blk < pool_blocks)
+    if active is not None:
+        valid = valid & active[:, None]
+    src = torch.nonzero(valid.reshape(-1), as_tuple=True)[0]
+    dst = (blk * block_size + pos % block_size).reshape(-1)[src]
+    return dst, src
+
+
+def paged_write(k_pool: torch.Tensor, v_pool: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, plan: Tuple[torch.Tensor, torch.Tensor]
+                ) -> None:
+    """Scatter [B, S, KV, hd] tokens into one layer's pools [P, bs, KV,
+    hd] in place, as ``plan`` (``pool_write_plan``) selects."""
+    dst, src = plan
+    P, bs, KV, hd = k_pool.shape
+    for pool, x in ((k_pool, k), (v_pool, v)):
+        rows = x.reshape(-1, KV, hd)[src].to(pool.dtype)
+        pool.view(P * bs, KV, hd).index_copy_(0, dst, rows)
+
+
+def paged_gather_kv(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    table: torch.Tensor, nb_cap: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``nb_cap`` table columns of every row, gathered out of
+    one layer's pools -> (k, v) each [B, nb_cap*bs, KV, hd].  Unallocated
+    entries gather block 0; callers mask them by position."""
+    P, bs, KV, hd = k_pool.shape
+    tbl = table[:, :nb_cap].long().clamp(0, P - 1)
+    B = tbl.shape[0]
+    return (k_pool[tbl].reshape(B, nb_cap * bs, KV, hd),
+            v_pool[tbl].reshape(B, nb_cap * bs, KV, hd))

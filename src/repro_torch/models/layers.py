@@ -1,0 +1,172 @@
+"""Transformer layers on torch tensors: norms, RoPE, MLPs, attention.
+
+Counterpart of ``repro/models/layers.py``.  Layers are plain functions
+over parameter dicts; matmul weights keep the reference's ``[d_in,
+d_out]`` layout (``x @ w``), so parameters convert between the two
+packages without transposes.  Attention goes through the position-masked
+flash kernel (``kernels.ops.flash_attention``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# initializers (seeded torch.Generator; a different stream from jax.random)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn((d_in, d_out), generator=gen, device=device,
+                    dtype=torch.float32)
+    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=device,
+                    dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def init_norm(cfg: ModelConfig, dtype, device) -> dict:
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": torch.ones(cfg.d_model, dtype=dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        return {"scale": torch.ones(cfg.d_model, dtype=dtype, device=device),
+                "bias": torch.zeros(cfg.d_model, dtype=dtype, device=device)}
+    return {}  # nonparametric
+
+
+def apply_norm(params: dict, x: torch.Tensor, cfg: ModelConfig,
+               eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    if cfg.norm_type == "rmsnorm":
+        x32 = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+        return x32.to(dt) * params["scale"]
+    # layernorm / nonparametric layernorm
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    x32 = (x32 - mu) * torch.rsqrt(var + eps)
+    if cfg.norm_type == "layernorm":
+        x32 = x32 * params["scale"].float() + params["bias"].float()
+    return x32.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (half-split convention, as in Llama)
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    """[head_dim/2] inverse frequencies."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> torch.Tensor:
+    """Angles [B, S, head_dim/2] from positions [B, S]."""
+    inv = rope_frequencies(head_dim, theta, positions.device)
+    return positions[..., None].float() * inv
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, hd] rotated by angles [B, S, hd/2]: the pair
+    (x[i], x[i + hd/2]) turns by angle i."""
+    dt = x.dtype
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "gelu_glu"):
+        return {"wi": dense_init(gen, d, f, dtype, device),
+                "wg": dense_init(gen, d, f, dtype, device),
+                "wo": dense_init(gen, f, d, dtype, device)}
+    if cfg.mlp_type in ("relu2", "gelu"):
+        return {"wi": dense_init(gen, d, f, dtype, device),
+                "wo": dense_init(gen, f, d, dtype, device)}
+    return {}
+
+
+def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ params["wg"]) * (x @ params["wi"])
+    elif cfg.mlp_type == "gelu_glu":
+        h = F.gelu(x @ params["wg"]) * (x @ params["wi"])
+    elif cfg.mlp_type == "relu2":
+        h = torch.square(F.relu(x @ params["wi"]))
+    elif cfg.mlp_type == "gelu":
+        h = F.gelu(x @ params["wi"])
+    else:
+        return torch.zeros_like(x)
+    return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                    *, causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Position-masked attention [B,Sq,H,hd] x [B,Sk,KV,hd]^2 -> [B,Sq,H,hd]
+    (a kv slot with position < 0 is invalid), through the flash kernel."""
+    return ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        q_positions.to(torch.int32).contiguous(),
+        kv_positions.to(torch.int32).contiguous(),
+        causal=causal, window=window, softcap=softcap)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   device) -> dict:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": dense_init(gen, d, cfg.num_heads * hd, dtype, device),
+        "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dtype, device),
+        "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dtype, device),
+        "wo": dense_init(gen, cfg.num_heads * hd, d, dtype, device),
+    }
+
+
+def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                angles: Optional[torch.Tensor]):
+    """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] (rope applied)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
+    return q, k, v
+
+
+def attention_out(params: dict, attn: torch.Tensor) -> torch.Tensor:
+    B, S = attn.shape[:2]
+    return attn.reshape(B, S, -1) @ params["wo"]

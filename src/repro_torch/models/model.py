@@ -1,0 +1,217 @@
+"""Dense decoder on torch tensors, serving through a paged KV cache.
+
+Counterpart of the dense "attn" path of ``repro/models/model.py``.  The
+reference stacks per-layer parameters and scans over them; here the
+parameters are a list of per-layer dicts and the stack is a Python loop.
+
+Entry points (pure functions of the parameter dict, except that the
+paged cache's pools and ``length`` are updated in place):
+
+  forward(params, tokens, positions)                  -> logits [B,S,V]
+  prefill_chunk(params, tokens, positions, cache)     -> last logits [B,V]
+  decode_step(params, token, cache, nb_cap, active)   -> logits [B,V]
+
+Positions are per-row RELATIVE (counted from ``cache.first``; -1 at
+pads) while pool slots are keyed by absolute position, as in the
+reference's continuous-batching mode.  Layer kinds other than "attn",
+MoE, encoder-decoder, qk-norm and non-RoPE position embeddings raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import cache as cache_lib
+from repro_torch.models import layers as L
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        unsupported = []
+        if tuple(cfg.layer_pattern) != ("attn",):
+            unsupported.append(f"layer_pattern={cfg.layer_pattern}")
+        if cfg.moe is not None:
+            unsupported.append("MoE")
+        if cfg.is_encoder_decoder:
+            unsupported.append("encoder-decoder")
+        if cfg.qk_norm or cfg.use_mrope:
+            unsupported.append("qk_norm / M-RoPE")
+        if cfg.pos_embedding not in ("rope", "none"):
+            unsupported.append(f"pos_embedding={cfg.pos_embedding}")
+        if cfg.sliding_window is not None:
+            unsupported.append("sliding_window")
+        if unsupported:
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves dense full-attention "
+                f"decoders only so far ({', '.join(unsupported)})")
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------ init
+
+    def init_params(self, seed: int = 0, device: DeviceLike = "cuda") -> dict:
+        """Random parameters at the config's shapes and dtype, drawn from a
+        ``torch.Generator`` seeded with ``seed`` on ``device``."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        dtype = torch_dtype(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                        dtype, dev)}
+        blocks = []
+        for _ in range(cfg.num_layers):
+            blk = {"ln1": L.init_norm(cfg, dtype, dev),
+                   "attn": L.init_attention(gen, cfg, dtype, dev)}
+            if cfg.mlp_type != "none":
+                blk["ln2"] = L.init_norm(cfg, dtype, dev)
+                blk["mlp"] = L.init_mlp(gen, cfg, dtype, dev)
+            blocks.append(blk)
+        params["blocks"] = blocks
+        params["final_norm"] = L.init_norm(cfg, dtype, dev)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                             dtype, dev)
+        return params
+
+    def init_paged_cache(self, batch: int, max_len: int, block_size: int,
+                         num_blocks: int, device: DeviceLike
+                         ) -> cache_lib.PagedCache:
+        cfg = self.cfg
+        return cache_lib.init_paged_cache(
+            cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim, batch,
+            max_len, block_size, num_blocks, torch_dtype(cfg),
+            resolve_device(device))
+
+    # -------------------------------------------------------------- helpers
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = params["embed"][tokens.long()]
+        if self.cfg.scale_embedding:
+            x = x * torch.tensor(self.cfg.d_model, dtype=x.dtype,
+                                 device=x.device).sqrt()
+        return x
+
+    def _angles(self, positions: torch.Tensor) -> Optional[torch.Tensor]:
+        cfg = self.cfg
+        if cfg.pos_embedding != "rope":
+            return None
+        return L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+    def _mlp(self, p, x: torch.Tensor) -> torch.Tensor:
+        if "mlp" not in p:
+            return x
+        return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, self.cfg),
+                               self.cfg)
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = L.apply_norm(params["final_norm"], x, cfg)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = x @ head
+        if cfg.final_logit_softcap:
+            logits = cfg.final_logit_softcap * torch.tanh(
+                logits.float() / cfg.final_logit_softcap)
+        return logits
+
+    # ---------------------------------------------------------------- public
+
+    def forward(self, params, tokens: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward: tokens/positions [B,S] -> logits [B,S,V]."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        angles = self._angles(positions)
+        for p in params["blocks"]:
+            h = L.apply_norm(p["ln1"], x, cfg)
+            q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
+            a = L.flash_attention(q, k, v, positions, positions, causal=True,
+                                  softcap=cfg.attn_logit_softcap)
+            x = x + L.attention_out(p["attn"], a)
+            x = self._mlp(p, x)
+        return self._logits(params, x)
+
+    def prefill_chunk(self, params, tokens: torch.Tensor,
+                      positions: torch.Tensor, cache: cache_lib.PagedCache,
+                      last_col: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """Absorb one [B, C] prompt chunk into the paged cache.
+
+        Each row's queries attend to its cached past (the full block-table
+        width is gathered; slots at or beyond ``length`` and before
+        ``first`` are masked) plus the chunk itself, then the chunk's K/V
+        are written to the row's blocks.  ``positions`` are relative (-1 at
+        pads, which write nowhere).  Advances ``cache.length`` by C and
+        returns the logits at ``last_col`` [B] (default: the last column)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        tables, first, start = cache.block_tables, cache.first, cache.length
+        bs, P = cache.block_size, cache.num_blocks
+        L_buf = tables.shape[1] * bs
+        abs_write = torch.where(positions >= 0, positions + first[:, None],
+                                torch.full_like(positions, -1))
+        plan = cache_lib.pool_write_plan(tables, abs_write, bs, P)
+        past = cache_lib.full_kv_positions(start[:, None], L_buf) \
+            - first[:, None]
+        kv_pos = torch.cat([past, positions.to(torch.int32)], dim=1)
+        x = self._embed(params, tokens)
+        angles = self._angles(positions)
+        for i, p in enumerate(params["blocks"]):
+            h = L.apply_norm(p["ln1"], x, cfg)
+            q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
+            k_buf, v_buf = cache_lib.paged_gather_kv(
+                cache.k[i], cache.v[i], tables, tables.shape[1])
+            cache_lib.paged_write(cache.k[i], cache.v[i], k, v, plan)
+            k_all = torch.cat([k_buf, k.to(k_buf.dtype)], dim=1)
+            v_all = torch.cat([v_buf, v.to(v_buf.dtype)], dim=1)
+            a = L.flash_attention(q, k_all, v_all, positions, kv_pos,
+                                  causal=True, softcap=cfg.attn_logit_softcap)
+            x = x + L.attention_out(p["attn"], a)
+            x = self._mlp(p, x)
+        cache.length = cache.length + S
+        if last_col is None:
+            xl = x[:, -1]
+        else:
+            xl = x[torch.arange(B, device=x.device), last_col.long()]
+        return self._logits(params, xl)
+
+    def decode_step(self, params, token: torch.Tensor,
+                    cache: cache_lib.PagedCache, nb_cap: Optional[int] = None,
+                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """token [B,1] -> next-token logits [B,V].
+
+        Each row writes its token at absolute position ``length`` (rows
+        with ``active`` False write nowhere and keep their length), then
+        attends through the first ``nb_cap`` block-table columns with the
+        paged decode kernel: slots ``first <= pos <= length`` count."""
+        cfg = self.cfg
+        nb_total = cache.block_tables.shape[1]
+        nb = nb_total if nb_cap is None else min(nb_cap, nb_total)
+        first, start = cache.first, cache.length
+        pos = (start - first)[:, None]
+        plan = cache_lib.pool_write_plan(cache.block_tables, start[:, None],
+                                         cache.block_size, cache.num_blocks,
+                                         active)
+        tables = cache.block_tables[:, :nb].contiguous()
+        x = self._embed(params, token)
+        angles = self._angles(pos)
+        for i, p in enumerate(params["blocks"]):
+            h = L.apply_norm(p["ln1"], x, cfg)
+            q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
+            cache_lib.paged_write(cache.k[i], cache.v[i], k, v, plan)
+            a = ops.paged_decode_attention(
+                q[:, 0].contiguous(), cache.k[i], cache.v[i], tables, first,
+                start, softcap=cfg.attn_logit_softcap)
+            x = x + L.attention_out(p["attn"], a[:, None])
+            x = self._mlp(p, x)
+        inc = 1 if active is None else active.to(torch.int32)
+        cache.length = cache.length + inc
+        return self._logits(params, x[:, 0])

@@ -1,0 +1,498 @@
+"""Paged continuous-batching serving engine on torch tensors.
+
+Counterpart of the paged half of ``repro/serving/engine.py``.  Prompts
+are absorbed ``prefill_chunk`` tokens at a time (``Model.prefill_chunk``)
+into a shared KV block pool; ``ContinuousSession`` admits a request into
+a finished row the moment one frees up (plain refill, or a fork of a
+cached retrieved-context prefix with a copy-on-write tail block), and
+decodes in segments that return to the host whenever a row finishes.
+
+The reference compiles each step into a donated XLA program and runs the
+decode segment as one device ``while_loop`` with one summary transfer.
+Here PyTorch runs eagerly: the pools are updated in place, and a decode
+segment is a host loop that reads the sampled tokens back once per step
+(the EOS exit needs them), plus the count of valid KV writes.  Exit
+conditions, admission geometry and block accounting follow the reference
+step for step, so schedules (refills, forks, frames) come out the same.
+
+Only the paged continuous path exists in this slice: a non-paged engine,
+``generate``/``generate_reference`` and ``RequestQueue`` raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import cache as cache_lib
+from repro_torch.models.model import Model
+from repro_torch.serving.prefix_cache import PrefixCache, PrefixEntry
+from repro_torch.serving.sampling import GenerationParams, sample_token
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params: dict, *, max_len: int = 512,
+                 batch_size: int = 8, pad_id: int = 0,
+                 prefill_chunk: Optional[int] = None, paged: bool = False,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        if not paged or prefill_chunk is None:
+            raise NotImplementedError(
+                "the port serves the paged continuous path only so far: "
+                "build the engine with paged=True, prefill_chunk=...")
+        if prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
+        if block_size < 1:
+            raise ValueError(f"block_size={block_size} must be >= 1")
+        emb_dev = params["embed"].device
+        if emb_dev.type != self.device.type:
+            raise ValueError(f"params live on {emb_dev}, engine on "
+                             f"{self.device}")
+        self.model = Model(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.batch_size = batch_size
+        self.pad_id = pad_id
+        self.prefill_chunk = prefill_chunk
+        self.block_size = int(block_size)
+        self.nb_total = cache_lib.num_row_blocks(max_len, block_size)
+        # default pool: every row can hold a full-length context
+        self.num_blocks = int(num_blocks) if num_blocks is not None \
+            else batch_size * self.nb_total
+
+    def generate(self, *args, **kwargs):
+        raise NotImplementedError("generate() is not ported yet; use "
+                                  "ContinuousQueue on a paged engine")
+
+    generate_reference = generate
+
+    # ------------------------------------------------------- device steps
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+    def _fresh_cache(self, first: np.ndarray, lengths: np.ndarray,
+                     tables: np.ndarray) -> cache_lib.PagedCache:
+        """A zeroed pool with per-row first positions, lengths and block
+        tables: the pool a session lives in."""
+        cache = self.model.init_paged_cache(first.shape[0], self.max_len,
+                                            self.block_size, self.num_blocks,
+                                            self.device)
+        cache.first = self._tensor(first)
+        cache.length = self._tensor(lengths)
+        cache.block_tables = self._tensor(tables)
+        return cache
+
+    def _chunk_step(self, toks: np.ndarray, cache: cache_lib.PagedCache,
+                    l_end) -> torch.Tensor:
+        """One [B, C] chunk: relative positions (-1 at left pads and at
+        columns at/after the prompt end ``l_end``) at the cache's current
+        per-row offset, then ``Model.prefill_chunk``; the logits are read
+        at each row's last real column."""
+        B, C = toks.shape
+        first, length = cache.first, cache.length
+        abs_pos = length[:, None] + torch.arange(C, dtype=torch.int32,
+                                                 device=self.device)[None]
+        valid = (abs_pos >= first[:, None]) & (abs_pos < l_end)
+        pos = torch.where(valid, abs_pos - first[:, None],
+                          torch.full_like(abs_pos, -1))
+        last_col = (l_end - 1 - length).clamp(0, C - 1)
+        return self.model.prefill_chunk(self.params, self._tensor(toks), pos,
+                                        cache, last_col=last_col)
+
+    def _scan_chunks(self, toks: np.ndarray, staging: cache_lib.PagedCache,
+                     l_end: int) -> torch.Tensor:
+        """Chunk-prefill ``toks`` [1, k*C] through a staging row; returns
+        the last chunk's logits (f32)."""
+        C = self.prefill_chunk
+        logits = None
+        for j in range(toks.shape[1] // C):
+            logits = self._chunk_step(toks[:, j * C:(j + 1) * C], staging,
+                                      l_end)
+        return logits.float()
+
+    @staticmethod
+    def _copy_block(cache: cache_lib.PagedCache, src: int, dst: int) -> None:
+        """Copy pool block ``src`` into ``dst`` in every layer: the
+        copy-on-write step when a fork's prefix ends mid-block."""
+        cache.k[:, dst] = cache.k[:, src]
+        cache.v[:, dst] = cache.v[:, src]
+
+    # ----------------------------------------------------------- geometry
+
+    def _cont_nb_cap(self, high: int) -> int:
+        """Block-table width a decode segment reads: enough blocks for the
+        highest position the segment can reach, rounded up to 4 blocks
+        (the reference bounds its compiled variants the same way)."""
+        bs = self.block_size
+        nb = -(-min(high, self.nb_total * bs) // bs)
+        nb = -(-nb // 4) * 4
+        return max(1, min(self.nb_total, nb))
+
+    def cont_max_prompt_len(self, max_new_tokens: int) -> int:
+        """Longest prompt a continuous session can serve: its chunk
+        frames plus the decode budget must fit ``max_len``."""
+        return max(0, self.max_len - max_new_tokens) \
+            // self.prefill_chunk * self.prefill_chunk
+
+
+class ContinuousSession:
+    """Host-side state machine for paged continuous batching.
+
+    A session opens one frame (``begin_frame``: up to ``batch_size``
+    prompts left-padded to a shared chunk multiple), then decodes in
+    segments that stop whenever a row that was live at entry finishes;
+    the scheduler refills freed rows (``refill``) and resumes.  Rows keep
+    independent lengths, so admission continues for as long as the block
+    allocator can hand out a row's block run.  A ``PrefixCache`` (an int
+    capacity or an instance) lets requests that share a retrieved-context
+    prefix fork its prefilled blocks instead of prefilling them again."""
+
+    def __init__(self, engine: ServeEngine, gen: GenerationParams, *,
+                 seed: int = 0, prefix_cache=None):
+        if gen.max_new_tokens < 1:
+            raise ValueError("continuous batching needs max_new_tokens >= 1")
+        if engine.cont_max_prompt_len(gen.max_new_tokens) < 1:
+            raise ValueError(
+                f"prefill_chunk={engine.prefill_chunk} + "
+                f"max_new_tokens={gen.max_new_tokens} do not fit the "
+                f"engine cache (max_len={engine.max_len})")
+        self.eng = engine
+        self.gen = gen
+        self.C = engine.prefill_chunk
+        self.B = engine.batch_size
+        self.generator = torch.Generator(device=engine.device)
+        self.generator.manual_seed(seed)
+        self.cache: Optional[cache_lib.PagedCache] = None
+        self.tok: Optional[torch.Tensor] = None        # [B, 1] on device
+        # host state: outputs, cursors, budgets, done flags
+        self.out = np.zeros((self.B, gen.max_new_tokens), np.int32)
+        self.done = np.ones(self.B, bool)
+        self.idx = np.zeros(self.B, np.int32)
+        self._budget = np.zeros(self.B, np.int32)
+        self._remaining = np.zeros(self.B, np.int32)
+        self.frames = 0
+        self.segments = 0
+        self.refills = 0
+        # block bookkeeping: ``lengths`` mirrors cache.length, ``_tables``
+        # the rows' block tables, so freed rows can return their blocks
+        self.allocator = cache_lib.BlockAllocator(engine.num_blocks)
+        self.lengths = np.zeros(self.B, np.int64)
+        self._tables = np.full((self.B, engine.nb_total), -1, np.int32)
+        self.prefix_cache = None
+        if prefix_cache is not None:
+            if isinstance(prefix_cache, int):
+                prefix_cache = PrefixCache(capacity=prefix_cache)
+            # an evicted entry returns its block refcounts; blocks forked
+            # into live rows survive through the rows' own refs
+            prefix_cache.on_evict = \
+                lambda e: self.allocator.free(e.block_ids)
+            self.prefix_cache = prefix_cache
+
+    # ------------------------------------------------------------- geometry
+
+    def _padded(self, prompt_len: int) -> int:
+        return -(-max(1, prompt_len) // self.C) * self.C
+
+    def free_slots(self) -> List[int]:
+        return [i for i in range(self.B) if self.done[i]]
+
+    def active(self) -> bool:
+        return bool((~self.done).any())
+
+    def can_refill(self, prompt_len: int, budget: int,
+                   prefix_len: Optional[int] = None,
+                   prompt: Optional[Sequence[int]] = None) -> bool:
+        """A request fits iff the allocator can hand out its block run
+        (LRU prefix entries are evicted to make room)."""
+        if self.cache is None:
+            return False
+        prefix = self._prefix_parts(prompt, prefix_len)
+        while True:
+            need = self._plan_blocks(prompt_len, budget, prefix)
+            if need is None:
+                return False
+            if self.allocator.can_alloc(need):
+                return True
+            if self.prefix_cache is None or not self.prefix_cache.evict_lru():
+                return False
+
+    def _prefix_parts(self, prompt, prefix_len) -> Optional[tuple]:
+        """The shareable context-prefix tokens of a request, or None for
+        the plain path.  At least one token stays on the question side."""
+        if self.prefix_cache is None or not prefix_len or prompt is None:
+            return None
+        prefix_len = min(int(prefix_len), len(prompt) - 1)
+        if prefix_len <= 0:
+            return None
+        return tuple(prompt[:prefix_len])
+
+    def _plan_blocks(self, prompt_len: int, budget: int,
+                     prefix: Optional[tuple]) -> Optional[int]:
+        """Pool blocks a refill would newly allocate, or None when the
+        request's span can never fit one row (> max_len)."""
+        bs = self.eng.block_size
+        if prefix is None:
+            span = self._padded(prompt_len) + budget
+            if span > self.eng.max_len:
+                return None
+            return -(-span // bs)
+        p = len(prefix)
+        L0 = p + (-p) % self.C
+        span = L0 + (prompt_len - p) + budget
+        if span > self.eng.max_len:
+            return None
+        tot = -(-span // bs)
+        fork_new = tot - L0 // bs       # COW tail + fresh decode blocks
+        if self.prefix_cache.peek(prefix) is not None:
+            return fork_new
+        return -(-L0 // bs) + fork_new  # prefix prefill allocates too
+
+    def frame_capacity(self, requests: Sequence[Tuple[int, int]]) -> int:
+        """How many of the first ``requests`` [(prompt_len, budget)] fit
+        one frame (a block run per row; the prefix cache is cleared at
+        frame start, so its blocks count as free)."""
+        n = min(len(requests), self.B)
+        bs = self.eng.block_size
+        avail = self.allocator.available
+        if self.prefix_cache is not None:
+            avail += self.prefix_cache.held_blocks()
+        fit = 0
+        for k in range(1, n + 1):
+            frame_len = self._padded(max(pl for pl, _ in requests[:k]))
+            if frame_len + max(b for _, b in requests[:k]) > self.eng.max_len:
+                break
+            need = sum(-(-(frame_len + b) // bs) for _, b in requests[:k])
+            if need > avail:
+                break
+            fit = k
+        return fit
+
+    def admission_cost(self, prompt_len: int, budget: int,
+                       prefix_len: Optional[int] = None,
+                       prompt: Optional[Sequence[int]] = None) -> int:
+        """Prefill chunks admitting this request would run (the SJF key);
+        a cached prefix skips its own chunks."""
+        prefix = self._prefix_parts(prompt, prefix_len)
+        if prefix is not None:
+            p = len(prefix)
+            L0 = p + (-p) % self.C
+            q_chunks = -(-(prompt_len - p) // self.C)
+            if self.prefix_cache.peek(prefix) is not None:
+                return q_chunks
+            return L0 // self.C + q_chunks
+        return self._padded(prompt_len) // self.C
+
+    def _release_slot(self, slot: int) -> None:
+        """Return a row's pool blocks to the allocator (idempotent)."""
+        ids = self._tables[slot][self._tables[slot] >= 0]
+        if ids.size:
+            self.allocator.free(ids.tolist())
+        self._tables[slot] = -1
+
+    def release(self) -> None:
+        """Free every pool block held by rows and prefix entries; after
+        this ``allocator.available == num_blocks`` (the leak check)."""
+        for i in range(self.B):
+            self._release_slot(i)
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+
+    # ------------------------------------------------------------ admission
+
+    def begin_frame(self, prompts: Sequence[Sequence[int]],
+                    budgets: Sequence[int]) -> None:
+        """Drop the previous frame and admit up to ``batch_size`` prompts
+        at position 0 through the shared [B, C] chunk step."""
+        if not prompts or len(prompts) > self.B:
+            raise ValueError(f"a frame takes 1..{self.B} prompts")
+        if not all(len(p) for p in prompts) or self.active():
+            raise ValueError("begin_frame needs non-empty prompts and an "
+                             "idle session")
+        frame_len = self._padded(max(len(p) for p in prompts))
+        toks = np.full((self.B, frame_len), self.eng.pad_id, np.int32)
+        first = np.full((self.B,), frame_len, np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, frame_len - len(p):] = p
+            first[i] = frame_len - len(p)
+        # a fresh frame rebuilds the pool, invalidating cached prefixes
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        for i in range(self.B):
+            self._release_slot(i)
+        bs = self.eng.block_size
+        tables = np.full((self.B, self.eng.nb_total), -1, np.int32)
+        for i in range(len(prompts)):
+            ids = self.allocator.alloc(-(-(frame_len + budgets[i]) // bs))
+            tables[i, :len(ids)] = ids
+        cache = self.eng._fresh_cache(first, np.zeros(self.B, np.int32),
+                                      tables)
+        logits = None
+        for j in range(frame_len // self.C):
+            logits = self.eng._chunk_step(
+                toks[:, j * self.C:(j + 1) * self.C], cache, frame_len)
+        self.cache = cache
+        self._tables = tables
+        self.lengths = np.full(self.B, frame_len, np.int64)
+        self.tok = sample_token(logits, self.gen, self.generator)
+        self.out[:] = 0
+        self.done = np.arange(self.B) >= len(prompts)
+        self.idx = np.zeros(self.B, np.int32)
+        self._remaining = np.zeros(self.B, np.int32)
+        self._remaining[:len(prompts)] = budgets
+        self._budget = self._remaining.copy()
+        self.frames += 1
+        _sync(self.eng.device)      # the frame's first tokens exist now
+
+    def refill(self, slot: int, prompt: Sequence[int], budget: int,
+               prefix_len: Optional[int] = None) -> None:
+        """Admit ``prompt`` into finished row ``slot``: allocate its block
+        run, chunk-prefill it through a one-row staging view of the pool,
+        sample its first token.  With ``prefix_len`` marking a retrieved-
+        context prefix, the prefix's blocks are forked from the
+        ``PrefixCache`` (copy-on-write on a mid-block tail) and only the
+        question suffix prefills."""
+        p = len(prompt)
+        if not self.done[slot] or not self.can_refill(p, budget, prefix_len,
+                                                      prompt):
+            raise ValueError(f"slot {slot} cannot take a {p}-token prompt "
+                             f"with budget {budget} now")
+        self._release_slot(slot)
+        prefix = self._prefix_parts(prompt, prefix_len)
+        if prefix is not None:
+            self._refill_fork(slot, prompt, budget, prefix)
+        else:
+            self._refill_plain(slot, prompt, budget)
+        self.done[slot] = False
+        self.idx[slot] = 0
+        self._budget[slot] = budget
+        self._remaining[slot] = budget
+        self.refills += 1
+        _sync(self.eng.device)      # the row's first token exists now
+
+    def _admit_row(self, toks, slot, table_row, length0, l_end,
+                   first0) -> None:
+        """Prefill ``toks`` into ``slot`` through a staging row that shares
+        the pool, sample its first token, point the row at its blocks."""
+        cache = self.cache
+        row = self.eng._tensor(table_row)
+        staging = cache.staging_row(row, length0, first0)
+        logits = self.eng._scan_chunks(toks, staging, l_end)
+        self.tok[slot] = sample_token(logits, self.gen, self.generator)[0]
+        cache.first[slot] = first0
+        cache.length[slot] = l_end
+        cache.block_tables[slot] = row
+        self._tables[slot] = table_row
+        self.lengths[slot] = l_end
+
+    def _refill_plain(self, slot: int, prompt: Sequence[int],
+                      budget: int) -> None:
+        bs = self.eng.block_size
+        p = len(prompt)
+        padded = self._padded(p)
+        ids = self.allocator.alloc(-(-(padded + budget) // bs))
+        table_row = np.full(self.eng.nb_total, -1, np.int32)
+        table_row[:len(ids)] = ids
+        toks = np.full((1, padded), self.eng.pad_id, np.int32)
+        toks[0, padded - p:] = list(prompt)
+        self._admit_row(toks, slot, table_row, 0, padded, padded - p)
+
+    def _refill_fork(self, slot: int, prompt: Sequence[int], budget: int,
+                     prefix: tuple) -> None:
+        bs = self.eng.block_size
+        entry = self.prefix_cache.get(prefix)
+        if entry is None:
+            entry = self._prefill_prefix(prefix)
+            self.prefix_cache.put(prefix, entry)
+        suffix = list(prompt[len(prefix):])
+        q = len(suffix)
+        L0 = entry.length
+        tot = -(-(L0 + q + budget) // bs)
+        nfull = L0 // bs
+        row_ids = self.allocator.fork(entry.block_ids[:nfull])
+        if len(entry.block_ids) > nfull:
+            # the prefix ends mid-block: the fork gets a private copy of
+            # the tail block so its suffix writes never touch the entry
+            cow = self.allocator.alloc(1)
+            self.eng._copy_block(self.cache, entry.block_ids[nfull], cow[0])
+            row_ids += cow
+        row_ids += self.allocator.alloc(tot - len(row_ids))
+        table_row = np.full(self.eng.nb_total, -1, np.int32)
+        table_row[:tot] = row_ids
+        kq = -(-q // self.C)
+        toks = np.full((1, kq * self.C), self.eng.pad_id, np.int32)
+        toks[0, :q] = suffix
+        self._admit_row(toks, slot, table_row, L0, L0 + q, entry.pad)
+
+    def _prefill_prefix(self, prefix: tuple) -> PrefixEntry:
+        """Prefill a canonical prefix run (left-padded to a chunk multiple
+        so relative positions are admission-invariant) into its own
+        blocks.  The dense model keeps no per-row state beside the pool,
+        so the entry's ``row_state`` is empty."""
+        bs = self.eng.block_size
+        p = len(prefix)
+        pad0 = (-p) % self.C
+        L0 = p + pad0
+        ids = self.allocator.alloc(-(-L0 // bs))
+        table_row = np.full(self.eng.nb_total, -1, np.int32)
+        table_row[:len(ids)] = ids
+        toks = np.full((1, L0), self.eng.pad_id, np.int32)
+        toks[0, pad0:] = list(prefix)
+        staging = self.cache.staging_row(self.eng._tensor(table_row), 0, pad0)
+        self.eng._scan_chunks(toks, staging, L0)
+        return PrefixEntry(block_ids=list(ids), length=L0, pad=pad0,
+                           row_state={})
+
+    # ------------------------------------------------------------- decoding
+
+    def run_segment(self, drain: bool = False) -> List[Tuple[int, List[int]]]:
+        """Decode until some row that was live at entry finishes (budget
+        or EOS); with ``drain=True`` run until every row has finished.
+        Returns the newly finished [(slot, tokens)].  Each step reads the
+        sampled tokens back to the host once."""
+        if not self.active():
+            raise ValueError("run_segment needs a live row")
+        eng, gen = self.eng, self.gen
+        live = ~self.done
+        rem = self._budget[live] - self.idx[live]
+        nb_cap = eng._cont_nb_cap(int((self.lengths[live] + rem).max()) + 2)
+        done0 = self.done.copy()
+        done = self.done.copy()
+        while not done.all() and (drain or not (done & ~done0).any()):
+            act = ~done
+            tok_h = self.tok[:, 0].cpu().numpy()
+            rows = np.nonzero(act)[0]
+            self.out[rows, self.idx[rows]] = tok_h[rows]
+            self.idx[rows] += 1
+            self._remaining[rows] -= 1
+            done |= self._remaining <= 0
+            if gen.eos_id is not None:
+                done |= act & (tok_h == gen.eos_id)
+            if not done.all():
+                # finished rows must not touch the pool: their table
+                # entries may point at blocks already handed to live rows
+                step_rows = ~done
+                logits = eng.model.decode_step(
+                    eng.params, self.tok, self.cache, nb_cap=nb_cap,
+                    active=torch.as_tensor(step_rows, device=eng.device))
+                self.tok = sample_token(logits, gen, self.generator)
+                self.lengths[step_rows] += 1
+        newly = np.nonzero(done & ~done0)[0]
+        events = [(int(i), self.out[i, :self.idx[i]].tolist()) for i in newly]
+        for i in newly:
+            # a finished row's blocks go straight back to the pool
+            self._release_slot(int(i))
+        self.done = done
+        self.segments += 1
+        return events
