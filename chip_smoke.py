@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases card,build,kernels
+    python3 chip_smoke.py --phases card,build,cluster
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
 
 Phases, in order:
@@ -14,15 +15,26 @@ Phases, in order:
            the inputs of its costliest call; the measured pass starts
            with every launch count at 0 and checks answers, prefix hits,
            finite logits and that every kernel was launched on this path
+  cluster  two live edge nodes at olmo-1b's full width (bf16, seeds 0
+           and 1), each over its own domain-partitioned shard behind an
+           IVFIndex on the card, with a semantic query cache and one
+           sketch-routed FederatedRetriever, serving two slots each
+           through the paged continuous queue.  A warm pass records the
+           IVF kernel's costliest inputs; the measured pass, on fresh
+           nodes with every launch count at 0, checks answers (equal to
+           the warm pass), cache and prefix hits, remote contexts,
+           finite logits and the path's kernel launches
   kernels  each kernel against its plain PyTorch version on the card, on
-           the inputs recorded from the main path (synthetic inputs of
-           the same shapes when the slice did not run) and on edge
-           cases, with the tolerance stated; median L2-cold times of the
+           the inputs recorded from the main paths (synthetic inputs of
+           the same shapes when a path did not run) and on edge cases,
+           with the tolerance stated; median L2-cold times of the
            kernel, its plain version and one library call that computes
            the same function (a yardstick the port never calls), beside
-           the bound of the same work on an H100
-  parity   the same slice at the olmo-1b smoke config (f32) on the card
-           and on the CPU, from the same weights: the answers must agree
+           the bound of the same work on an H100; the IVF probe also on
+           a trained 1M-doc shard
+  parity   the same slice and the same two-node cluster at the olmo-1b
+           smoke config (f32) on the card and on the CPU, from the same
+           weights: answers (and the nodes' contexts and sources) agree
 
 The lines before the last are the card's nvidia-smi name and power limit
 and the kernels' JSON record; the last line is {"ok": true, "device":
@@ -33,6 +45,7 @@ not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -44,7 +57,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-ALL_PHASES = ("card", "build", "slice", "kernels", "parity")
+ALL_PHASES = ("card", "build", "slice", "cluster", "kernels", "parity")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -63,7 +76,15 @@ KERNEL_META = {
     "retrieval_topk": (
         "src/repro_torch/kernels/csrc/topk.cu",
         "src/repro/kernels/topk_retrieval.py:72"),
+    "ivf_retrieval_topk": (
+        "src/repro_torch/kernels/csrc/ivf_topk.cu",
+        "src/repro/kernels/topk_retrieval.py:143"),
 }
+# the kernels each main path must launch
+SLICE_KERNELS = ("paged_decode_attention", "flash_attention",
+                 "retrieval_topk")
+CLUSTER_KERNELS = ("ivf_retrieval_topk", "flash_attention",
+                   "paged_decode_attention")
 
 
 def log(msg: str) -> None:
@@ -178,6 +199,26 @@ def topk_work(q, d, k):
         2 * nq * d.shape[0] * dim
 
 
+def ivf_work(q, list_emb, list_ids, probe, k):
+    """Bytes and flops one IVF probe needs on these inputs: the live rows
+    (and the id rows) of the distinct probed lists read once, queries
+    and probe ids read, the output written; 2*D flops per live row per
+    (query, probe).  Also returns the bytes this kernel reads, which
+    reads each list's live rows once per (query, probe) that probes it."""
+    D = q.shape[1]
+    L = list_ids.shape[1]
+    live = (list_ids >= 0).sum(dim=1).cpu()
+    pr = probe.long().cpu()
+    distinct = pr.unique()
+    valid = distinct[(distinct >= 0) & (distinct < len(live))]
+    per_pair = live[pr.clamp(0, len(live) - 1)] * \
+        ((pr >= 0) & (pr < len(live)))
+    rows = int(per_pair.sum())
+    nbytes = (int(live[valid].sum()) * D * 4 + len(valid) * L * 4
+              + q.numel() * 4 + probe.numel() * 4 + 8 * q.shape[0] * k)
+    return nbytes, 2 * D * rows, rows * D * 4
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -247,9 +288,15 @@ class MainPathInputs:
             self._keep("retrieval_topk", topk_work(q, d, k), (q, d, k), {})
             return orig["retrieval_topk"](q, d, k)
 
+        def ivf(q, emb, ids, probe, k):
+            self._keep("ivf_retrieval_topk", ivf_work(q, emb, ids, probe, k),
+                       (q.clone(), emb, ids, probe.clone(), k), {})
+            return orig["ivf_retrieval_topk"](q, emb, ids, probe, k)
+
         self.ops.paged_decode_attention = paged
         self.ops.flash_attention = flash
         self.ops.retrieval_topk = topk
+        self.ops.ivf_retrieval_topk = ivf
 
     def remove(self):
         for name, fn in self.orig.items():
@@ -285,11 +332,36 @@ def _rag(cfg, params, docs, tok, enc, device, max_len, chunk, block, batch,
     return rag, eng
 
 
+@contextlib.contextmanager
+def timed_segments(torch):
+    """While open, every decode segment is synchronised and timed:
+    yields {"s": seconds in decode segments, "tokens": tokens they
+    produced}."""
+    from repro_torch.serving.engine import ContinuousSession
+    seg = {"s": 0.0, "tokens": 0}
+    run_segment = ContinuousSession.run_segment
+
+    def timed_segment(self, drain=False):
+        before = int(self.idx.sum())
+        t = time.perf_counter()
+        events = run_segment(self, drain)
+        torch.cuda.synchronize()
+        seg["s"] += time.perf_counter() - t
+        # idx of finished rows still counts their tokens at this point
+        seg["tokens"] += int(self.idx.sum()) - before
+        return events
+
+    ContinuousSession.run_segment = timed_segment
+    try:
+        yield seg
+    finally:
+        ContinuousSession.run_segment = run_segment
+
+
 def phase_slice(torch, card, captured: dict, profile: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import Model
-    from repro_torch.serving.engine import ContinuousSession
     cfg = get_config("olmo-1b")
     t0 = time.perf_counter()
     params = Model(cfg).init_params(seed=0, device=DEV)
@@ -311,18 +383,6 @@ def phase_slice(torch, card, captured: dict, profile: bool = False) -> dict:
         return out
 
     eng.model._logits = checked_logits
-    seg = {"s": 0.0, "tokens": 0}
-    run_segment = ContinuousSession.run_segment
-
-    def timed_segment(self, drain=False):
-        before = int(self.idx.sum())
-        t = time.perf_counter()
-        events = run_segment(self, drain)
-        torch.cuda.synchronize()
-        seg["s"] += time.perf_counter() - t
-        # idx of finished rows still counts their tokens at this point
-        seg["tokens"] += int(self.idx.sum()) - before
-        return events
 
     # first pass: warms up (cuBLAS handles, allocator) and records each
     # kernel's costliest main-path inputs
@@ -335,18 +395,15 @@ def phase_slice(torch, card, captured: dict, profile: bool = False) -> dict:
     captured.update(rec.best)
     torch.cuda.synchronize()
 
-    ContinuousSession.run_segment = timed_segment
     finite.clear()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    try:
+    with timed_segments(torch) as seg:
+        ops.reset_launches()
         t0 = time.perf_counter()
         results = rag.answer(qs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.launches)
-    finally:
-        ContinuousSession.run_segment = run_segment
     st = rag.last_stats
     check(len(results) == len(qs)
           and [r.question for r in results] == qs, "answers out of order")
@@ -356,7 +413,7 @@ def phase_slice(torch, card, captured: dict, profile: bool = False) -> dict:
     check(all(len(r.contexts) == 3 for r in results), "top-3 contexts")
     check(st.prefix_hits >= 1, f"no prefix hit ({st.prefix_hits})")
     check(bool(torch.stack(finite).all()), "non-finite logits")
-    for name in KERNEL_META:
+    for name in SLICE_KERNELS:
         check(launches.get(name, 0) > 0,
               f"kernel {name} was not launched on the main path")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -374,6 +431,157 @@ def phase_slice(torch, card, captured: dict, profile: bool = False) -> dict:
         log(f"  q: {r.question!r} -> {r.answer[:60]!r}")
     if profile:
         profile_slice(torch, rag, qs, tag)
+    return launches
+
+
+def _cluster_setup(n_entities: int):
+    """build_cluster's corpus (cluster_serve.py): tokenizer over docs and
+    questions, shards partitioned with primaries d % 2 == n, and per
+    node two slots of (qid, QAPair) across domains: the second repeats
+    two of the first's questions (semantic-cache hits) and each slot
+    asks one question twice (a shared-prefix fork)."""
+    from repro_torch.data.corpus import DOMAINS, generate_corpus
+    from repro_torch.data.partition import partition_edge_data
+    from repro_torch.data.tokenizer import Tokenizer
+    docs, qas = generate_corpus(n_entities, seed=0)
+    tok = Tokenizer.build([d.text for d in docs] + [q.question for q in qas]
+                          + ["context question answer <sep>"])
+    prim = [[d for d in range(len(DOMAINS)) if d % 2 == n] for n in range(2)]
+    shards = partition_edge_data(docs, 2, prim, seed=0)
+    step = n_entities + 1            # one question per domain, in turn
+    slots = []
+    for n in range(2):
+        pick = [qas[(step * i + 3 * n) % len(qas)] for i in range(7)]
+        s1 = [pick[0], pick[1], pick[2], pick[1]]
+        s2 = [pick[0], pick[3], pick[2], pick[4], pick[4]]
+        slots.append([list(enumerate(s, start=100 * n + 10 * j))
+                      for j, s in enumerate((s1, s2))])
+    return tok, shards, slots
+
+
+def _cluster(cfg, params, tok, shards, device, **kw):
+    """Two federated IVF nodes with semantic caches over the paged
+    continuous queue (cluster_serve --index ivf --federated --cache
+    --paged)."""
+    from repro_torch.cluster import LiveEdgeNode, enable_federation
+    from repro_torch.retrieval.cache import SemanticQueryCache
+    from repro_torch.retrieval.encoder import TextEncoder
+    nodes = [LiveEdgeNode(n, "olmo-1b", cfg, params[n], shards[n], tok,
+                          TextEncoder(seed=0), seed=10 * n,
+                          index_kind="ivf", cache=SemanticQueryCache(),
+                          queue="continuous", paged=True, device=device,
+                          **kw) for n in range(2)]
+    fed = enable_federation(nodes, fanout=2, n_centroids=8, seed=0)
+    return nodes, fed
+
+
+def _serve_slots(nodes, slots, slo_s):
+    """Both nodes' slots in turn; returns per (slot, node) the answers,
+    contexts and sources, and each node's retrieval seconds per slot."""
+    from repro_torch.core.cluster import Query
+    from repro_torch.retrieval.encoder import TextEncoder
+    enc = TextEncoder(seed=0)
+    out, retr = [], [[] for _ in nodes]
+    for j in range(2):
+        for n, node in enumerate(nodes):
+            qs = [Query(qa.domain, enc.encode([qa.question])[0], qid,
+                        qa.question, qa.answer) for qid, qa in slots[n][j]]
+            before = node.stats.retrieval_s
+            res = node.process_slot(qs, slo_s)
+            retr[n].append(node.stats.retrieval_s - before)
+            out.append(([(r.qid, r.answer, r.dropped) for r in res],
+                        node.last_contexts, node.last_sources))
+    return out, retr
+
+
+def phase_cluster(torch, card, captured: dict) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    cfg = get_config("olmo-1b")
+    t0 = time.perf_counter()
+    params = [Model(cfg).init_params(seed=n, device=DEV) for n in range(2)]
+    torch.cuda.synchronize()
+    log(f"cluster: 2 x olmo-1b {cfg.dtype} params (seeds 0, 1) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tok, shards, slots = _cluster_setup(40)
+    kw = dict(batch_size=4, max_len=512, prefill_chunk=16, block_size=16,
+              top_k=3, max_new_tokens=16)
+    slo = 60.0
+
+    finite = []
+
+    def watch(nodes):
+        for node in nodes:
+            logits_fn = node.engine.model._logits
+
+            def checked(p, x, fn=logits_fn):
+                out = fn(p, x)
+                finite.append(torch.isfinite(out).all())
+                return out
+            node.engine.model._logits = checked
+
+    # warm pass: cuBLAS handles, allocator, and the IVF kernel's
+    # costliest main-path inputs
+    nodes, _ = _cluster(cfg, params, tok, shards, DEV, **kw)
+    rec = MainPathInputs(ops)
+    rec.install()
+    try:
+        warm, _ = _serve_slots(nodes, slots, slo)
+    finally:
+        rec.remove()
+    captured["ivf_retrieval_topk"] = rec.best["ivf_retrieval_topk"]
+    del nodes
+    torch.cuda.synchronize()
+
+    nodes, fed = _cluster(cfg, params, tok, shards, DEV, **kw)
+    watch(nodes)
+    log(f"cluster: shards of {[len(s) for s in shards]} docs, IVF "
+        f"n_lists {[nd.index.n_lists for nd in nodes]} nprobe "
+        f"{[nd.index.nprobe for nd in nodes]}")
+    torch.cuda.reset_peak_memory_stats()
+    with timed_segments(torch) as seg:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got, retr = _serve_slots(nodes, slots, slo)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+    check(got == warm, "the warm and the measured pass gave different "
+          "answers, contexts or sources")
+    sts = [nd.stats for nd in nodes]
+    check(all(st.drops == 0 for st in sts), "a query was dropped")
+    check(sum(st.remote_contexts for st in sts) > 0,
+          "federation served no remote context")
+    check(all(st.cache_hits >= 1 for st in sts), "no semantic-cache hit")
+    check(all(st.prefix_hits >= 1 for st in sts), "no prefix hit")
+    check(bool(torch.stack(finite).all()), "non-finite logits")
+    for name in CLUSTER_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was not launched on the cluster path")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tag = f"[{card['smi']}]"
+    nq = sum(st.queries for st in sts)
+    log(f"cluster: {nq} queries over 2 nodes x 2 slots in {wall:.3f} s "
+        f"wall {tag}")
+    for n, st in enumerate(sts):
+        log(f"cluster: node {n} retrieval ms per slot "
+            f"{[round(1e3 * r, 3) for r in retr[n]]}, mean TTFT "
+            f"{st.ttft_mean * 1e3:.2f} ms, {st.queries_per_s:.2f} queries/s "
+            f"(retrieval {st.retrieval_s:.3f} s + generate "
+            f"{st.generate_s:.3f} s) {tag}")
+        log(f"cluster: node {n} cache hits {st.cache_hits}, prefix hits "
+            f"{st.prefix_hits} misses {st.prefix_misses}, refills "
+            f"{st.refills}, frames {st.waves}, tokens {st.tokens_out}, "
+            f"remote contexts {st.remote_contexts} (gold "
+            f"{st.remote_gold})")
+    log(f"cluster: decode {seg['tokens'] / max(seg['s'], 1e-9):.1f} "
+        f"tokens/s ({seg['tokens']} tokens in {seg['s']:.3f} s of decode "
+        f"segments) {tag}")
+    log(f"cluster: {nq / wall:.2f} queries/s over the wall {tag}")
+    log(f"cluster: peak memory {peak:.2f} GiB {tag}")
+    log(f"cluster: federation {json.dumps(vars(fed.stats))}")
+    log(f"cluster: launches on the path {json.dumps(launches)}")
     return launches
 
 
@@ -411,7 +619,8 @@ def profile_slice(torch, rag, qs, tag) -> None:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {100 * us / total:5.1f}% {us / 1e3:8.2f} ms  {name[:90]}")
     mine = re.compile(r"\b(paged_decode_kernel|flash_kernel|"
-                      r"topk_partial_kernel|topk_merge_kernel)\b")
+                      r"topk_partial_kernel|topk_merge_kernel|"
+                      r"ivf_probe_kernel|ivf_merge_kernel)\b")
     ours = sum(us for name, us in by_name.items() if mine.search(name))
     log(f"profile: the port's CUDA kernels {ours / 1e3:.2f} ms "
         f"({100 * ours / total:.1f}% of device time)")
@@ -603,13 +812,7 @@ def _topk_check(torch, ops, ref, q, d, k, name, tol=1e-5):
     torch.cuda.synchronize()
     err = max_err(s, s2)
     same = i == i2
-    if not bool(same.all()):
-        # differing ids are only allowed where the plain scores tie within
-        # tolerance (a different summation order may swap a near-tie)
-        gap = (s2[:, :, None] - s2[:, None, :]).abs()
-        near = ((gap <= 2 * tol) & ~torch.eye(k, dtype=torch.bool,
-                                               device=s2.device)).any(-1)
-        check(bool((same | near).all()), f"top-k {name}: ids differ")
+    check(_ids_agree(torch, s2, i, i2, tol), f"top-k {name}: ids differ")
     log(f"  retrieval_topk [{name}] Nq{q.shape[0]} Nd{d.shape[0]} "
         f"D{q.shape[1]} k{k} scores max|err| {err:.3e} (tol {tol:g}), ids "
         f"equal {int(same.sum())}/{same.numel()}")
@@ -660,7 +863,219 @@ def kernels_topk(torch, ops, ref, gen, main, rec) -> None:
         bound_by=by, library_ms=t_l)
 
 
-def phase_kernels(torch, captured: dict, rec: dict) -> None:
+def _ids_agree(torch, s_plain, i, i_plain, tol) -> bool:
+    """Ids equal, or differing only where the plain scores tie within
+    tolerance (another summation order may swap a near-tie)."""
+    same = i == i_plain
+    if bool(same.all()):
+        return True
+    k = s_plain.shape[1]
+    gap = (s_plain[:, :, None] - s_plain[:, None, :]).abs()
+    near = ((gap <= 2 * tol) & ~torch.eye(k, dtype=torch.bool,
+                                           device=s_plain.device)).any(-1)
+    return bool((same | near).all())
+
+
+def _ivf_check(torch, ops, ref, q, emb, ids, probe, k, name, tol=1e-5):
+    s, i = ops.ivf_retrieval_topk(q, emb, ids, probe, k)
+    s2, i2 = ref.ivf_topk_ref(q, emb, ids, probe, k)
+    torch.cuda.synchronize()
+    err = max_err(s, s2)
+    log(f"  ivf_retrieval_topk [{name}] Nq{q.shape[0]} lists "
+        f"{tuple(ids.shape)} D{q.shape[1]} nprobe{probe.shape[1]} k{k} "
+        f"scores max|err| {err:.3e} (tol {tol:g}), ids equal "
+        f"{int((i == i2).sum())}/{i.numel()}")
+    check(_ids_agree(torch, s2, i, i2, tol), f"ivf top-k {name}: ids differ")
+    check(err <= tol, f"ivf top-k {name}: {err} > {tol}")
+    return s, i, err
+
+
+def _ivf_lists(torch, gen, sizes, L, D):
+    """Unit rows, list l live in its first sizes[l] slots, unique ids."""
+    n_lists = len(sizes)
+    emb = torch.randn(n_lists, L, D, generator=gen, device=DEV)
+    emb = emb / emb.norm(dim=-1, keepdim=True)
+    ids = torch.full((n_lists, L), -1, dtype=torch.int32, device=DEV)
+    nxt = 0
+    for l, n in enumerate(sizes):
+        ids[l, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        emb[l, n:] = 0.0
+        nxt += n
+    return emb, ids
+
+
+def _ivf_library(torch, q, emb, ids, probe, k):
+    """Yardstick, in two steps timed apart: the probed lists gathered,
+    then torch.topk over an einsum of the gathered rows with padding
+    masked.  Returns the gather and the second step."""
+    g, gi = emb[probe.long()], ids[probe.long()]
+
+    def scored():
+        s = torch.einsum("qd,qpld->qpl", q, g).masked_fill(gi < 0, -1e30)
+        return torch.topk(s.reshape(q.shape[0], -1), k)
+    return g, scored
+
+
+def _synth_shard(torch, n_docs, dim, n_queries, n_clusters=24, noise=0.25,
+                 seed=0):
+    """The recipe of benchmarks/retrieval_scale.py::synth_corpus, drawn on
+    the card: unit-norm gaussian-mixture docs, queries perturbed from
+    random docs."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    centers = torch.randn(n_clusters, dim, generator=gen, device=DEV)
+    centers /= centers.norm(dim=1, keepdim=True)
+    assign = torch.randint(n_clusters, (n_docs,), generator=gen, device=DEV)
+    scale = noise / dim ** 0.5
+    docs = centers[assign] + scale * torch.randn(n_docs, dim, generator=gen,
+                                                 device=DEV)
+    docs /= docs.norm(dim=1, keepdim=True)
+    gold = torch.randint(n_docs, (n_queries,), generator=gen, device=DEV)
+    queries = docs[gold] + 0.5 * scale * torch.randn(
+        n_queries, dim, generator=gen, device=DEV)
+    queries /= queries.norm(dim=1, keepdim=True)
+    return docs, queries
+
+
+def _ivf_cases(torch, ops, ref, gen) -> None:
+    """Edge cases: exact ties in and across lists, fewer than k docs and
+    an empty list, nprobe 1 with an odd L, k 32."""
+    # integer rows, exact in any summation order.  List 0 holds the row
+    # at slots 0 and 2, list 2 at slot 1; probing [2, 0] ranks list 2's
+    # copy first, then list 0's by slot
+    row = torch.tensor([1., 0, 2, 0, 1, 0, 0, 1], device=DEV)
+    emb = torch.zeros(3, 4, 8, device=DEV)
+    ids = torch.tensor([[10, 11, 12, -1], [20, 21, -1, -1],
+                        [30, 31, 32, 33]], dtype=torch.int32, device=DEV)
+    emb[0, 0] = emb[0, 2] = emb[2, 1] = emb[1, 0] = row
+    emb[0, 1] = emb[2, 0] = emb[2, 2] = row * 0.5
+    emb[2, 3] = -row
+    probe = torch.tensor([[2, 0], [0, 1]], dtype=torch.int32, device=DEV)
+    _, i, _ = _ivf_check(torch, ops, ref, torch.stack([row, row]), emb, ids,
+                         probe, 6, "ties in and across lists")
+    check(i.tolist() == [[31, 10, 12, 30, 32, 11], [10, 12, 20, 11, 21, -1]],
+          f"ivf ties: the earlier probe, then the earlier slot must win: {i}")
+
+    def unit(n, d):
+        x = torch.randn(n, d, generator=gen, device=DEV)
+        return x / x.norm(dim=1, keepdim=True)
+
+    def probes(rows):
+        return torch.tensor(rows, dtype=torch.int32, device=DEV)
+
+    emb, ids = _ivf_lists(torch, gen, [2, 1, 3, 0], 3, 16)
+    s, i, _ = _ivf_check(torch, ops, ref, unit(3, 16), emb, ids,
+                         probes([[0, 1], [2, 3], [1, 3]]), 6,
+                         "fewer than k docs, an empty list")
+    check(i[1, 3:].tolist() == [-1] * 3 and i[2, 1:].tolist() == [-1] * 5
+          and bool((s[2, 1:] <= -1e29).all()),
+          "ivf: slots past the probed docs must be (-1e30, -1)")
+    emb, ids = _ivf_lists(torch, gen, [1013, 700, 1013, 5], 1013, 64)
+    _ivf_check(torch, ops, ref, unit(5, 64), emb, ids,
+               probes([[0], [2], [1], [3], [0]]), 4, "nprobe 1, L 1013")
+    _ivf_check(torch, ops, ref, unit(5, 64), emb, ids,
+               probes([[3, 2, 1, 0], [0, 1, 2, 3]] * 2 + [[1, 3, 0, 2]]), 32,
+               "k 32")
+
+
+def _ivf_shard(torch, ops, ref, card) -> None:
+    """A realistic shard: 1M docs x 256 f32, an IVFIndex trained on the
+    card with the defaults (256 lists, nprobe 51), Nq 32, k 5."""
+    import numpy as np
+    from repro_torch.retrieval.ivf import IVFIndex
+    docs, qs = _synth_shard(torch, SHARD_DOCS, 256, 32)
+    index = IVFIndex(256, device=DEV)
+    index.add(docs, range(SHARD_DOCS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.train()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    n_lists, L = index._list_ids.shape
+    pad = 1.0 - SHARD_DOCS / (n_lists * L)
+    qn = qs.cpu().numpy()
+    _, i_search = index.search(qn, 5)
+    frac = index.last_scored_frac
+    # the routing search() just did, to call the kernel alone
+    probe = torch.as_tensor(np.argsort(-(qn @ index._centroids.T), axis=1)
+                            [:, :index.nprobe].astype(np.int32), device=DEV)
+    el, il = index._list_emb, index._list_ids
+    # the plain version and the yardstick gather every probed list per
+    # query: run them in query chunks of at most 4 GB of gathered rows
+    per_q = probe.shape[1] * L * 256 * 4
+    step = max(1, int(4e9 // per_q))
+    chunks = [(qs[a:a + step], probe[a:a + step])
+              for a in range(0, qs.shape[0], step)]
+
+    def plain():
+        outs = [ref.ivf_topk_ref(a, el, il, b, 5) for a, b in chunks]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    s, i = ops.ivf_retrieval_topk(qs, el, il, probe, 5)
+    s2, i2 = plain()
+    torch.cuda.synchronize()
+    err = max_err(s, s2)
+    check(err <= 1e-5 and _ids_agree(torch, s2, i, i2, 1e-5),
+          f"ivf 1M shard: kernel and plain version differ ({err})")
+    check(np.array_equal(i.cpu().numpy(), i_search), "search != kernel")
+    _, exact = ops.retrieval_topk(qs, docs, 5)
+    recall = float(np.mean([len(set(a) & set(b)) / 5 for a, b in
+                            zip(i.cpu().tolist(), exact.cpu().tolist())]))
+    nbytes, flops, traffic = ivf_work(qs, el, il, probe, 5)
+    bnd, by = bound_ms(nbytes, flops, "float32")
+    t_k = bench_ms(lambda: ops.ivf_retrieval_topk(qs, el, il, probe, 5))
+    t_p = bench_ms(plain, reps=5)
+    t_g = t_l = 0.0
+    for a, b in chunks:
+        t_g += bench_ms(lambda: el[b.long()], reps=5)
+        g, scored = _ivf_library(torch, a, el, il, b, 5)
+        t_l += bench_ms(scored, reps=5)
+        del g, scored
+    tag = f"[{card['smi']}]"
+    log(f"  ivf_retrieval_topk 1M-doc shard: k-means {t_train:.3f} s "
+        f"(10 iterations, {n_lists} lists), L_max {L}, padding "
+        f"{100 * pad:.1f}% of list_emb, nprobe {probe.shape[1]}, scored "
+        f"{100 * frac:.2f}% of docs, recall@5 vs exact top-k {recall:.3f}, "
+        f"max|err| {err:.3e} {tag}")
+    log(f"  ivf_retrieval_topk 1M-doc shard Nq32 k5: kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, gather {t_g:.4f} ms + topk(einsum) "
+        f"{t_l:.4f} ms (both summed over {len(chunks)} query chunks), "
+        f"bound {bnd:.5f} ms ({by}, {nbytes} bytes); the kernel reads "
+        f"{traffic} bytes, Nq*nprobe*L*D*4 = {32 * per_q} {tag}")
+
+
+def kernels_ivf(torch, ops, ref, gen, main, rec, card) -> None:
+    if main is None:   # 8 questions against 12 lists of a ~130-doc shard
+        emb, ids = _ivf_lists(torch, gen, [11] * 12, 16, 256)
+        q = torch.randn(8, 256, generator=gen, device=DEV)
+        q = q / q.norm(dim=1, keepdim=True)
+        probe = torch.stack([torch.randperm(12, generator=gen, device=DEV)
+                             [:2] for _ in range(8)]).to(torch.int32)
+        main = ((q, emb, ids, probe, 3), {})
+    qm, em, im, pm, km = main[0]
+    _, _, err_main = _ivf_check(torch, ops, ref, qm, em, im, pm, km,
+                                "main path")
+    _ivf_cases(torch, ops, ref, gen)
+    _ivf_shard(torch, ops, ref, card)
+
+    t_k = bench_ms(lambda: ops.ivf_retrieval_topk(qm, em, im, pm, km))
+    t_p = bench_ms(lambda: ref.ivf_topk_ref(qm, em, im, pm, km))
+    _, scored = _ivf_library(torch, qm, em, im, pm, km)
+    t_g = bench_ms(lambda: em[pm.long()])
+    t_l = bench_ms(scored)
+    nbytes, flops, traffic = ivf_work(qm, em, im, pm, km)
+    bnd, by = bound_ms(nbytes, flops, "float32")
+    log(f"  ivf_retrieval_topk main path Nq{qm.shape[0]} lists "
+        f"{tuple(im.shape)} nprobe{pm.shape[1]} k{km}: kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, gather {t_g:.4f} ms + topk(einsum) "
+        f"{t_l:.4f} ms, bound {bnd:.5f} ms ({by}, {nbytes} bytes; the "
+        f"kernel reads {traffic}) [{card['smi']}]")
+    rec["ivf_retrieval_topk"] = dict(
+        max_abs_err=err_main, ms=t_k, plain_ms=t_p, bound_ms=bnd,
+        bound_by=by, library_ms=t_l)
+
+
+def phase_kernels(torch, card, captured: dict, rec: dict) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=DEV)
@@ -676,6 +1091,7 @@ def phase_kernels(torch, captured: dict, rec: dict) -> None:
                   rec)
     kernels_flash(torch, F, ops, ref, gen, main("flash_attention"), rec)
     kernels_topk(torch, ops, ref, gen, main("retrieval_topk"), rec)
+    kernels_ivf(torch, ops, ref, gen, main("ivf_retrieval_topk"), rec, card)
 
 
 def _to_device(tree, dev):
@@ -704,6 +1120,28 @@ def phase_parity(torch) -> None:
     check(answers["cuda"] == answers["cpu"],
           f"card and CPU answers differ:\n{answers}")
     log(f"parity: {len(qs)} smoke-config answers equal on card and CPU")
+
+    # the two-node federated IVF cluster with semantic caches
+    tok, shards, slots = _cluster_setup(8)
+    cfg = get_smoke_config("olmo-1b", vocab=len(tok))
+    params_cpu = [Model(cfg).init_params(seed=n, device="cpu")
+                  for n in range(2)]
+    served = {}
+    for dev in ("cuda", "cpu"):
+        params = [_to_device(p, dev) for p in params_cpu]
+        nodes, fed = _cluster(cfg, params, tok, shards, dev, batch_size=2,
+                              max_len=192, prefill_chunk=8, block_size=8,
+                              top_k=2, max_new_tokens=6)
+        served[dev], _ = _serve_slots(nodes, slots, 1e9)
+        log(f"parity[{dev}]: cluster cache hits "
+            f"{[nd.stats.cache_hits for nd in nodes]}, prefix hits "
+            f"{[nd.stats.prefix_hits for nd in nodes]}, remote contexts "
+            f"{fed.stats.remote_contexts}")
+    check(served["cuda"] == served["cpu"],
+          "card and CPU cluster answers, contexts or sources differ:\n"
+          f"{served}")
+    log(f"parity: {sum(len(o[0]) for o in served['cpu'])} cluster answers, "
+        "contexts and sources equal on card and CPU")
 
 
 def main(argv=None) -> int:
@@ -740,8 +1178,12 @@ def main(argv=None) -> int:
             phase_build()
         if "slice" in phases:
             launches = phase_slice(torch, card, captured, args.profile)
+        if "cluster" in phases:
+            # a kernel's launches are its counts over both main paths
+            for name, n in phase_cluster(torch, card, captured).items():
+                launches[name] = launches.get(name, 0) + n
         if "kernels" in phases:
-            phase_kernels(torch, captured, rec)
+            phase_kernels(torch, card, captured, rec)
         if "parity" in phases:
             phase_parity(torch)
         log(f"chip_smoke: phases {phases} passed in "

@@ -6,6 +6,10 @@ pattern cycles: ``params["blocks"]["s0_attn"][...]`` has a leading
 list of per-layer dicts.  Both use the ``[d_in, d_out]`` matmul layout,
 so leaves convert without transposes.  The reference side is handed over
 as nested dicts of numpy arrays; nothing here imports the reference.
+
+``ivf_state_from_numpy`` carries a trained IVF quantizer (centroids and
+packed lists) into the port's ``IVFIndex`` the same way, so a search can
+be held to the reference's independently of k-means.
 """
 from __future__ import annotations
 
@@ -68,3 +72,28 @@ def params_to_numpy(params: dict) -> Dict[str, Any]:
     out = {k: _to_numpy(v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = {_SLOT: _stack([_to_numpy(b) for b in params["blocks"]])}
     return out
+
+
+def ivf_state_from_numpy(index, centroids: np.ndarray, list_emb: np.ndarray,
+                         list_ids: np.ndarray, list_sizes: np.ndarray) -> None:
+    """Install a trained quantizer into ``index`` (a port ``IVFIndex``
+    holding the same documents): centroids [n_lists, d], packed
+    list_emb [n_lists, L, d], list_ids [n_lists, L] (-1 padding) and
+    list_sizes [n_lists].  The index counts as trained until its next
+    ``add``."""
+    n_lists, L = np.shape(list_ids)
+    if np.shape(list_emb) != (n_lists, L, index.dim) \
+            or np.shape(centroids) != (n_lists, index.dim) \
+            or np.shape(list_sizes) != (n_lists,):
+        raise ValueError("IVF state shapes do not match each other or the "
+                         f"index dim {index.dim}")
+    if int(np.sum(list_sizes)) != len(index):
+        raise ValueError(f"lists hold {int(np.sum(list_sizes))} documents, "
+                         f"the index {len(index)}")
+    index._centroids = np.asarray(centroids, np.float32)
+    index._list_emb = torch.as_tensor(np.asarray(list_emb, np.float32),
+                                      device=index.device)
+    index._list_ids = torch.as_tensor(np.asarray(list_ids, np.int32),
+                                      device=index.device)
+    index._list_sizes = np.asarray(list_sizes)
+    index._dirty = False

@@ -27,6 +27,7 @@ SOURCES: Dict[str, str] = {
     "paged_attention": "paged_attention.cu",
     "flash_attention": "flash_attention.cu",
     "topk": "topk.cu",
+    "ivf_topk": "ivf_topk.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

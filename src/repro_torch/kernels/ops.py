@@ -19,7 +19,8 @@ from repro_torch.kernels import build, ref
 
 launches: Dict[str, int] = {"paged_decode_attention": 0,
                             "flash_attention": 0,
-                            "retrieval_topk": 0}
+                            "retrieval_topk": 0,
+                            "ivf_retrieval_topk": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -29,6 +30,7 @@ _SIGNATURES = {
     ("flash_attention", "flash_attention"):
         [_VP] * 6 + [_I] * 8 + [_F, _I, _VP],
     ("topk", "retrieval_topk"): [_VP] * 6 + [_I] * 6 + [_VP],
+    ("ivf_topk", "ivf_retrieval_topk"): [_VP] * 8 + [_I] * 6 + [_VP],
 }
 _FNS: Dict[str, object] = {}   # entry point name -> ctypes function
 
@@ -216,4 +218,50 @@ def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
         _ptr(out_i), Nq, Nd, D, k, per, n_splits, _stream(queries))
     _check_rc(rc, "retrieval_topk")
     launches["retrieval_topk"] += 1
+    return out_s, out_i
+
+
+def ivf_retrieval_topk(queries: torch.Tensor, list_emb: torch.Tensor,
+                       list_ids: torch.Tensor, probe_ids: torch.Tensor,
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF probe top-k: queries [Nq,D] scored only against their routed
+    lists, list_emb [n_lists,L,D] f32 with list_ids [n_lists,L] int32
+    (-1 = padding) and probe_ids [Nq,nprobe] int32 -> (scores [Nq,k] f32,
+    global ids [Nq,k] int32).  Ties go to the earlier probe, then the
+    earlier slot; slots past the probed documents are (-1e30, -1)."""
+    if _on_cpu(queries, list_emb, list_ids, probe_ids):
+        return ref.ivf_topk_ref(queries, list_emb, list_ids, probe_ids, k)
+    Nq, D = queries.shape
+    n_lists, L, D2 = list_emb.shape
+    nprobe = probe_ids.shape[1]
+    _require(queries.dtype == torch.float32
+             and list_emb.dtype == torch.float32,
+             "queries and list_emb must be float32")
+    _require(list_ids.dtype == torch.int32 and probe_ids.dtype == torch.int32,
+             "list_ids and probe_ids must be int32")
+    _require(D2 == D and list_ids.shape == (n_lists, L)
+             and probe_ids.shape == (Nq, nprobe),
+             f"list_emb {tuple(list_emb.shape)}, list_ids "
+             f"{tuple(list_ids.shape)}, probe_ids {tuple(probe_ids.shape)} "
+             f"do not match queries {tuple(queries.shape)}")
+    _require(1 <= k <= 32, f"k={k} outside [1, 32]")
+    _require(nprobe <= 65535, f"nprobe={nprobe} above 65535")
+    _contiguous(queries=queries, list_emb=list_emb, list_ids=list_ids,
+                probe_ids=probe_ids)
+    dev = queries.device
+    if Nq == 0 or nprobe == 0 or n_lists == 0 or L == 0:
+        # nothing to score: every slot is the fill
+        return (torch.full((Nq, k), ref.NEG_INF, dtype=torch.float32,
+                           device=dev),
+                torch.full((Nq, k), -1, dtype=torch.int32, device=dev))
+    out_s = torch.empty((Nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Nq, k), dtype=torch.int32, device=dev)
+    part_s = torch.empty((Nq, nprobe, k), dtype=torch.float32, device=dev)
+    part_r = torch.empty((Nq, nprobe, k), dtype=torch.int32, device=dev)
+    rc = _fn("ivf_topk", "ivf_retrieval_topk")(
+        _ptr(queries), _ptr(list_emb), _ptr(list_ids), _ptr(probe_ids),
+        _ptr(part_s), _ptr(part_r), _ptr(out_s), _ptr(out_i), Nq, n_lists,
+        L, D, nprobe, k, _stream(queries))
+    _check_rc(rc, "ivf_retrieval_topk")
+    launches["ivf_retrieval_topk"] += 1
     return out_s, out_i

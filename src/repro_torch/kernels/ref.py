@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's three kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function computes exactly what its CUDA kernel computes (same
 masking, the same finite ``-1e30`` sentinel, f32 softmax / f32 scores)
@@ -100,4 +100,34 @@ def topk_ref(queries: torch.Tensor, docs: torch.Tensor, k: int
     out_i = torch.full((nq, k), -1, dtype=torch.int32, device=queries.device)
     out_s[:, :kk] = srt[:, :kk]
     out_i[:, :kk] = idx[:, :kk].to(torch.int32)
+    return out_s, out_i
+
+
+def ivf_topk_ref(queries: torch.Tensor, list_emb: torch.Tensor,
+                 list_ids: torch.Tensor, probe_ids: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF probe top-k: gather each query's ``nprobe`` lists
+    (``probe_ids [Nq,nprobe]``) out of ``list_emb [n_lists,L,D]`` /
+    ``list_ids [n_lists,L]`` (-1 = padding), score their concatenation
+    in probe order, padding at -1e30, and take a stable descending sort:
+    ties go to the earlier probe, then the earlier slot.  Each row's dot
+    product is reduced on its own, not in one batched matmul, so a
+    document scores the same in every list and batch that holds it, as
+    in the kernel.  -> (scores [Nq,k] f32, global ids [Nq,k] int32);
+    slots past the probed documents are (-1e30, -1)."""
+    nq = queries.shape[0]
+    pid = probe_ids.long()
+    cand_ids = list_ids[pid].reshape(nq, -1)                 # [Nq, P*L]
+    s = (list_emb[pid].float() * queries.float()[:, None, None, :]
+         ).sum(-1).reshape(nq, -1)
+    s = torch.where(cand_ids >= 0, s, torch.full_like(s, NEG_INF))
+    srt, pos = torch.sort(s, dim=1, descending=True, stable=True)
+    kk = min(k, s.shape[1])
+    out_s = torch.full((nq, k), NEG_INF, dtype=torch.float32,
+                       device=queries.device)
+    out_i = torch.full((nq, k), -1, dtype=torch.int32, device=queries.device)
+    top_i = torch.gather(cand_ids, 1, pos[:, :kk]).to(torch.int32)
+    out_s[:, :kk] = srt[:, :kk]
+    out_i[:, :kk] = torch.where(srt[:, :kk] <= NEG_INF,
+                                torch.full_like(top_i, -1), top_i)
     return out_s, out_i

@@ -3,8 +3,10 @@
 Counterpart of ``repro/retrieval/index.py``.  ``FlatIndex`` keeps the
 document embeddings on its device and searches through the exact top-k
 kernel (``kernels.ops.retrieval_topk``); on the CPU the same wrapper runs
-the plain version.  ``sketch`` and the IVF backend come with the
-federation slice of the port.
+the plain version.  ``build_index`` also builds the ANN backend
+``ivf.IVFIndex``.  ``sketch`` publishes a k-means centroid summary of
+the shard (centroids and counts, never documents), the one thing a node
+shares for federated routing (``repro_torch.cluster.federation``).
 """
 from __future__ import annotations
 
@@ -16,11 +18,13 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.retrieval.ivf import IVFIndex, kmeans
 
 
 @runtime_checkable
 class VectorIndex(Protocol):
-    """What retrieval consumers (the RAG pipeline) need from an index."""
+    """What retrieval consumers (RAG pipeline, live nodes, federation)
+    need from an index backend."""
 
     dim: int
 
@@ -36,6 +40,10 @@ class VectorIndex(Protocol):
         ...
 
     def payloads(self, idx: Sequence[int]) -> List[object]:
+        ...
+
+    def sketch(self, n_centroids: int = 8, *, seed: int = 0
+               ) -> Tuple[np.ndarray, np.ndarray]:
         ...
 
 
@@ -77,12 +85,22 @@ class FlatIndex:
         """Negative ids are top-k fill slots and are skipped."""
         return [self._payloads[int(i)] for i in idx if int(i) >= 0]
 
+    def sketch(self, n_centroids: int = 8, *, seed: int = 0
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """(centroids [m, dim], per-centroid doc counts [m]): a shareable
+        summary of the shard that reveals no documents."""
+        if self._emb is None:
+            return np.zeros((0, self.dim), np.float32), np.zeros(0)
+        cents, assign = kmeans(self._emb, n_centroids, seed=seed)
+        return cents.cpu().numpy(), np.bincount(
+            assign.cpu().numpy(), minlength=len(cents)).astype(np.float64)
+
 
 def build_index(dim: int, kind: str = "flat", **kw) -> VectorIndex:
-    """Index factory; only ``flat`` (exact) is ported so far."""
+    """Index factory: ``flat`` (exact) or ``ivf`` (ANN, k-means coarse
+    quantizer + probed-list top-k).  Extra kwargs go to the backend."""
     if kind == "flat":
         return FlatIndex(dim, **kw)
     if kind == "ivf":
-        raise NotImplementedError("the IVF index comes with the federation "
-                                  "slice of the port")
+        return IVFIndex(dim, **kw)
     raise ValueError(f"unknown index kind {kind!r} (flat|ivf)")

@@ -4,10 +4,10 @@ Counterpart of ``ContinuousQueue`` in ``repro/serving/scheduler.py``:
 FIFO-with-skip or shortest-prefill-first (SJF) admission, per-request
 ``max_new_tokens`` budgets, retrieved-context ``prefix_len`` marks that
 let paged sessions fork cached prefixes, and arrival-anchored TTFT and
-latency.  The reference's tracing and metric pushes are left out of this
-slice, and so are ``standing=True``, the SLO shed hint (``set_shed``)
-and the wave scheduler ``RequestQueue``: they come with the cluster
-slice.
+latency, the SLO shed hint (``set_shed``), and per-interval stats as
+``snapshot()`` / ``delta()`` of monotone counters.  The reference's
+tracing and metric pushes are left out, and so are ``standing=True``
+and the wave scheduler ``RequestQueue``.
 """
 from __future__ import annotations
 
@@ -46,6 +46,7 @@ class ContinuousCompletion:
     frame: int                    # session frame it was admitted into
     ttft_s: float                 # submit -> first token
     done_s: float                 # submit -> last token
+    shed: bool = False            # dropped at run() start by a shed hint
 
 
 @dataclass
@@ -60,10 +61,37 @@ class ContinuousStats:
     prefix_evictions: int = 0
     admission_skips: int = 0      # pending requests passed over (no fit)
     shed: int = 0                 # requests truncated at intake to fit
+    shed_hint_drops: int = 0      # requests dropped by the SLO shed hint
     cow_forks: int = 0            # paged copy-on-write block forks
     kv_exhaustions: int = 0       # paged pool-exhaustion waits
     ttft_s: List[float] = field(default_factory=list)
     latency_s: List[float] = field(default_factory=list)
+
+    # Every scalar above is a monotone counter for the queue's lifetime;
+    # per-interval numbers are a snapshot() before the interval diffed
+    # by delta() after it.
+    COUNTERS = ("requests", "tokens_out", "frames", "segments", "refills",
+                "prefix_hits", "prefix_misses", "prefix_evictions",
+                "admission_skips", "shed", "shed_hint_drops",
+                "cow_forks", "kv_exhaustions")
+
+    def snapshot(self) -> Dict[str, int]:
+        """Point-in-time copy of the monotone counters (plus the lengths
+        of the per-request sample lists)."""
+        snap = {k: getattr(self, k) for k in self.COUNTERS}
+        snap["ttft_n"] = len(self.ttft_s)
+        snap["latency_n"] = len(self.latency_s)
+        return snap
+
+    def delta(self, base: Dict[str, int]) -> "ContinuousStats":
+        """Stats accumulated since ``base`` (an earlier snapshot()) as a
+        fresh ContinuousStats."""
+        d = ContinuousStats()
+        for k in self.COUNTERS:
+            setattr(d, k, getattr(self, k) - base[k])
+        d.ttft_s = self.ttft_s[base["ttft_n"]:]
+        d.latency_s = self.latency_s[base["latency_n"]:]
+        return d
 
     @property
     def ttft_mean(self) -> float:
@@ -113,8 +141,8 @@ class ContinuousQueue:
                  policy: str = "fifo", prefix_capacity: int = 8,
                  standing: bool = False):
         if standing:
-            raise NotImplementedError("standing queues come with the "
-                                      "cluster slice of the port")
+            raise NotImplementedError("standing queues are not ported yet "
+                                      "(ROADMAP queue A)")
         self.engine = engine
         self.gen = gen or GenerationParams()
         if policy not in ("fifo", "sjf"):
@@ -133,9 +161,16 @@ class ContinuousQueue:
         self._pending: List[_ContRequest] = []
         self._done: Dict[int, ContinuousCompletion] = {}
         self._next_rid = 0
+        self._shed_fraction = 0.0
         self.stats = ContinuousStats()
 
     # -------------------------------------------------------------- intake
+
+    def set_shed(self, fraction: float) -> None:
+        """SLO shed hint: drop this fraction of the pending queue (the
+        most recently submitted requests) at the next ``run()`` instead
+        of serving them late; 0.0 disables."""
+        self._shed_fraction = min(max(float(fraction), 0.0), 1.0)
 
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None,
@@ -244,6 +279,17 @@ class ContinuousQueue:
         """Serve every pending request; returns {rid: generated tokens}
         for every completed request so far.  TTFT and latency are
         measured from each request's ``submit()``."""
+        if self._shed_fraction > 0.0 and self._pending:
+            # shed the tail (latest arrivals): the oldest requests have
+            # waited longest and would be the first SLO misses
+            n_shed = int(len(self._pending) * self._shed_fraction)
+            for r in self._pending[len(self._pending) - n_shed:]:
+                self._done[r.rid] = ContinuousCompletion(
+                    r.rid, [], len(r.prompt), r.budget, -1, -1, 0.0, 0.0,
+                    shed=True)
+            if n_shed:
+                del self._pending[len(self._pending) - n_shed:]
+                self.stats.shed_hint_drops += n_shed
         session = ContinuousSession(self.engine, self.gen, seed=self.seed,
                                     prefix_cache=self.prefix_capacity)
         owner: Dict[int, _ContRequest] = {}
@@ -314,3 +360,7 @@ class ContinuousQueue:
 
     def result(self, rid: int) -> ContinuousCompletion:
         return self._done[rid]
+
+    def pop_result(self, rid: int) -> ContinuousCompletion:
+        """``result()`` that releases the stored completion."""
+        return self._done.pop(rid)

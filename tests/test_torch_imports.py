@@ -68,7 +68,11 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     from repro_torch.models import Model
-    from repro_torch.retrieval.index import FlatIndex
+    from repro_torch.cluster import LiveEdgeNode
+    from repro_torch.data.tokenizer import Tokenizer
+    from repro_torch.retrieval.encoder import TextEncoder
+    from repro_torch.retrieval.index import FlatIndex, build_index
+    from repro_torch.retrieval.ivf import IVFIndex
     from repro_torch.serving import ServeEngine
     cfg = port_configs.get_smoke_config("olmo-1b", max_d_model=32, vocab=64)
     params = Model(cfg).init_params(seed=0, device="cpu")
@@ -77,6 +81,13 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
                     paged=True, block_size=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         FlatIndex(16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IVFIndex(16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_index(16, "ivf")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LiveEdgeNode(0, "olmo-1b", cfg, params, [], Tokenizer({}),
+                     TextEncoder(dim=16, hash_dim=64), paged=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(cfg).init_params(seed=0)
 
