@@ -8,7 +8,9 @@
 
 Phases, in order:
   card     nvidia-smi name and power limit, capability (9, 0), TF32 off
-  build    compile the CUDA kernels from src/repro_torch/kernels/csrc
+  build    compile the CUDA kernels from src/repro_torch/kernels/csrc;
+           print registers and spills (ptxas -v) and the HMMA
+           (tensor-core) instruction count of each bf16 flash kernel
   slice    one RAG run at olmo-1b's full width (bf16, seeded random
            weights): FlatIndex top-k, paged chunked prefill with prefix
            forks, paged decode.  A first pass records, for each kernel,
@@ -30,8 +32,11 @@ Phases, in order:
            with the tolerance stated; median L2-cold times of the
            kernel, its plain version and one library call that computes
            the same function (a yardstick the port never calls), beside
-           the bound of the same work on an H100; the IVF probe also on
-           a trained 1M-doc shard
+           the bound of the same work on an H100; two calls of each
+           attention kernel on the main-path inputs are bitwise equal;
+           paged decode also at forced split counts, with B 1 and B 32
+           2048-token contexts, flash also on a 256-query chunk after
+           1792 keys; the IVF probe also on a trained 1M-doc shard
   parity   the same slice and the same two-node cluster at the olmo-1b
            smoke config (f32) on the card and on the CPU, from the same
            weights: answers (and the nodes' contexts and sources) agree
@@ -131,9 +136,17 @@ def max_err(a, b, mask=None) -> float:
 
 
 def tolerance(want) -> float:
-    """f32: 2e-5 absolute (the same f32 math summed in another order).
-    bf16: two bf16 ulps of the largest output (the kernel and the plain
-    version round the f32 result to bf16 at different f32 values)."""
+    """f32: 2e-5 absolute (the same f32 math summed in another order;
+    both attention kernels keep f32 arithmetic for f32 inputs).
+    bf16: two bf16 ulps of the largest output, 2^-7 max(1, max|out|).
+    The kernel and the plain version round the f32 result to bf16 at
+    slightly different f32 values: one ulp apart at most.  The bf16
+    flash kernel also rounds the softmax weights P to bf16 for its
+    tensor-core P V product, a relative error of at most 2^-9 per weight,
+    so at most 2^-9 max|v| on an output (weights sum to 1).  That worst
+    case needs every rounding to push one way; the roundings of
+    independent weights cancel like a random walk, which keeps the sum
+    far inside the second ulp (the cases print their errors)."""
     import torch
     if want.dtype == torch.bfloat16:
         return 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
@@ -246,8 +259,22 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
                 log(f"  ptxas[{name}] {line.strip()}")
+    # tensor-core instructions in each bf16 flash kernel's machine code
+    per_fn, fn = {}, None
+    for line in build.sass("flash_attention").splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            per_fn[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            per_fn[fn] += 1
+    mma = {f: n for f, n in per_fn.items() if "flash_mma_kernel" in f}
+    for f, n in mma.items():
+        log(f"  sass[flash_attention] {n} HMMA in {f}")
+    check(bool(mma) and all(n > 0 for n in mma.values()),
+          f"the bf16 flash kernels carry no HMMA instruction: {per_fn}")
 
 
 class MainPathInputs:
@@ -618,7 +645,8 @@ def profile_slice(torch, rag, qs, tag) -> None:
         f"{len(dev)} device activities {tag}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {100 * us / total:5.1f}% {us / 1e3:8.2f} ms  {name[:90]}")
-    mine = re.compile(r"\b(paged_decode_kernel|flash_kernel|"
+    mine = re.compile(r"\b(paged_decode_kernel|paged_combine_kernel|"
+                      r"flash_kernel|flash_mma_kernel|"
                       r"topk_partial_kernel|topk_merge_kernel|"
                       r"ivf_probe_kernel|ivf_merge_kernel)\b")
     ours = sum(us for name, us in by_name.items() if mine.search(name))
@@ -646,12 +674,80 @@ def _paged_case(torch, gen, B, H, KV, hd, bs, P, lengths, firsts, nb,
     return q, kp, vp, tables, first, last
 
 
-def kernels_paged(torch, F, ops, ref, gen, main, rec) -> None:
+def _paged_library(torch, F, q, kp, vp, tb, fi, la):
+    """Yardstick: SDPA over the K/V gathered out of the pool (the gather
+    is done here, untimed); GQA by repeating the KV heads."""
+    B, H, hd = q.shape
+    bs, KV = kp.shape[1], kp.shape[2]
+    nb = tb.shape[1]
+    tbl = tb.long().clamp(0, kp.shape[0] - 1)
+    kg = kp[tbl].reshape(B, nb * bs, KV, hd).repeat_interleave(
+        H // KV, dim=2).transpose(1, 2)
+    vg = vp[tbl].reshape(B, nb * bs, KV, hd).repeat_interleave(
+        H // KV, dim=2).transpose(1, 2)
+    pos = torch.arange(nb * bs, device=DEV)[None]
+    mask = ((pos >= fi[:, None]) & (pos <= la[:, None])
+            & (tb >= 0).repeat_interleave(bs, 1))[:, None, None, :]
+    qs = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+
+
+def _paged_times(torch, F, ops, ref, args, kw, label, card, splits=()):
+    """Kernel (the wrapper's split rule), plain and library times of one
+    paged decode call, and the kernel at forced split counts."""
+    q, kp, vp, tb, fi, la = args
+    B, H, hd = q.shape
+    bs, KV = kp.shape[1], kp.shape[2]
+    nb = tb.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rule = ops.paged_decode_splits(B, KV, nb, sms)
+    t_k = bench_ms(lambda: ops.paged_decode_attention(*args, **kw))
+    t_p = bench_ms(lambda: ref.paged_attention_ref(*args, **kw))
+    t_l = bench_ms(_paged_library(torch, F, *args))
+    forced = {n: bench_ms(lambda n=n: ops._paged_launch(
+        *args, kw.get("softcap"), n)) for n in splits}
+    nbytes, flops = paged_work(q, kp, tb, fi, la)
+    bnd, by = bound_ms(nbytes, flops, dtype_name(q))
+    log(f"  paged_decode_attention {label} B{B} H{H} KV{KV} hd{hd} bs{bs} "
+        f"nb{nb}: kernel {t_k:.4f} ms ({rule} splits by the rule), plain "
+        f"{t_p:.4f} ms, SDPA(gathered) {t_l:.4f} ms, bound {bnd:.5f} ms "
+        f"({by}, {nbytes} bytes) [{card['smi']}]")
+    if forced:
+        log(f"  paged_decode_attention {label} forced splits: " + ", ".join(
+            f"{n}: {t:.4f} ms" for n, t in forced.items()))
+    return t_k, t_p, t_l, bnd, by
+
+
+def _paged_check(torch, ops, ref, name, args, cap, n_splits=None):
+    q = args[0]
+    if n_splits is None:
+        got = ops.paged_decode_attention(*args, softcap=cap)
+    else:
+        got = ops._paged_launch(*args, cap, n_splits)
+        name = f"{name}, {n_splits} splits"
+    want = ref.paged_attention_ref(*args, softcap=cap)
+    torch.cuda.synchronize()
+    err, tol = max_err(got, want), tolerance(want)
+    log(f"  paged_decode_attention [{name}] {tuple(q.shape)} "
+        f"{dtype_name(q)} max|err| {err:.3e} (tol {tol:.3g})")
+    check(bool(torch.isfinite(got).all()), f"paged decode {name}: non-finite")
+    check(err <= tol, f"paged decode {name}: {err} > {tol}")
+    return err
+
+
+def kernels_paged(torch, F, ops, ref, gen, main, rec, card) -> None:
     bf16, f32 = torch.bfloat16, torch.float32
     synth = _paged_case(torch, gen, 4, 16, 16, 128, 16, 128,
                         [150, 171, 118, 190], [3, 0, 14, 7], 12, bf16)
     if main is None:
         main = (synth, {"softcap": None})
+    # B 1 with a 2048-token context: 128 columns cross every warp and
+    # block split
+    long1 = _paged_case(torch, gen, 1, 16, 16, 128, 16, 128, [2047], [0],
+                        128, bf16)
+    # first mid-block (21, 37), one row live inside one block (35..40)
+    midblock = _paged_case(torch, gen, 3, 16, 16, 128, 16, 40,
+                           [150, 40, 200], [21, 35, 37], 13, bf16)
     cases = [
         ("main path", main[0], main[1]["softcap"]),
         ("bf16 H=KV=16 hd128 bs16", synth, None),
@@ -665,17 +761,36 @@ def kernels_paged(torch, F, ops, ref, gen, main, rec) -> None:
          30.0),
         ("hd8 bf16 gqa", _paged_case(torch, gen, 2, 4, 1, 8, 4, 8,
                                      [9, 5], [0, 1], 3, bf16), None),
+        ("bf16 gqa H8 KV2", _paged_case(torch, gen, 3, 8, 2, 128, 16, 40,
+                                        [150, 61, 200], [3, 0, 17], 13,
+                                        bf16), None),
+        ("bf16 softcap 30", _paged_case(torch, gen, 3, 16, 16, 128, 16, 40,
+                                        [150, 61, 200], [3, 0, 17], 13,
+                                        bf16), 30.0),
+        ("bf16 hd16", _paged_case(torch, gen, 3, 4, 4, 16, 16, 40,
+                                  [150, 61, 200], [3, 0, 17], 13, bf16),
+         None),
+        ("bf16 hd64", _paged_case(torch, gen, 3, 8, 8, 64, 16, 40,
+                                  [150, 61, 200], [3, 0, 17], 13, bf16),
+         None),
+        ("bf16 first mid-block, a range inside one block", midblock, None),
+        # hd not a multiple of a 16-byte chunk: element loads
+        ("bf16 hd12 gqa, element loads",
+         _paged_case(torch, gen, 3, 4, 2, 12, 16, 40, [150, 61, 200],
+                     [3, 0, 17], 13, bf16), None),
+        ("f32 hd10, element loads",
+         _paged_case(torch, gen, 3, 4, 4, 10, 8, 10, [20, 9, 30], [2, 0, 5],
+                     4, f32), None),
+        ("bf16 B1 2048-token context", long1, None),
     ]
     errs = {}
-    for name, (q, kp, vp, tb, fi, la), cap in cases:
-        got = ops.paged_decode_attention(q, kp, vp, tb, fi, la, softcap=cap)
-        want = ref.paged_attention_ref(q, kp, vp, tb, fi, la, softcap=cap)
-        torch.cuda.synchronize()
-        err, tol = max_err(got, want), tolerance(want)
-        errs[name] = err
-        log(f"  paged_decode_attention [{name}] {tuple(q.shape)} "
-            f"{dtype_name(q)} max|err| {err:.3e} (tol {tol:.3g})")
-        check(err <= tol, f"paged decode {name}: {err} > {tol}")
+    for name, args, cap in cases:
+        errs[name] = _paged_check(torch, ops, ref, name, args, cap)
+    for n in (1, 3, 16):
+        _paged_check(torch, ops, ref, "bf16 B1 2048-token context", long1,
+                     None, n_splits=n)
+    _paged_check(torch, ops, ref, "bf16 first mid-block, a range inside one "
+                 "block", midblock, None, n_splits=4)
     # a row whose table is all -1 must stay finite
     q, kp, vp, tb, fi, la = _paged_case(torch, gen, 2, 2, 1, 8, 4, 4, [5, 0],
                                         [0, 0], 2, f32, all_free_row=True)
@@ -687,44 +802,41 @@ def kernels_paged(torch, F, ops, ref, gen, main, rec) -> None:
         f"max|err| {err:.3e} (tol 2e-05)")
     check(err <= 2e-5, f"paged decode unallocated row: {err}")
 
-    (q, kp, vp, tb, fi, la), kw = main
-    t_k = bench_ms(lambda: ops.paged_decode_attention(q, kp, vp, tb, fi, la,
-                                                      **kw))
-    t_p = bench_ms(lambda: ref.paged_attention_ref(q, kp, vp, tb, fi, la,
-                                                   **kw))
-    # yardstick: SDPA over the K/V gathered out of the pool (gather not
-    # timed); GQA by repeating the KV heads
-    B, H, hd = q.shape
-    bs, KV = kp.shape[1], kp.shape[2]
-    nb = tb.shape[1]
-    tbl = tb.long().clamp(0, kp.shape[0] - 1)
-    kg = kp[tbl].reshape(B, nb * bs, KV, hd).repeat_interleave(
-        H // KV, dim=2).transpose(1, 2)
-    vg = vp[tbl].reshape(B, nb * bs, KV, hd).repeat_interleave(
-        H // KV, dim=2).transpose(1, 2)
-    pos = torch.arange(nb * bs, device=DEV)[None]
-    mask = ((pos >= fi[:, None]) & (pos <= la[:, None])
-            & (tb >= 0).repeat_interleave(bs, 1))[:, None, None, :]
-    qs = q[:, :, None, :]
-    t_l = bench_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg,
-                                                          attn_mask=mask))
-    nbytes, flops = paged_work(q, kp, tb, fi, la)
-    bnd, by = bound_ms(nbytes, flops, dtype_name(q))
-    log(f"  paged_decode_attention main path B{B} H{H} KV{KV} hd{hd} "
-        f"bs{bs} nb{nb}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"SDPA(gathered) {t_l:.4f} ms, bound {bnd:.5f} ms ({by}, "
-        f"{nbytes} bytes)")
+    args, kw = main
+    _deterministic(torch, lambda: ops.paged_decode_attention(*args, **kw),
+                   "paged_decode_attention")
+    t_k, t_p, t_l, bnd, by = _paged_times(torch, F, ops, ref, args, kw,
+                                          "main path", card, (1, 2, 3, 4))
     rec["paged_decode_attention"] = dict(
         max_abs_err=errs["main path"], ms=t_k, plain_ms=t_p, bound_ms=bnd,
         bound_by=by, library_ms=t_l)
+    _paged_times(torch, F, ops, ref, long1, {}, "B1 2048-token context",
+                 card, (1, 4, 8, 16))
+    # serving scale: 32 rows of 2048 tokens, ~537 MB of K/V
+    big = _paged_case(torch, gen, 32, 16, 16, 128, 16, 32 * 128,
+                      [2047] * 32, [0] * 32, 128, bf16)
+    _paged_check(torch, ops, ref, "bf16 B32 2048-token contexts", big, None)
+    _paged_times(torch, F, ops, ref, big, {}, "B32 2048-token contexts",
+                 card, (1, 2))
+    del big
 
 
-def _flash_case(torch, gen, B, Sq, Sk, H, KV, hd, dtype, past, pads):
+def _deterministic(torch, fn, name) -> None:
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{name}: two calls on the same inputs differ")
+    log(f"  {name} [determinism] two calls on the main-path inputs are "
+        "bitwise equal")
+
+
+def _flash_case(torch, gen, B, Sq, Sk, H, KV, hd, dtype, past, pads,
+                lead=None):
     """Chunked-prefill shaped inputs: row b has ``past[b]`` cached keys at
-    relative positions 0.., its chunk queries follow them (the first
-    ``pads[b]`` chunk columns are pads, position -1); unwritten slots of
-    the gathered buffer carry -1."""
+    relative positions 0.. (after ``lead[b]`` unwritten slots), its chunk
+    queries follow them (the first ``pads[b]`` chunk columns are pads,
+    position -1); unwritten slots of the gathered buffer carry -1."""
     dev = DEV
+    lead = lead or [0] * B
     q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
@@ -732,14 +844,46 @@ def _flash_case(torch, gen, B, Sq, Sk, H, KV, hd, dtype, past, pads):
     kv_pos = torch.full((B, Sk), -1, dtype=torch.int32)
     q_pos = torch.full((B, Sq), -1, dtype=torch.int32)
     for b in range(B):
-        kv_pos[b, :past[b]] = torch.arange(past[b])
+        kv_pos[b, lead[b]:lead[b] + past[b]] = torch.arange(past[b])
         real = torch.arange(past[b], past[b] + Sq - pads[b])
         q_pos[b, pads[b]:] = real
         kv_pos[b, nbuf + pads[b]:] = real
     return q, k, v, q_pos.to(dev), kv_pos.to(dev)
 
 
-def kernels_flash(torch, F, ops, ref, gen, main, rec) -> None:
+def _flash_library(torch, F, q, k, v, qp, kvp, causal=True, window=None,
+                   softcap=None):
+    """Yardstick: SDPA with the position mask as a bool mask (GQA by
+    repeating the KV heads; no softcap form exists, so it is left out)."""
+    G = q.shape[2] // k.shape[2]
+    kp, qq = kvp[:, None, :], qp[:, :, None]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= qq)
+    if window:
+        mask = mask & (qq - kp < window)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask[:, None])
+
+
+def _flash_times(torch, F, ops, ref, args, kw, label, card):
+    q, k, v, qp, kvp = args
+    t_k = bench_ms(lambda: ops.flash_attention(*args, **kw))
+    t_p = bench_ms(lambda: ref.flash_attention_ref(*args, **kw))
+    t_l = bench_ms(_flash_library(torch, F, *args, **kw))
+    nbytes, flops = flash_work(q, k, qp, kvp, kw.get("causal", True),
+                               kw.get("window"))
+    bnd, by = bound_ms(nbytes, flops, dtype_name(q))
+    log(f"  flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)}: "
+        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA(bool mask) "
+        f"{t_l:.4f} ms, bound {bnd:.5f} ms ({by}, {nbytes} bytes, {flops} "
+        f"flops) [{card['smi']}]")
+    return t_k, t_p, t_l, bnd, by
+
+
+def kernels_flash(torch, F, ops, ref, gen, main, rec, card) -> None:
     bf16, f32 = torch.bfloat16, torch.float32
     # olmo-1b chunked prefill: 4 rows, C = 16 queries against the gathered
     # 32-block table (512 slots) + the chunk, bf16
@@ -747,6 +891,7 @@ def kernels_flash(torch, F, ops, ref, gen, main, rec) -> None:
                         [96, 0, 160, 48], [0, 5, 0, 11])
     if main is None:
         main = (synth, {"causal": True, "window": None, "softcap": None})
+    chunk = [96, 0, 160, 48], [0, 5, 0, 11]
     cases = [
         ("main path", main[0], main[1]),
         ("bf16 H=KV=16 hd128 Sq16 Sk528", synth, {}),
@@ -758,6 +903,36 @@ def kernels_flash(torch, F, ops, ref, gen, main, rec) -> None:
                                      [10, 3], [1, 0]), {"window": 5}),
         ("hd8 bf16", _flash_case(torch, gen, 1, 16, 48, 2, 1, 8, bf16,
                                  [20], [3]), {}),
+        ("bf16 gqa H8 KV2", _flash_case(torch, gen, 4, 16, 528, 8, 2, 128,
+                                        bf16, *chunk), {}),
+        ("bf16 softcap 30", _flash_case(torch, gen, 4, 16, 528, 16, 16, 128,
+                                        bf16, *chunk), {"softcap": 30.0}),
+        ("bf16 window 5", _flash_case(torch, gen, 4, 16, 528, 16, 16, 128,
+                                      bf16, *chunk), {"window": 5}),
+        ("bf16 hd16", _flash_case(torch, gen, 4, 16, 528, 4, 4, 16, bf16,
+                                  *chunk), {}),
+        ("bf16 hd64", _flash_case(torch, gen, 4, 16, 528, 8, 8, 64, bf16,
+                                  *chunk), {}),
+        ("bf16 Sq13", _flash_case(torch, gen, 3, 13, 141, 8, 8, 128, bf16,
+                                  [40, 0, 100], [0, 4, 2]), {}),
+        ("bf16 Sq40 gqa", _flash_case(torch, gen, 3, 40, 296, 8, 2, 128,
+                                      bf16, [40, 0, 200], [0, 4, 2]), {}),
+        ("bf16 Sq40 window 5 softcap 30",
+         _flash_case(torch, gen, 3, 40, 296, 8, 8, 64, bf16, [40, 0, 200],
+                     [0, 4, 2]), {"window": 5, "softcap": 30.0}),
+        ("bf16 live keys from mid-tile",
+         _flash_case(torch, gen, 3, 16, 528, 16, 16, 128, bf16,
+                     [96, 30, 160], [0, 3, 0], lead=[37, 75, 21]), {}),
+        ("bf16 non-causal", _flash_case(torch, gen, 2, 16, 80, 4, 4, 64,
+                                        bf16, [30, 10], [0, 3]),
+         {"causal": False}),
+        # hd not a multiple of a 16-byte chunk: element loads
+        ("bf16 hd12 gqa, element loads",
+         _flash_case(torch, gen, 2, 16, 80, 4, 2, 12, bf16, [30, 10],
+                     [0, 3]), {}),
+        ("bf16 hd12 Sq40, element loads",
+         _flash_case(torch, gen, 2, 40, 104, 4, 4, 12, bf16, [30, 10],
+                     [0, 3]), {}),
     ]
     errs = {}
     for name, (q, k, v, qp, kvp), kw in cases:
@@ -786,24 +961,26 @@ def kernels_flash(torch, F, ops, ref, gen, main, rec) -> None:
             f"{err:.3e} (tol 2e-05)")
         check(err <= 2e-5, f"aligned flash causal={causal}: {err}")
 
-    (q, k, v, qp, kvp), kw = main
-    t_k = bench_ms(lambda: ops.flash_attention(q, k, v, qp, kvp, **kw))
-    t_p = bench_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kvp, **kw))
-    G = q.shape[2] // k.shape[2]
-    mask = (kvp[:, None, :] >= 0) & (kvp[:, None, :] <= qp[:, :, None])
-    qt = q.transpose(1, 2)
-    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))
-    t_l = bench_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask[:, None]))
-    nbytes, flops = flash_work(q, k, qp, kvp, kw.get("causal", True),
-                               kw.get("window"))
-    bnd, by = bound_ms(nbytes, flops, dtype_name(q))
-    log(f"  flash_attention main path q{tuple(q.shape)} k{tuple(k.shape)}: "
-        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA(bool mask) "
-        f"{t_l:.4f} ms, bound {bnd:.5f} ms ({by}, {nbytes} bytes)")
+    args, kw = main
+    _deterministic(torch, lambda: ops.flash_attention(*args, **kw),
+                   "flash_attention")
+    t_k, t_p, t_l, bnd, by = _flash_times(torch, F, ops, ref, args, kw,
+                                          "main path", card)
     rec["flash_attention"] = dict(
         max_abs_err=errs["main path"], ms=t_k, plain_ms=t_p, bound_ms=bnd,
         bound_by=by, library_ms=t_l)
+    # a 256-query chunk after 1792 cached keys
+    big = _flash_case(torch, gen, 4, 256, 2048, 16, 16, 128, bf16,
+                      [1792] * 4, [0] * 4)
+    q, k, v, qp, kvp = big
+    got = ops.flash_attention(*big)
+    want = ref.flash_attention_ref(*big)
+    torch.cuda.synchronize()
+    err, tol = max_err(got, want), tolerance(want)
+    log(f"  flash_attention [bf16 Sq256 after 1792 keys] max|err| {err:.3e} "
+        f"(tol {tol:.3g})")
+    check(err <= tol, f"flash Sq256: {err} > {tol}")
+    _flash_times(torch, F, ops, ref, big, {}, "Sq256 after 1792 keys", card)
 
 
 def _topk_check(torch, ops, ref, q, d, k, name, tol=1e-5):
@@ -1088,8 +1265,9 @@ def phase_kernels(torch, card, captured: dict, rec: dict) -> None:
         return args, kw
 
     kernels_paged(torch, F, ops, ref, gen, main("paged_decode_attention"),
-                  rec)
-    kernels_flash(torch, F, ops, ref, gen, main("flash_attention"), rec)
+                  rec, card)
+    kernels_flash(torch, F, ops, ref, gen, main("flash_attention"), rec,
+                  card)
     kernels_topk(torch, ops, ref, gen, main("retrieval_topk"), rec)
     kernels_ivf(torch, ops, ref, gen, main("ivf_retrieval_topk"), rec, card)
 

@@ -94,6 +94,17 @@ def build_all(ptxas_verbose: bool = False) -> Dict[str, str]:
     return reports
 
 
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library ``name`` (built first if
+    missing): the machine code the card runs."""
+    path = _lib_path(name)
+    if not path.exists():
+        build_all()
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if missing)."""
     lib = _LIBS.get(name)

@@ -26,7 +26,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     ("paged_attention", "paged_decode_attention"):
-        [_VP] * 7 + [_I] * 7 + [_F, _I, _VP],
+        [_VP] * 9 + [_I] * 8 + [_F, _I, _VP],
     ("flash_attention", "flash_attention"):
         [_VP] * 6 + [_I] * 8 + [_F, _I, _VP],
     ("topk", "retrieval_topk"): [_VP] * 6 + [_I] * 6 + [_VP],
@@ -116,13 +116,51 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _require(t.dtype == torch.int32, f"{name} must be int32")
     _contiguous(q=q, k_pool=k_pool, v_pool=v_pool, block_tables=block_tables,
                 first=first, last=last)
-    out = torch.empty_like(q)
     if B == 0 or nb == 0:
-        return out.zero_()
+        return torch.zeros_like(q)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return _paged_launch(q, k_pool, v_pool, block_tables, first, last,
+                         softcap, paged_decode_splits(B, KV, nb, sms))
+
+
+PAGED_WARPS = 4   # warps of a paged-decode thread block (csrc)
+
+
+def paged_decode_splits(B: int, KV: int, nb: int, sms: int) -> int:
+    """How many thread blocks share one (row, KV head)'s table columns.
+
+    1 when the B*KV blocks already fill the ``sms`` SMs; else enough
+    splits for about two blocks per SM (a decode block is latency-bound,
+    and a second one per SM keeps more loads in flight), but never so
+    many that a split holds fewer columns than its block has warps (each
+    warp takes whole columns), and so never more than the ``nb`` columns
+    the kernel walks (decode passes the table cut to its live width)."""
+    rows = max(1, B * KV)
+    if rows >= sms:
+        return 1
+    return max(1, min(-(-2 * sms // rows), nb // PAGED_WARPS))
+
+
+def _paged_launch(q, k_pool, v_pool, block_tables, first, last, softcap,
+                  n_splits: int) -> torch.Tensor:
+    """Launch the paged decode kernel (and its combine pass when
+    ``n_splits`` > 1) on checked CUDA inputs."""
+    B, H, hd = q.shape
+    P, bs, KV, _ = k_pool.shape
+    nb = block_tables.shape[1]
+    out = torch.empty_like(q)
+    part_ml = part_acc = None
+    if n_splits > 1:
+        part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((B, H, n_splits, hd), dtype=torch.float32,
+                               device=q.device)
     rc = _fn("paged_attention", "paged_decode_attention")(
         _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(block_tables),
-        _ptr(first), _ptr(last), _ptr(out), B, H, KV, hd, bs, nb, P,
-        float(softcap or 0.0), _DTYPE_CODE[q.dtype], _stream(q))
+        _ptr(first), _ptr(last), _ptr(out),
+        None if part_ml is None else _ptr(part_ml),
+        None if part_acc is None else _ptr(part_acc), B, H, KV, hd, bs, nb,
+        P, n_splits, float(softcap or 0.0), _DTYPE_CODE[q.dtype], _stream(q))
     _check_rc(rc, "paged_decode_attention")
     launches["paged_decode_attention"] += 1
     return out
