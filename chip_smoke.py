@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases card,build,kernels
     python3 chip_smoke.py --phases card,build,cluster
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
+    python3 chip_smoke.py --phases card,build,kernels --topk-sweep
+                                          # + topk.cu rebuilt with other knobs
 
 Phases, in order:
   card     nvidia-smi name and power limit, capability (9, 0), TF32 off
@@ -36,7 +38,12 @@ Phases, in order:
            attention kernel on the main-path inputs are bitwise equal;
            paged decode also at forced split counts, with B 1 and B 32
            2048-token contexts, flash also on a 256-query chunk after
-           1792 keys; the IVF probe also on a trained 1M-doc shard
+           1792 keys; exact top-k also on ties across tiles and splits,
+           Nq 33 and 65, D 30 and 2048, Nd 1, an unaligned pointer and
+           a 1M-doc shard (Nq 32 at k 5 and 32, Nq 1), with two calls
+           bitwise equal and the device kernels of one main-path call
+           counted under torch.profiler; the IVF probe also on a
+           trained 1M-doc shard
   parity   the same slice and the same two-node cluster at the olmo-1b
            smoke config (f32) on the card and on the CPU, from the same
            weights: answers (and the nodes' contexts and sources) agree
@@ -69,6 +76,7 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2 ** 20
 DEV = "cuda"      # where the slice and the kernel cases run
+TOPK_SWEEP = False   # --topk-sweep: time topk.cu rebuilt with other knobs
 SHARD_DOCS = 1_000_000   # a realistic index shard: 1M docs x D=256, f32
 
 KERNEL_META = {
@@ -85,6 +93,7 @@ KERNEL_META = {
         "src/repro_torch/kernels/csrc/ivf_topk.cu",
         "src/repro/kernels/topk_retrieval.py:143"),
 }
+TOPK_KERNEL = re.compile(r"\btopk_(scan|merge)_kernel\b")
 # the kernels each main path must launch
 SLICE_KERNELS = ("paged_decode_attention", "flash_attention",
                  "retrieval_topk")
@@ -96,13 +105,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bench_ms(fn, reps: int = 25) -> float:
-    """Median device time of one call of ``fn`` with a cold L2, by CUDA
-    events.  Before each call a write of twice the L2 evicts it and a
-    short device sleep keeps the card busy while the host enqueues the
-    call, so the events bracket the device work and not the host's
-    launch (a plain version of many small operations still shows the
-    host gaps between them)."""
+def bench_ms(fn, reps: int = 25, cold: bool = True) -> float:
+    """Median device time of one call of ``fn`` with a cold L2 (warm when
+    ``cold`` is False), by CUDA events.  Before each call a write of
+    twice the L2 evicts it and a short device sleep keeps the card busy
+    while the host enqueues the call, so the events bracket the device
+    work and not the host's launch (a plain version of many small
+    operations still shows the host gaps between them)."""
     import torch
     flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32,
                         device="cuda")
@@ -112,7 +121,8 @@ def bench_ms(fn, reps: int = 25) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
+        if cold:
+            flush.zero_()
         torch.cuda._sleep(200_000)
         start.record()
         fn()
@@ -275,6 +285,28 @@ def phase_build() -> None:
         log(f"  sass[flash_attention] {n} HMMA in {f}")
     check(bool(mma) and all(n > 0 for n in mma.values()),
           f"the bf16 flash kernels carry no HMMA instruction: {per_fn}")
+    # the top-k scan kernels' instruction mix: f32 FFMA, shared loads
+    # (LDS.128 are the float4 reads of the register tile), cp.async
+    ops_of, fn = {}, None
+    for line in build.sass("topk").splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            ops_of[fn] = {"all": 0, "FFMA": 0, "LDS.128": 0, "LDS": 0,
+                          "LDGSTS": 0, "SHFL": 0}
+        elif fn is not None:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m is None:
+                continue
+            op = m.group(1)
+            ops_of[fn]["all"] += 1
+            for key in ("FFMA", "LDGSTS", "SHFL"):
+                if op.split(".")[0] == key:
+                    ops_of[fn][key] += 1
+            if op.startswith("LDS"):
+                ops_of[fn]["LDS.128" if ".128" in op else "LDS"] += 1
+    for f, counts in ops_of.items():
+        if "topk_scan_kernel" in f:
+            log(f"  sass[topk] {f}: {json.dumps(counts)}")
 
 
 class MainPathInputs:
@@ -385,7 +417,8 @@ def timed_segments(torch):
         ContinuousSession.run_segment = run_segment
 
 
-def phase_slice(torch, card, captured: dict, profile: bool = False) -> dict:
+def phase_slice(torch, card, captured: dict, profile: bool = False,
+                traced: list = None) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import Model
@@ -457,7 +490,7 @@ def phase_slice(torch, card, captured: dict, profile: bool = False) -> dict:
     for r in results[:3]:
         log(f"  q: {r.question!r} -> {r.answer[:60]!r}")
     if profile:
-        profile_slice(torch, rag, qs, tag)
+        traced.extend(profile_slice(torch, rag, qs, tag))
     return launches
 
 
@@ -612,11 +645,12 @@ def phase_cluster(torch, card, captured: dict) -> dict:
     return launches
 
 
-def profile_slice(torch, rag, qs, tag) -> None:
+def profile_slice(torch, rag, qs, tag) -> list:
     """One more pass of the slice under torch.profiler: the device's busy
     share of the traced window (union of kernel, memcpy and memset
     intervals over the span of all traced events) and device time by
-    kernel.  The profiler's own host overhead lowers the busy share."""
+    kernel.  The profiler's own host overhead lowers the busy share.
+    Returns the names of the device kernels the pass ran, in order."""
     from torch.profiler import ProfilerActivity, profile
     trace = ROOT / "build" / "slice_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
@@ -647,11 +681,12 @@ def profile_slice(torch, rag, qs, tag) -> None:
         log(f"  {100 * us / total:5.1f}% {us / 1e3:8.2f} ms  {name[:90]}")
     mine = re.compile(r"\b(paged_decode_kernel|paged_combine_kernel|"
                       r"flash_kernel|flash_mma_kernel|"
-                      r"topk_partial_kernel|topk_merge_kernel|"
+                      r"topk_scan_kernel|topk_merge_kernel|"
                       r"ivf_probe_kernel|ivf_merge_kernel)\b")
     ours = sum(us for name, us in by_name.items() if mine.search(name))
     log(f"profile: the port's CUDA kernels {ours / 1e3:.2f} ms "
         f"({100 * ours / total:.1f}% of device time)")
+    return [e["name"] for _, _, e in dev if e.get("cat") == "kernel"]
 
 
 def _paged_case(torch, gen, B, H, KV, hd, bs, P, lengths, firsts, nb,
@@ -997,7 +1032,7 @@ def _topk_check(torch, ops, ref, q, d, k, name, tol=1e-5):
     return s, i, err
 
 
-def _topk_times(torch, ops, ref, q, d, k, label):
+def _topk_times(torch, ops, ref, q, d, k, label, card):
     t_k = bench_ms(lambda: ops.retrieval_topk(q, d, k))
     t_p = bench_ms(lambda: ref.topk_ref(q, d, k))
     t_l = bench_ms(lambda: torch.topk(q @ d.T, k))
@@ -1005,18 +1040,152 @@ def _topk_times(torch, ops, ref, q, d, k, label):
     bnd, by = bound_ms(nbytes, flops, "float32")
     log(f"  retrieval_topk {label} Nq{q.shape[0]} Nd{d.shape[0]} "
         f"D{q.shape[1]} k{k}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"topk(q@d.T) {t_l:.4f} ms, bound {bnd:.5f} ms ({by})")
+        f"topk(q@d.T) {t_l:.4f} ms, bound {bnd:.5f} ms ({by}), "
+        f"{100 * bnd / t_k:.1f}% of the bound [{card['smi']}]")
     return t_k, t_p, t_l, bnd, by
 
 
-def kernels_topk(torch, ops, ref, gen, main, rec) -> None:
+def _topk_same_twice(torch, ops, q, d, k, label) -> None:
+    (s1, i1), (s2, i2) = ops.retrieval_topk(q, d, k), \
+        ops.retrieval_topk(q, d, k)
+    torch.cuda.synchronize()
+    check(torch.equal(s1, s2) and torch.equal(i1, i2),
+          f"retrieval_topk {label}: two calls on the same inputs differ")
+    log(f"  retrieval_topk [determinism] two calls on the {label} inputs "
+        "are bitwise equal")
+
+
+def _device_kernels(torch, fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs, from a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "topk_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    return [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def _topk_dup_case(torch, ops, ref, gen, sms) -> None:
+    """Equal doc rows across a tile boundary, a split boundary and far
+    apart, in a corpus the split rule cuts: each query's best row appears
+    two or three times, and its ids must come out lowest first."""
+    nd = 20_000
+    _, n_splits, per = ops.retrieval_topk_plan(4, nd, sms)
+    tile = ops.TOPK_TILE
+    d = torch.randn(nd, 64, generator=gen, device=DEV)
+    d = d / d.norm(dim=1, keepdim=True)
+    dups = [(tile - 1, tile), (per - 1, per, 2 * per + tile),
+            (5, nd - 1), (per + 3, 3 * per + 3)]
+    for g in dups:
+        d[list(g[1:])] = d[g[0]].clone()
+    q = torch.stack([2.0 * d[g[0]] for g in dups])
+    s, i, _ = _topk_check(torch, ops, ref, q, d, 4,
+                          f"ties across tiles and {n_splits} splits")
+    for row, g in enumerate(dups):
+        check(i[row, :len(g)].tolist() == list(g)
+              and bool((s[row, :len(g)] == s[row, 0]).all()),
+              f"ties must go to the lowest doc id: row {row} "
+              f"{i[row].tolist()} vs {g}")
+
+
+def _topk_forced_splits(torch, ops, q, d, k, counts, label, card) -> None:
+    """The kernel with the docs cut into about ``counts`` splits instead
+    of the rule's: results bitwise equal to the rule's (a doc scores the
+    same in every split), and the time of each count."""
+    tile = ops.TOPK_TILE
+    s0, i0 = ops.retrieval_topk(q, d, k)
+    times = []
+    for want in counts:
+        per = -(-(-(-d.shape[0] // tile)) // want) * tile
+        n = -(-d.shape[0] // per)
+        s, i = ops._topk_launch(q, d, k, n, per)
+        torch.cuda.synchronize()
+        check(torch.equal(s, s0) and torch.equal(i, i0),
+              f"retrieval_topk {label}: {n} splits differ from the rule's")
+        t = bench_ms(lambda: ops._topk_launch(q, d, k, n, per))
+        times.append(f"{n}: {t:.4f}")
+    log(f"  retrieval_topk {label} Nq{q.shape[0]} forced splits (bitwise "
+        f"equal to the rule's) ms {', '.join(times)} [{card['smi']}]")
+
+
+# topk.cu knobs (-D) of the exploratory sweep, by name
+TOPK_VARIANTS = {
+    "as built": [],
+    "3 stages": ["-DTOPK_STAGES=3"],
+    "4 stages": ["-DTOPK_STAGES=4"],
+    "chunk 64 dims": ["-DTOPK_KC=64"],
+    "chunk 64 dims, 3 stages": ["-DTOPK_KC=64", "-DTOPK_STAGES=3"],
+    "no L2 256B hint": ["-DTOPK_L2_256B=0"],
+}
+
+
+def topk_sweep(torch, ops, cases, card) -> None:
+    """Rebuild topk.cu once per TOPK_VARIANTS entry (in parallel), check
+    each against the built kernel (bitwise: the knobs keep every sum's
+    order) and time it on ``cases`` {label: (q, d, k)}."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = ROOT / "build" / "topk_sweep"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, flags in TOPK_VARIANTS.items():
+        lib = out / f"lib{len(procs)}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(lib),
+             str(build.CSRC / "topk.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (lib, proc) in procs.items():
+        log_text = proc.communicate()[0]
+        check(proc.returncode == 0, f"topk sweep {name}: nvcc\n{log_text}")
+        fn = ctypes.CDLL(str(lib)).retrieval_topk
+        fn.argtypes = ops._SIGNATURES[("topk", "retrieval_topk")]
+        fn.restype = ctypes.c_int
+        times = []
+        for label, (q, d, k) in cases.items():
+            _, n, per = ops.retrieval_topk_plan(q.shape[0], d.shape[0], sms)
+
+            def call():
+                s = torch.empty((q.shape[0], k), device=q.device)
+                i = torch.empty((q.shape[0], k), dtype=torch.int32,
+                                device=q.device)
+                ps = torch.empty((q.shape[0], n, k), device=q.device)
+                pi = torch.empty((q.shape[0], n, k), dtype=torch.int32,
+                                 device=q.device)
+                rc = fn(ops._ptr(q), ops._ptr(d), ops._ptr(ps), ops._ptr(pi),
+                        ops._ptr(s), ops._ptr(i), q.shape[0], d.shape[0],
+                        q.shape[1], k, per, n, ops._stream(q))
+                check(rc == 0, f"topk sweep {name}: cudaError {rc}")
+                return s, i
+
+            s, i = call()
+            s0, i0 = ops.retrieval_topk(q, d, k)
+            torch.cuda.synchronize()
+            check(torch.equal(s, s0) and torch.equal(i, i0),
+                  f"topk sweep {name} {label}: differs from the built kernel")
+            times.append(f"{label} {bench_ms(call):.4f}")
+        log(f"  retrieval_topk sweep [{name}] ms: {', '.join(times)} "
+            f"[{card['smi']}]")
+
+
+def kernels_topk(torch, ops, ref, gen, main, rec, card, traced) -> None:
     def unit(n, d):
         x = torch.randn(n, d, generator=gen, device=DEV)
         return x / x.norm(dim=1, keepdim=True)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if main is None:   # 8 questions against the 240-chunk corpus, k = 3
         main = ((unit(8, 256), unit(240, 256), 3), {})
     qm, dm, km = main[0]
+    log(f"  retrieval_topk plan (groups, splits, docs per split): main "
+        f"path {ops.retrieval_topk_plan(qm.shape[0], dm.shape[0], sms)}, "
+        f"1M docs Nq32 {ops.retrieval_topk_plan(32, SHARD_DOCS, sms)}")
     _, _, err_main = _topk_check(torch, ops, ref, qm, dm, km, "main path")
     base = torch.randn(6, 16, generator=gen, device=DEV)
     dup = torch.cat([base, base, base])          # ids i, i+6, i+12 tie
@@ -1024,17 +1193,70 @@ def kernels_topk(torch, ops, ref, gen, main, rec) -> None:
     check(bool((i[:, 0] == torch.arange(4, device=DEV)).all())
           and bool((i[:, 1] == torch.arange(4, device=DEV) + 6).all()),
           "ties must go to the lowest doc id")
+    _topk_dup_case(torch, ops, ref, gen, sms)
     s, i, _ = _topk_check(torch, ops, ref, unit(4, 8), unit(3, 8), 5,
                           "k > Nd")
     check(bool((i[:, 3:] == -1).all()) and bool((s[:, 3:] <= -1e29).all()),
           "k > Nd must fill (-1e30, -1)")
     _topk_check(torch, ops, ref, unit(33, 64), unit(4097, 64), 32, "ragged")
+    _topk_check(torch, ops, ref, unit(65, 64), unit(3001, 64), 7, "Nq 65")
+    # a short split for <= 8 queries spreads its docs over the warps; their
+    # 4 lists of k merge at once when they fit one 64-entry buffer (k 16),
+    # else one at a time (k 17)
+    _topk_check(torch, ops, ref, unit(8, 64), unit(500, 64), 16,
+                "spread, k 16")
+    _topk_check(torch, ops, ref, unit(8, 64), unit(500, 64), 17,
+                "spread, k 17")
+    _topk_check(torch, ops, ref, unit(5, 30), unit(2000, 30), 6, "D 30")
+    s, i, _ = _topk_check(torch, ops, ref, unit(3, 16), unit(1, 16), 3,
+                          "Nd 1")
+    check(bool((i[:, 0] == 0).all()) and bool((i[:, 1:] == -1).all()),
+          "Nd 1: one doc, then the fill")
+    flat = unit(1, 12 * 256 + 1).view(-1)[1:]     # 4 bytes off 16
+    _topk_check(torch, ops, ref, flat[:256].view(1, 256),
+                flat[256:].view(11, 256), 4, "unaligned, D 256")
+    _topk_check(torch, ops, ref, unit(40, 2048), unit(3000, 2048), 5,
+                "queries staged, D 2048")
     qs, ds = unit(32, 256), unit(SHARD_DOCS, 256)
     _topk_check(torch, ops, ref, qs, ds, 5, "1M-doc shard")
+    _topk_check(torch, ops, ref, qs, ds, 32, "1M-doc shard")
+    _topk_check(torch, ops, ref, qs[:1], ds, 5, "1M-doc shard")
+    _topk_same_twice(torch, ops, qm, dm, km, "main-path")
+    _topk_same_twice(torch, ops, qs, ds, 5, "1M-doc")
+    # one profiler session per process: after the --profile slice pass a
+    # second session traced no kernels on the card, so the count then
+    # comes from that pass, whose one FlatIndex search is a main-path call
+    if traced:
+        names = [n for n in traced if TOPK_KERNEL.search(n)]
+        what = "the profiled slice pass's main-path call"
+    else:
+        names = _device_kernels(torch,
+                                lambda: ops.retrieval_topk(qm, dm, km))
+        what = "one main-path call"
+    log(f"  retrieval_topk [profile] {what} ran {len(names)} device "
+        f"kernel(s): {names}")
+    if ops.retrieval_topk_plan(qm.shape[0], dm.shape[0], sms)[1] == 1:
+        check(len(names) == 1, f"main path: {len(names)} device kernels")
 
     t_k, t_p, t_l, bnd, by = _topk_times(torch, ops, ref, qm, dm, km,
-                                         "main path")
-    _topk_times(torch, ops, ref, qs, ds, 5, "1M-doc shard")
+                                         "main path", card)
+    _topk_times(torch, ops, ref, qs, ds, 5, "1M-doc shard", card)
+    _topk_times(torch, ops, ref, qs[:1], ds, 5, "1M-doc shard", card)
+    one = unit(1, qm.shape[1])
+    log(f"  retrieval_topk main path with a warm L2: kernel "
+        f"{bench_ms(lambda: ops.retrieval_topk(qm, dm, km), cold=False):.4f}"
+        f" ms, topk(q@d.T) "
+        f"{bench_ms(lambda: torch.topk(qm @ dm.T, km), cold=False):.4f} ms; "
+        f"against one doc (launch, ring, selection) "
+        f"{bench_ms(lambda: ops.retrieval_topk(qm, one, 1)):.4f} ms "
+        f"[{card['smi']}]")
+    _topk_forced_splits(torch, ops, qm, dm, km, (1, 2), "main path", card)
+    _topk_forced_splits(torch, ops, qs, ds, 5, (sms, 2 * sms, 4 * sms),
+                        "1M-doc shard", card)
+    if TOPK_SWEEP:
+        topk_sweep(torch, ops, {"main path": (qm, dm, km),
+                                "1M Nq32": (qs, ds, 5),
+                                "1M Nq1": (qs[:1], ds, 5)}, card)
     rec["retrieval_topk"] = dict(
         max_abs_err=err_main, ms=t_k, plain_ms=t_p, bound_ms=bnd,
         bound_by=by, library_ms=t_l)
@@ -1252,7 +1474,8 @@ def kernels_ivf(torch, ops, ref, gen, main, rec, card) -> None:
         bound_by=by, library_ms=t_l)
 
 
-def phase_kernels(torch, card, captured: dict, rec: dict) -> None:
+def phase_kernels(torch, card, captured: dict, rec: dict,
+                  traced: list) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=DEV)
@@ -1268,7 +1491,8 @@ def phase_kernels(torch, card, captured: dict, rec: dict) -> None:
                   rec, card)
     kernels_flash(torch, F, ops, ref, gen, main("flash_attention"), rec,
                   card)
-    kernels_topk(torch, ops, ref, gen, main("retrieval_topk"), rec)
+    kernels_topk(torch, ops, ref, gen, main("retrieval_topk"), rec, card,
+                 traced)
     kernels_ivf(torch, ops, ref, gen, main("ivf_retrieval_topk"), rec, card)
 
 
@@ -1329,7 +1553,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one more slice pass with torch.profiler: "
                     "device busy share and device time by kernel")
+    ap.add_argument("--topk-sweep", action="store_true",
+                    help="kernels phase: also time topk.cu rebuilt with "
+                    "other ring depths, chunk widths and L2 hints")
     args = ap.parse_args(argv)
+    global TOPK_SWEEP
+    TOPK_SWEEP = args.topk_sweep
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in ALL_PHASES]
     if bad:
@@ -1348,20 +1577,23 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    rec, captured, launches = {}, {}, {}
+    # rec: the kernels' JSON fields; captured: main-path inputs by kernel;
+    # traced: device kernels of the --profile slice pass
+    rec, captured, launches, traced = {}, {}, {}, []
     try:
         t_all = time.perf_counter()
         card = phase_card(torch)
         if "build" in phases:
             phase_build()
         if "slice" in phases:
-            launches = phase_slice(torch, card, captured, args.profile)
+            launches = phase_slice(torch, card, captured, args.profile,
+                                   traced)
         if "cluster" in phases:
             # a kernel's launches are its counts over both main paths
             for name, n in phase_cluster(torch, card, captured).items():
                 launches[name] = launches.get(name, 0) + n
         if "kernels" in phases:
-            phase_kernels(torch, card, captured, rec)
+            phase_kernels(torch, card, captured, rec, traced)
         if "parity" in phases:
             phase_parity(torch)
         log(f"chip_smoke: phases {phases} passed in "

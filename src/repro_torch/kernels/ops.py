@@ -234,29 +234,62 @@ def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
     _require(queries.dtype == torch.float32 and docs.dtype == torch.float32,
              "queries and docs must be float32")
     _require(docs.shape == (Nd, D), f"docs {tuple(docs.shape)} vs D={D}")
+    _require(D >= 1, "embedding width D must be at least 1")
     _require(1 <= k <= 32, f"k={k} outside [1, 32]")
     _require(Nd < 2 ** 31, "doc count must fit int32")
     _contiguous(queries=queries, docs=docs)
     dev = queries.device
+    if Nq == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, n_splits, per = retrieval_topk_plan(Nq, Nd, sms)
+    return _topk_launch(queries, docs, k, n_splits, per)
+
+
+def _topk_launch(queries, docs, k: int, n_splits: int, per: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the top-k kernel (and its merge pass when ``n_splits`` > 1)
+    on checked CUDA inputs, docs cut into splits of ``per`` rows."""
+    Nq, D = queries.shape
+    dev = queries.device
     out_s = torch.empty((Nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Nq, k), dtype=torch.int32, device=dev)
-    if Nq == 0:
-        return out_s, out_i
-    # split the docs so the (query-tile x split) grid gives every SM a
-    # few blocks; a split's doc rows are read once per 8-query tile
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    q_tiles = -(-Nq // 8)
-    want = max(1, (4 * sms) // q_tiles)
-    per = max(256, -(-max(Nd, 1) // want))
-    n_splits = max(1, -(-Nd // per))
-    part_s = torch.empty((Nq, n_splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((Nq, n_splits, k), dtype=torch.int32, device=dev)
+    part_s = part_i = None
+    if n_splits > 1:
+        part_s = torch.empty((Nq, n_splits, k), dtype=torch.float32,
+                             device=dev)
+        part_i = torch.empty((Nq, n_splits, k), dtype=torch.int32, device=dev)
     rc = _fn("topk", "retrieval_topk")(
-        _ptr(queries), _ptr(docs), _ptr(part_s), _ptr(part_i), _ptr(out_s),
-        _ptr(out_i), Nq, Nd, D, k, per, n_splits, _stream(queries))
+        _ptr(queries), _ptr(docs),
+        None if part_s is None else _ptr(part_s),
+        None if part_i is None else _ptr(part_i), _ptr(out_s), _ptr(out_i),
+        Nq, docs.shape[0], D, k, per, n_splits, _stream(queries))
     _check_rc(rc, "retrieval_topk")
     launches["retrieval_topk"] += 1
     return out_s, out_i
+
+
+TOPK_GROUP = 32   # queries per top-k thread block (csrc/topk.cu kG)
+TOPK_TILE = 128   # docs per top-k tile (csrc/topk.cu kTD)
+
+
+def retrieval_topk_plan(Nq: int, Nd: int, sms: int) -> Tuple[int, int, int]:
+    """How the top-k kernel cuts its work: (query groups, doc splits,
+    docs per split), one thread block per (group, split).
+
+    A block scores its split's docs for a group of ``TOPK_GROUP``
+    queries, so each doc row is read once per group.  The docs are split
+    for about two blocks per SM over the ``sms`` SMs, but a split keeps
+    at least four tiles of ``TOPK_TILE`` docs: a corpus of up to four
+    tiles is one split, and one block then writes the result in a single
+    launch.  A split is a whole number of tiles, and the last one may be
+    short; splits cover [0, Nd) without overlap."""
+    groups = max(1, -(-Nq // TOPK_GROUP))
+    tiles = max(1, -(-Nd // TOPK_TILE))
+    want = max(1, -(-2 * sms // groups))
+    per = -(-tiles // max(1, min(want, tiles // 4))) * TOPK_TILE
+    return groups, max(1, -(-Nd // per)), per
 
 
 def ivf_retrieval_topk(queries: torch.Tensor, list_emb: torch.Tensor,
