@@ -7,6 +7,8 @@
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
                                           # + topk.cu rebuilt with other knobs
+    python3 chip_smoke.py --phases card,build,kernels --ivf-sweep
+                                          # + the same for ivf_topk.cu
 
 Phases, in order:
   card     nvidia-smi name and power limit, capability (9, 0), TF32 off
@@ -42,8 +44,14 @@ Phases, in order:
            Nq 33 and 65, D 30 and 2048, Nd 1, an unaligned pointer and
            a 1M-doc shard (Nq 32 at k 5 and 32, Nq 1), with two calls
            bitwise equal and the device kernels of one main-path call
-           counted under torch.profiler; the IVF probe also on a
-           trained 1M-doc shard
+           counted under torch.profiler; the IVF probe also on its edge
+           cases (a list probed twice, more pairs for a list than a
+           group holds, -1 slots inside lists, duplicates across lists
+           and splits, probe ids outside the lists, D 30, an unaligned
+           pointer) and on a trained 1M-doc shard (Nq 32 at k 5 and 32,
+           Nq 1; forced split counts; a gathering and a dense masked
+           yardstick), with two calls bitwise equal and the scan and
+           merge kernels of one main-path call counted
   parity   the same slice and the same two-node cluster at the olmo-1b
            smoke config (f32) on the card and on the CPU, from the same
            weights: answers (and the nodes' contexts and sources) agree
@@ -77,6 +85,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2 ** 20
 DEV = "cuda"      # where the slice and the kernel cases run
 TOPK_SWEEP = False   # --topk-sweep: time topk.cu rebuilt with other knobs
+IVF_SWEEP = False    # --ivf-sweep: the same for ivf_topk.cu
 SHARD_DOCS = 1_000_000   # a realistic index shard: 1M docs x D=256, f32
 
 KERNEL_META = {
@@ -94,6 +103,7 @@ KERNEL_META = {
         "src/repro/kernels/topk_retrieval.py:143"),
 }
 TOPK_KERNEL = re.compile(r"\btopk_(scan|merge)_kernel\b")
+IVF_KERNEL = re.compile(r"\bivf_(scan|merge)_kernel\b")
 # the kernels each main path must launch
 SLICE_KERNELS = ("paged_decode_attention", "flash_attention",
                  "retrieval_topk")
@@ -108,10 +118,11 @@ def log(msg: str) -> None:
 def bench_ms(fn, reps: int = 25, cold: bool = True) -> float:
     """Median device time of one call of ``fn`` with a cold L2 (warm when
     ``cold`` is False), by CUDA events.  Before each call a write of
-    twice the L2 evicts it and a short device sleep keeps the card busy
-    while the host enqueues the call, so the events bracket the device
-    work and not the host's launch (a plain version of many small
-    operations still shows the host gaps between them)."""
+    twice the L2 evicts it and a device sleep (about 0.5 ms, longer than
+    a wrapper's enqueue on a loaded host) keeps the card busy while the
+    host enqueues the call, so the events bracket the device work and not
+    the host's launch (a plain version of many small operations still
+    shows the host gaps between them)."""
     import torch
     flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32,
                         device="cuda")
@@ -123,7 +134,7 @@ def bench_ms(fn, reps: int = 25, cold: bool = True) -> float:
         end = torch.cuda.Event(enable_timing=True)
         if cold:
             flush.zero_()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -222,24 +233,91 @@ def topk_work(q, d, k):
         2 * nq * d.shape[0] * dim
 
 
-def ivf_work(q, list_emb, list_ids, probe, k):
+def ivf_work(q, list_emb, list_ids, probe, k, per=None):
     """Bytes and flops one IVF probe needs on these inputs: the live rows
     (and the id rows) of the distinct probed lists read once, queries
     and probe ids read, the output written; 2*D flops per live row per
-    (query, probe).  Also returns the bytes this kernel reads, which
-    reads each list's live rows once per (query, probe) that probes it."""
-    D = q.shape[1]
-    L = list_ids.shape[1]
-    live = (list_ids >= 0).sum(dim=1).cpu()
-    pr = probe.long().cpu()
-    distinct = pr.unique()
-    valid = distinct[(distinct >= 0) & (distinct < len(live))]
-    per_pair = live[pr.clamp(0, len(live) - 1)] * \
-        ((pr >= 0) & (pr < len(live)))
-    rows = int(per_pair.sum())
-    nbytes = (int(live[valid].sum()) * D * 4 + len(valid) * L * 4
-              + q.numel() * 4 + probe.numel() * 4 + 8 * q.shape[0] * k)
-    return nbytes, 2 * D * rows, rows * D * 4
+    (query, probe).  Also returns the bytes this kernel reads from its
+    lists: each split's live span (first to last live slot; ``per`` rows
+    a split, the plan's when None) once per group of ``IVF_GROUP`` pairs
+    that name the list, plus each probed list's id row; and the bytes of
+    one read per (query, probe) of the live rows, the design this
+    kernel replaced."""
+    from repro_torch.kernels import ops
+    import torch
+    Nq, D = q.shape
+    n_lists, L = list_ids.shape
+    if per is None:
+        sms = (torch.cuda.get_device_properties(q.device)
+               .multi_processor_count if q.is_cuda else 132)
+        per = ops.ivf_retrieval_topk_plan(Nq, probe.shape[1], n_lists, L,
+                                          sms)[2]
+    ids = list_ids.cpu()
+    live = (ids >= 0).sum(dim=1)
+    pr = probe.long().cpu().reshape(-1)
+    pr = pr[(pr >= 0) & (pr < n_lists)]
+    pairs = torch.bincount(pr, minlength=n_lists)
+    valid = pairs > 0
+    rows = int((live * pairs).sum())
+    nbytes = (int(live[valid].sum()) * D * 4 + int(valid.sum()) * L * 4
+              + q.numel() * 4 + probe.numel() * 4 + 8 * Nq * k)
+    span = _ivf_spans(ids, per).sum(dim=1)
+    groups = -(-pairs // ops.IVF_GROUP)
+    traffic = int((span * groups).sum()) * D * 4 + int(valid.sum()) * L * 4
+    return nbytes, 2 * D * rows, traffic, rows * D * 4
+
+
+def _ivf_spans(ids, per):
+    """[n_lists, splits]: rows from the first to the last live slot of
+    each split of ``per`` rows (0 where a split holds none)."""
+    import torch
+    n_lists, L = ids.shape
+    n_splits = -(-L // per)
+    pad = torch.full((n_lists, n_splits * per), -1, dtype=ids.dtype)
+    pad[:, :L] = ids
+    alive = (pad >= 0).view(n_lists, n_splits, per)
+    first = alive.int().argmax(dim=2)
+    last = per - 1 - alive.flip(2).int().argmax(dim=2)
+    return (last - first + 1) * alive.any(dim=2)
+
+
+def ivf_blocks(list_ids, probe, plan) -> str:
+    """What the IVF kernel's blocks do on these inputs at ``plan`` (group
+    blocks, splits, rows per split): the blocks that score rows, the
+    longest block's ring tiles, the groups by size, and the FFMA its
+    register tiles issue (8 pairs a warp slice: 8, 16 or 32 a group)
+    against those the pairs need."""
+    import torch
+    from repro_torch.kernels import ops
+    gb, _, per = plan
+    ids = list_ids.cpu()
+    n_lists = ids.shape[0]
+    pr = probe.long().cpu().reshape(-1)
+    pairs = torch.bincount(pr[(pr >= 0) & (pr < n_lists)],
+                           minlength=n_lists)
+    span = _ivf_spans(ids, per)
+    tiles = -(-span // ops.IVF_TILE)
+    groups = -(-pairs // ops.IVF_GROUP)
+    with_work, longest = 0, 0
+    for z in range(gb):
+        handled = (-(-(groups - z) // gb)).clamp(min=0)
+        work = tiles * handled[:, None]
+        with_work += int((work > 0).sum())
+        longest = max(longest, int(work.max()))
+    sizes, issued = {}, 0
+    rows = span.sum(dim=1)
+    for l in range(n_lists):
+        n = int(pairs[l])
+        for g in range(0, n, ops.IVF_GROUP):
+            m = min(ops.IVF_GROUP, n - g)
+            width = 8 if m <= 8 else 16 if m <= 16 else 32
+            sizes[width] = sizes.get(width, 0) + 1
+            issued += int(rows[l]) * width
+    live = (ids >= 0).sum(dim=1)
+    need = int((live * pairs).sum())
+    return (f"{with_work} blocks with rows, the longest {longest} tiles, "
+            f"groups by width {dict(sorted(sizes.items()))}, FFMA issued "
+            f"{issued / max(1, need):.2f}x those needed")
 
 
 # ------------------------------------------------------------------ phases
@@ -285,28 +363,31 @@ def phase_build() -> None:
         log(f"  sass[flash_attention] {n} HMMA in {f}")
     check(bool(mma) and all(n > 0 for n in mma.values()),
           f"the bf16 flash kernels carry no HMMA instruction: {per_fn}")
-    # the top-k scan kernels' instruction mix: f32 FFMA, shared loads
-    # (LDS.128 are the float4 reads of the register tile), cp.async
-    ops_of, fn = {}, None
-    for line in build.sass("topk").splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            ops_of[fn] = {"all": 0, "FFMA": 0, "LDS.128": 0, "LDS": 0,
-                          "LDGSTS": 0, "SHFL": 0}
-        elif fn is not None:
-            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-            if m is None:
-                continue
-            op = m.group(1)
-            ops_of[fn]["all"] += 1
-            for key in ("FFMA", "LDGSTS", "SHFL"):
-                if op.split(".")[0] == key:
-                    ops_of[fn][key] += 1
-            if op.startswith("LDS"):
-                ops_of[fn]["LDS.128" if ".128" in op else "LDS"] += 1
-    for f, counts in ops_of.items():
-        if "topk_scan_kernel" in f:
-            log(f"  sass[topk] {f}: {json.dumps(counts)}")
+    # the top-k and IVF scan kernels' instruction mix: f32 FFMA, shared
+    # loads (LDS.128 are the float4 reads of the register tile), cp.async
+    for lib, scan in (("topk", "topk_scan_kernel"),
+                      ("ivf_topk", "ivf_scan_kernel")):
+        ops_of, fn = {}, None
+        for line in build.sass(lib).splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                ops_of[fn] = {"all": 0, "FFMA": 0, "LDS.128": 0, "LDS": 0,
+                              "LDGSTS": 0, "SHFL": 0}
+            elif fn is not None:
+                m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                              line)
+                if m is None:
+                    continue
+                op = m.group(1)
+                ops_of[fn]["all"] += 1
+                for key in ("FFMA", "LDGSTS", "SHFL"):
+                    if op.split(".")[0] == key:
+                        ops_of[fn][key] += 1
+                if op.startswith("LDS"):
+                    ops_of[fn]["LDS.128" if ".128" in op else "LDS"] += 1
+        for f, counts in ops_of.items():
+            if scan in f:
+                log(f"  sass[{lib}] {f}: {json.dumps(counts)}")
 
 
 class MainPathInputs:
@@ -682,7 +763,7 @@ def profile_slice(torch, rag, qs, tag) -> list:
     mine = re.compile(r"\b(paged_decode_kernel|paged_combine_kernel|"
                       r"flash_kernel|flash_mma_kernel|"
                       r"topk_scan_kernel|topk_merge_kernel|"
-                      r"ivf_probe_kernel|ivf_merge_kernel)\b")
+                      r"ivf_scan_kernel|ivf_merge_kernel)\b")
     ours = sum(us for name, us in by_name.items() if mine.search(name))
     log(f"profile: the port's CUDA kernels {ours / 1e3:.2f} ms "
         f"({100 * ours / total:.1f}% of device time)")
@@ -1057,7 +1138,7 @@ def _topk_same_twice(torch, ops, q, d, k, label) -> None:
 
 def _device_kernels(torch, fn) -> list:
     """Names of the device kernels one call of ``fn`` runs, from a
-    torch.profiler trace."""
+    torch.profiler trace (each logged with its traced device time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1067,8 +1148,11 @@ def _device_kernels(torch, fn) -> list:
     trace = ROOT / "build" / "topk_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    return [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
-            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    for e in kernels:
+        log(f"  [profile] {float(e['dur']):.1f} us  {e['name'][:80]}")
+    return [e["name"] for e in kernels]
 
 
 def _topk_dup_case(torch, ops, ref, gen, sms) -> None:
@@ -1125,64 +1209,77 @@ TOPK_VARIANTS = {
 }
 
 
-def topk_sweep(torch, ops, cases, card) -> None:
-    """Rebuild topk.cu once per TOPK_VARIANTS entry (in parallel), check
-    each against the built kernel (bitwise: the knobs keep every sum's
-    order) and time it on ``cases`` {label: (q, d, k)}."""
+def kernel_sweep(torch, ops, lib, entry, variants, call, cases,
+                 card) -> None:
+    """Rebuild csrc/<lib>.cu once per ``variants`` entry {name: nvcc -D
+    flags} (in parallel), and for each put it in the place of the built
+    entry point ``entry``: check that ``call`` (the ops wrapper) gives
+    bitwise the built kernel's results on ``cases`` {label: args} (the
+    knobs keep every sum's order), and time it there."""
     import ctypes
     from repro_torch.kernels import build
-    out = ROOT / "build" / "topk_sweep"
+    out = ROOT / "build" / f"{lib}_sweep"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, flags in TOPK_VARIANTS.items():
-        lib = out / f"lib{len(procs)}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(lib),
-             str(build.CSRC / "topk.cu")], stdout=subprocess.PIPE,
+    for name, flags in variants.items():
+        so = out / f"lib{len(procs)}.so"
+        procs[name] = (so, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(so),
+             str(build.CSRC / build.SOURCES[lib])], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, (lib, proc) in procs.items():
-        log_text = proc.communicate()[0]
-        check(proc.returncode == 0, f"topk sweep {name}: nvcc\n{log_text}")
-        fn = ctypes.CDLL(str(lib)).retrieval_topk
-        fn.argtypes = ops._SIGNATURES[("topk", "retrieval_topk")]
-        fn.restype = ctypes.c_int
-        times = []
-        for label, (q, d, k) in cases.items():
-            _, n, per = ops.retrieval_topk_plan(q.shape[0], d.shape[0], sms)
-
-            def call():
-                s = torch.empty((q.shape[0], k), device=q.device)
-                i = torch.empty((q.shape[0], k), dtype=torch.int32,
-                                device=q.device)
-                ps = torch.empty((q.shape[0], n, k), device=q.device)
-                pi = torch.empty((q.shape[0], n, k), dtype=torch.int32,
-                                 device=q.device)
-                rc = fn(ops._ptr(q), ops._ptr(d), ops._ptr(ps), ops._ptr(pi),
-                        ops._ptr(s), ops._ptr(i), q.shape[0], d.shape[0],
-                        q.shape[1], k, per, n, ops._stream(q))
-                check(rc == 0, f"topk sweep {name}: cudaError {rc}")
-                return s, i
-
-            s, i = call()
-            s0, i0 = ops.retrieval_topk(q, d, k)
-            torch.cuda.synchronize()
-            check(torch.equal(s, s0) and torch.equal(i, i0),
-                  f"topk sweep {name} {label}: differs from the built kernel")
-            times.append(f"{label} {bench_ms(call):.4f}")
-        log(f"  retrieval_topk sweep [{name}] ms: {', '.join(times)} "
-            f"[{card['smi']}]")
+    want = {label: call(*args) for label, args in cases.items()}
+    built = ops._fn(lib, entry)
+    try:
+        for name, (so, proc) in procs.items():
+            text = proc.communicate()[0]
+            check(proc.returncode == 0, f"{lib} sweep {name}: nvcc\n{text}")
+            fn = getattr(ctypes.CDLL(str(so)), entry)
+            fn.argtypes = ops._SIGNATURES[(lib, entry)]
+            fn.restype = ctypes.c_int
+            ops._FNS[entry] = fn
+            times = []
+            for label, args in cases.items():
+                s, i = call(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(s, want[label][0])
+                      and torch.equal(i, want[label][1]),
+                      f"{lib} sweep {name} {label}: differs from the built "
+                      "kernel")
+                times.append(f"{label} {bench_ms(lambda: call(*args)):.4f}")
+            log(f"  {entry} sweep [{name}] ms: {', '.join(times)} "
+                f"[{card['smi']}]")
+    finally:
+        ops._FNS[entry] = built
 
 
-def kernels_topk(torch, ops, ref, gen, main, rec, card, traced) -> None:
+# ivf_topk.cu knobs (-D) of the exploratory sweep, by name
+IVF_VARIANTS = {
+    "as built": [],
+    "2 stages": ["-DIVF_STAGES=2"],
+    "chunk 64 dims, 2 stages": ["-DIVF_KC=64", "-DIVF_STAGES=2"],
+    "no L2 256B hint": ["-DIVF_L2_256B=0"],
+}
+
+
+def _topk_main(torch, gen, main):
+    """The exact top-k's main-path inputs (q, d, k): the recorded ones, or
+    8 questions against the 240-chunk corpus at k 3."""
+    if main is not None:
+        return main[0]
+    q, d = (torch.randn(n, 256, generator=gen, device=DEV)
+            for n in (8, 240))
+    return q / q.norm(dim=1, keepdim=True), d / d.norm(dim=1, keepdim=True), 3
+
+
+def kernels_topk(torch, ops, ref, gen, main, rec, card, profiled) -> None:
+    """``profiled``: (what, names of the device kernels it ran), the
+    main-path call traced under torch.profiler."""
     def unit(n, d):
         x = torch.randn(n, d, generator=gen, device=DEV)
         return x / x.norm(dim=1, keepdim=True)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    if main is None:   # 8 questions against the 240-chunk corpus, k = 3
-        main = ((unit(8, 256), unit(240, 256), 3), {})
-    qm, dm, km = main[0]
+    qm, dm, km = main
     log(f"  retrieval_topk plan (groups, splits, docs per split): main "
         f"path {ops.retrieval_topk_plan(qm.shape[0], dm.shape[0], sms)}, "
         f"1M docs Nq32 {ops.retrieval_topk_plan(32, SHARD_DOCS, sms)}")
@@ -1223,16 +1320,8 @@ def kernels_topk(torch, ops, ref, gen, main, rec, card, traced) -> None:
     _topk_check(torch, ops, ref, qs[:1], ds, 5, "1M-doc shard")
     _topk_same_twice(torch, ops, qm, dm, km, "main-path")
     _topk_same_twice(torch, ops, qs, ds, 5, "1M-doc")
-    # one profiler session per process: after the --profile slice pass a
-    # second session traced no kernels on the card, so the count then
-    # comes from that pass, whose one FlatIndex search is a main-path call
-    if traced:
-        names = [n for n in traced if TOPK_KERNEL.search(n)]
-        what = "the profiled slice pass's main-path call"
-    else:
-        names = _device_kernels(torch,
-                                lambda: ops.retrieval_topk(qm, dm, km))
-        what = "one main-path call"
+    what, traced = profiled
+    names = [n for n in traced if TOPK_KERNEL.search(n)]
     log(f"  retrieval_topk [profile] {what} ran {len(names)} device "
         f"kernel(s): {names}")
     if ops.retrieval_topk_plan(qm.shape[0], dm.shape[0], sms)[1] == 1:
@@ -1254,9 +1343,10 @@ def kernels_topk(torch, ops, ref, gen, main, rec, card, traced) -> None:
     _topk_forced_splits(torch, ops, qs, ds, 5, (sms, 2 * sms, 4 * sms),
                         "1M-doc shard", card)
     if TOPK_SWEEP:
-        topk_sweep(torch, ops, {"main path": (qm, dm, km),
-                                "1M Nq32": (qs, ds, 5),
-                                "1M Nq1": (qs[:1], ds, 5)}, card)
+        kernel_sweep(torch, ops, "topk", "retrieval_topk", TOPK_VARIANTS,
+                     ops.retrieval_topk, {"main path": (qm, dm, km),
+                                          "1M Nq32": (qs, ds, 5),
+                                          "1M Nq1": (qs[:1], ds, 5)}, card)
     rec["retrieval_topk"] = dict(
         max_abs_err=err_main, ms=t_k, plain_ms=t_p, bound_ms=bnd,
         bound_by=by, library_ms=t_l)
@@ -1275,15 +1365,24 @@ def _ids_agree(torch, s_plain, i, i_plain, tol) -> bool:
     return bool((same | near).all())
 
 
-def _ivf_check(torch, ops, ref, q, emb, ids, probe, k, name, tol=1e-5):
-    s, i = ops.ivf_retrieval_topk(q, emb, ids, probe, k)
-    s2, i2 = ref.ivf_topk_ref(q, emb, ids, probe, k)
+def _ivf_check(torch, ops, ref, q, emb, ids, probe, k, name, tol=1e-5,
+               plan=None, plain_probe=None):
+    """The kernel (at the rule's plan, or at ``plan`` = (group blocks,
+    splits, rows per split)) against the plain version, run on
+    ``plain_probe`` when given (a probe id outside the lists is an empty
+    list to the kernel; the plain version is given an empty list's)."""
+    if plan is None:
+        s, i = ops.ivf_retrieval_topk(q, emb, ids, probe, k)
+    else:
+        s, i = ops._ivf_launch(q, emb, ids, probe, k, *plan)
+    s2, i2 = ref.ivf_topk_ref(q, emb, ids, probe if plain_probe is None
+                              else plain_probe, k)
     torch.cuda.synchronize()
     err = max_err(s, s2)
     log(f"  ivf_retrieval_topk [{name}] Nq{q.shape[0]} lists "
         f"{tuple(ids.shape)} D{q.shape[1]} nprobe{probe.shape[1]} k{k} "
-        f"scores max|err| {err:.3e} (tol {tol:g}), ids equal "
-        f"{int((i == i2).sum())}/{i.numel()}")
+        f"plan {plan or 'rule'}: scores max|err| {err:.3e} (tol {tol:g}), "
+        f"ids equal {int((i == i2).sum())}/{i.numel()}")
     check(_ids_agree(torch, s2, i, i2, tol), f"ivf top-k {name}: ids differ")
     check(err <= tol, f"ivf top-k {name}: {err} > {tol}")
     return s, i, err
@@ -1303,16 +1402,43 @@ def _ivf_lists(torch, gen, sizes, L, D):
     return emb, ids
 
 
+def _ivf_main(torch, gen, main):
+    """The IVF probe's main-path inputs (q, list_emb, list_ids, probe, k):
+    the recorded ones, or 8 questions against 12 lists of a ~130-doc
+    shard at nprobe 2, k 3."""
+    if main is not None:
+        return main[0]
+    emb, ids = _ivf_lists(torch, gen, [11] * 12, 16, 256)
+    q = torch.randn(8, 256, generator=gen, device=DEV)
+    probe = torch.stack([torch.randperm(12, generator=gen, device=DEV)[:2]
+                         for _ in range(8)]).to(torch.int32)
+    return q / q.norm(dim=1, keepdim=True), emb, ids, probe, 3
+
+
 def _ivf_library(torch, q, emb, ids, probe, k):
-    """Yardstick, in two steps timed apart: the probed lists gathered,
-    then torch.topk over an einsum of the gathered rows with padding
-    masked.  Returns the gather and the second step."""
+    """Yardsticks: (1) the probed lists gathered per query, then
+    torch.topk over an einsum of the gathered rows with padding masked
+    (returns the gather, timed apart, and the second step); (2) one dense
+    product of the queries with every list row, the rows of lists a query
+    does not probe and padding masked, then torch.topk (a list a query
+    names twice counts once there)."""
     g, gi = emb[probe.long()], ids[probe.long()]
 
     def scored():
         s = torch.einsum("qd,qpld->qpl", q, g).masked_fill(gi < 0, -1e30)
         return torch.topk(s.reshape(q.shape[0], -1), k)
-    return g, scored
+
+    n_lists, L, D = emb.shape
+    flat, pad = emb.view(-1, D), (ids < 0).view(1, -1)
+
+    def dense():
+        probed = torch.zeros(q.shape[0], n_lists, dtype=torch.bool,
+                             device=q.device)
+        probed.scatter_(1, probe.long(), True)
+        s = (q @ flat.T).masked_fill(
+            pad | ~probed.repeat_interleave(L, dim=1), -1e30)
+        return torch.topk(s, k)
+    return g, scored, dense
 
 
 def _synth_shard(torch, n_docs, dim, n_queries, n_clusters=24, noise=0.25,
@@ -1336,9 +1462,23 @@ def _synth_shard(torch, n_docs, dim, n_queries, n_clusters=24, noise=0.25,
     return docs, queries
 
 
+def _ivf_same_twice(torch, ops, args, label) -> None:
+    (s1, i1), (s2, i2) = ops.ivf_retrieval_topk(*args), \
+        ops.ivf_retrieval_topk(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(s1, s2) and torch.equal(i1, i2),
+          f"ivf_retrieval_topk {label}: two calls on the same inputs differ")
+    log(f"  ivf_retrieval_topk [determinism] two calls on the {label} "
+        "inputs are bitwise equal")
+
+
 def _ivf_cases(torch, ops, ref, gen) -> None:
     """Edge cases: exact ties in and across lists, fewer than k docs and
-    an empty list, nprobe 1 with an odd L, k 32."""
+    an empty list, nprobe 1 with an odd L, k 32; a list probed twice by
+    one query; more pairs for a list than a group holds; -1 slots inside
+    lists; duplicate rows across lists and a split boundary; k 32 over
+    fewer live rows; D 30; probe ids outside the lists; an unaligned
+    pointer."""
     # integer rows, exact in any summation order.  List 0 holds the row
     # at slots 0 and 2, list 2 at slot 1; probing [2, 0] ranks list 2's
     # copy first, then list 0's by slot
@@ -1376,10 +1516,110 @@ def _ivf_cases(torch, ops, ref, gen) -> None:
                probes([[3, 2, 1, 0], [0, 1, 2, 3]] * 2 + [[1, 3, 0, 2]]), 32,
                "k 32")
 
+    # one list twice in a query's probes: its documents count twice
+    emb, ids = _ivf_lists(torch, gen, [7, 5, 6], 8, 16)
+    q = torch.cat([2.0 * emb[0, 3:4], unit(2, 16)])
+    _, i, _ = _ivf_check(torch, ops, ref, q, emb, ids,
+                         probes([[0, 0, 1], [2, 1, 2], [1, 2, 1]]), 8,
+                         "a list probed twice")
+    check(i[0, :2].tolist() == [3, 3], f"ivf: a list probed twice: {i[0]}")
 
-def _ivf_shard(torch, ops, ref, card) -> None:
+    # 100 queries all probe list 0 (4 groups, looped by one block or
+    # spread over the rule's group blocks), 12 probe list 1 (one group
+    # of 12: two warps per 8 pairs), 88 list 2 (a group of 24)
+    emb, ids = _ivf_lists(torch, gen, [300, 200, 50, 0], 300, 32)
+    q = unit(100, 32)
+    probe = probes([[0, 1 if r < 12 else 2] for r in range(100)])
+    plan = ops.ivf_retrieval_topk_plan(100, 2, 4, 300, 132)
+    s, i, _ = _ivf_check(torch, ops, ref, q, emb, ids, probe, 5,
+                         "more pairs than a group", plan=plan)
+    s1, i1, _ = _ivf_check(torch, ops, ref, q, emb, ids, probe, 5,
+                           "more pairs than a group", plan=(1, 1, 384))
+    check(plan[0] > 1 and torch.equal(s, s1) and torch.equal(i, i1),
+          f"ivf: plans {plan} and (1, 1, 384) differ")
+
+    # -1 slots inside lists, their rows pointing at the query
+    emb, ids = _ivf_lists(torch, gen, [40, 40], 40, 16)
+    q = unit(2, 16)
+    ids[0, [3, 17, 39]] = -1
+    ids[1, [0, 20]] = -1
+    emb[0, 3] = emb[0, 17] = emb[0, 39] = 3.0 * q[0]
+    emb[1, 0] = emb[1, 20] = 3.0 * q[1]
+    s, i, _ = _ivf_check(torch, ops, ref, q, emb, ids,
+                         probes([[0, 1], [1, 0]]), 10, "-1 slots inside lists")
+    check(bool((s <= 1.0 + 1e-5).all()), "ivf: a -1 slot entered the result")
+
+    # one row at list 0 slots 127, 128 and 256 (across split boundaries
+    # when the lists are cut 128 rows a split) and at list 1 slot 5:
+    # probing [1, 0] ranks list 1's copy, then list 0's by slot
+    emb, ids = _ivf_lists(torch, gen, [401, 300], 401, 32)
+    dup = emb[0, 127].clone()
+    emb[0, 128] = emb[0, 256] = emb[1, 5] = dup
+    q, probe = 2.0 * dup[None], probes([[1, 0]])
+    want = [int(ids[1, 5]), 127, 128, 256]
+    outs = [_ivf_check(torch, ops, ref, q, emb, ids, probe, 6,
+                       "duplicates across lists and splits", plan=plan)
+            for plan in (None, (1, 4, 128))]
+    for s, i, _ in outs:
+        check(i[0, :4].tolist() == want
+              and bool((s[0, :4] == s[0, 0]).all()),
+              f"ivf duplicates: probe then slot must win: {i[0].tolist()}")
+    check(torch.equal(outs[0][0], outs[1][0])
+          and torch.equal(outs[0][1], outs[1][1]),
+          "ivf duplicates: 1 and 4 splits differ")
+
+    emb, ids = _ivf_lists(torch, gen, [5, 3, 0], 8, 30)
+    s, i, _ = _ivf_check(torch, ops, ref, unit(2, 30), emb, ids,
+                         probes([[0, 1], [1, 2]]), 32,
+                         "k 32 over 8 live rows, D 30")
+    check(i[0, 8:].eq(-1).all().item() and i[1, 3:].eq(-1).all().item(),
+          "ivf k 32: past the live rows must be the fill")
+    emb, ids = _ivf_lists(torch, gen, [6, 4, 0], 6, 16)
+    _ivf_check(torch, ops, ref, unit(2, 16), emb, ids,
+               probes([[0, -1], [3, 1]]), 8, "probe ids outside the lists",
+               plain_probe=probes([[0, 2], [2, 1]]))
+    flat = unit(1, 3 * 50 * 64 + 1).view(-1)[1:]   # 4 bytes off 16
+    emb = flat.view(3, 50, 64)
+    ids = torch.arange(150, dtype=torch.int32, device=DEV).view(3, 50)
+    _ivf_check(torch, ops, ref, unit(4, 64), emb, ids,
+               probes([[0, 2], [1, 0], [2, 1], [0, 1]]), 5,
+               "unaligned, D 64")
+
+
+def _ivf_times(torch, ops, ref, args, plain, label, card, chunks=None):
+    """Kernel, plain version and both yardsticks on ``args`` (q, emb, ids,
+    probe, k); the gathering yardstick in query ``chunks`` of (q, probe)
+    when given.  Returns (kernel, plain, dense yardstick, bound, by)."""
+    q, emb, ids, probe, k = args
+    t_k = bench_ms(lambda: ops.ivf_retrieval_topk(*args))
+    t_p = bench_ms(plain, reps=5 if chunks else 25)
+    t_g = t_l = 0.0
+    for a, b in chunks or [(q, probe)]:
+        t_g += bench_ms(lambda: emb[b.long()], reps=5)
+        g, scored, _ = _ivf_library(torch, a, emb, ids, b, k)
+        t_l += bench_ms(scored, reps=5)
+        del g, scored
+    _, _, dense = _ivf_library(torch, q, emb, ids, probe, k)
+    t_d = bench_ms(dense)
+    d_err = max_err(dense()[0], ops.ivf_retrieval_topk(*args)[0])
+    nbytes, flops, traffic, old = ivf_work(q, emb, ids, probe, k)
+    bnd, by = bound_ms(nbytes, flops, "float32")
+    log(f"  ivf_retrieval_topk {label} Nq{q.shape[0]} lists "
+        f"{tuple(ids.shape)} nprobe{probe.shape[1]} k{k}: kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, gather {t_g:.4f} ms + "
+        f"topk(einsum) {t_l:.4f} ms, dense topk(q @ lists.T, masked) "
+        f"{t_d:.4f} ms (its scores within {d_err:.1e} of the kernel's), "
+        f"bound {bnd:.5f} ms ({by}, {nbytes} bytes), "
+        f"{100 * bnd / t_k:.1f}% of the bound; the kernel reads {traffic} "
+        f"bytes of lists (one read per (query, probe): {old}) "
+        f"[{card['smi']}]")
+    return t_k, t_p, t_d, bnd, by
+
+
+def _ivf_shard(torch, ops, ref, card) -> dict:
     """A realistic shard: 1M docs x 256 f32, an IVFIndex trained on the
-    card with the defaults (256 lists, nprobe 51), Nq 32, k 5."""
+    card with the defaults (256 lists, nprobe 51); Nq 32 at k 5 and 32,
+    Nq 1 at k 5.  Returns the k 5 cases' kernel inputs by label."""
     import numpy as np
     from repro_torch.retrieval.ivf import IVFIndex
     docs, qs = _synth_shard(torch, SHARD_DOCS, 256, 32)
@@ -1399,79 +1639,124 @@ def _ivf_shard(torch, ops, ref, card) -> None:
     probe = torch.as_tensor(np.argsort(-(qn @ index._centroids.T), axis=1)
                             [:, :index.nprobe].astype(np.int32), device=DEV)
     el, il = index._list_emb, index._list_ids
-    # the plain version and the yardstick gather every probed list per
-    # query: run them in query chunks of at most 4 GB of gathered rows
-    per_q = probe.shape[1] * L * 256 * 4
-    step = max(1, int(4e9 // per_q))
-    chunks = [(qs[a:a + step], probe[a:a + step])
-              for a in range(0, qs.shape[0], step)]
+    # the plain version and the gathering yardstick gather every probed
+    # list per query: run them in query chunks of at most 4 GB of rows
+    step = max(1, int(4e9 // (probe.shape[1] * L * 256 * 4)))
 
-    def plain():
-        outs = [ref.ivf_topk_ref(a, el, il, b, 5) for a, b in chunks]
-        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+    def chunked(q, pr):
+        return [(q[a:a + step], pr[a:a + step])
+                for a in range(0, q.shape[0], step)]
 
-    s, i = ops.ivf_retrieval_topk(qs, el, il, probe, 5)
-    s2, i2 = plain()
-    torch.cuda.synchronize()
-    err = max_err(s, s2)
-    check(err <= 1e-5 and _ids_agree(torch, s2, i, i2, 1e-5),
-          f"ivf 1M shard: kernel and plain version differ ({err})")
-    check(np.array_equal(i.cpu().numpy(), i_search), "search != kernel")
+    def plain_of(q, pr, k):
+        def plain():
+            outs = [ref.ivf_topk_ref(a, el, il, b, k)
+                    for a, b in chunked(q, pr)]
+            return (torch.cat([o[0] for o in outs]),
+                    torch.cat([o[1] for o in outs]))
+        return plain
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = {"Nq32 k5": (qs, probe, 5), "Nq32 k32": (qs, probe, 32),
+             "Nq1 k5": (qs[:1], probe[:1], 5)}
+    for label, (q, pr, k) in cases.items():
+        s, i = ops.ivf_retrieval_topk(q, el, il, pr, k)
+        s2, i2 = plain_of(q, pr, k)()
+        torch.cuda.synchronize()
+        err = max_err(s, s2)
+        plan = ops.ivf_retrieval_topk_plan(q.shape[0], pr.shape[1],
+                                           n_lists, L, sms)
+        log(f"  ivf_retrieval_topk [1M-doc shard {label}] plan {plan} "
+            f"({ivf_blocks(il, pr, plan)}) scores max|err| {err:.3e} (tol "
+            f"1e-05), ids equal {int((i == i2).sum())}/{i.numel()}")
+        check(err <= 1e-5 and _ids_agree(torch, s2, i, i2, 1e-5),
+              f"ivf 1M shard {label}: kernel and plain version differ ({err})")
+        if label == "Nq32 k5":
+            check(np.array_equal(i.cpu().numpy(), i_search),
+                  "search != kernel")
+            i_nq32 = i
+    _ivf_same_twice(torch, ops, (qs, el, il, probe, 5), "1M-doc")
     _, exact = ops.retrieval_topk(qs, docs, 5)
     recall = float(np.mean([len(set(a) & set(b)) / 5 for a, b in
-                            zip(i.cpu().tolist(), exact.cpu().tolist())]))
-    nbytes, flops, traffic = ivf_work(qs, el, il, probe, 5)
-    bnd, by = bound_ms(nbytes, flops, "float32")
-    t_k = bench_ms(lambda: ops.ivf_retrieval_topk(qs, el, il, probe, 5))
-    t_p = bench_ms(plain, reps=5)
-    t_g = t_l = 0.0
-    for a, b in chunks:
-        t_g += bench_ms(lambda: el[b.long()], reps=5)
-        g, scored = _ivf_library(torch, a, el, il, b, 5)
-        t_l += bench_ms(scored, reps=5)
-        del g, scored
+                            zip(i_nq32.cpu().tolist(),
+                                exact.cpu().tolist())]))
     tag = f"[{card['smi']}]"
     log(f"  ivf_retrieval_topk 1M-doc shard: k-means {t_train:.3f} s "
         f"(10 iterations, {n_lists} lists), L_max {L}, padding "
         f"{100 * pad:.1f}% of list_emb, nprobe {probe.shape[1]}, scored "
-        f"{100 * frac:.2f}% of docs, recall@5 vs exact top-k {recall:.3f}, "
-        f"max|err| {err:.3e} {tag}")
-    log(f"  ivf_retrieval_topk 1M-doc shard Nq32 k5: kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, gather {t_g:.4f} ms + topk(einsum) "
-        f"{t_l:.4f} ms (both summed over {len(chunks)} query chunks), "
-        f"bound {bnd:.5f} ms ({by}, {nbytes} bytes); the kernel reads "
-        f"{traffic} bytes, Nq*nprobe*L*D*4 = {32 * per_q} {tag}")
+        f"{100 * frac:.2f}% of docs, recall@5 vs exact top-k {recall:.3f} "
+        f"{tag}")
+    for label, (q, pr, k) in cases.items():
+        if k != 5:
+            continue
+        _ivf_times(torch, ops, ref, (q, el, il, pr, k), plain_of(q, pr, k),
+                   f"1M-doc shard {label}", card, chunks=chunked(q, pr))
+        log(f"  retrieval_topk (exact, every doc) on the same docs Nq"
+            f"{q.shape[0]} k{k}: "
+            f"{bench_ms(lambda: ops.retrieval_topk(q, docs, k)):.4f} ms {tag}")
+        # the lists cut into other split counts: bitwise equal to the
+        # rule's, and the time of each
+        gb, n_rule, _ = ops.ivf_retrieval_topk_plan(q.shape[0], pr.shape[1],
+                                                    n_lists, L, sms)
+        s0, i0 = ops.ivf_retrieval_topk(q, el, il, pr, k)
+        times = []
+        for want in sorted({1, 2, 4, 8, n_rule // 2, n_rule, 2 * n_rule}
+                           - {0}):
+            per = -(-(-(-L // ops.IVF_TILE)) // want) * ops.IVF_TILE
+            plan = (gb, -(-L // per), per)
+            s1, i1 = ops._ivf_launch(q, el, il, pr, k, *plan)
+            torch.cuda.synchronize()
+            check(torch.equal(s1, s0) and torch.equal(i1, i0),
+                  f"ivf 1M {label}: plan {plan} differs from the rule's")
+            t = bench_ms(lambda: ops._ivf_launch(q, el, il, pr, k, *plan))
+            times.append(f"{plan[1]}: {t:.4f} ({ivf_blocks(il, pr, plan)})")
+        log(f"  ivf_retrieval_topk 1M-doc shard {label} forced splits "
+            f"(bitwise equal to the rule's {n_rule}) ms {'; '.join(times)} "
+            f"{tag}")
+    return {f"1M {label}": (q, el, il, pr, k)
+            for label, (q, pr, k) in cases.items() if k == 5}
 
 
-def kernels_ivf(torch, ops, ref, gen, main, rec, card) -> None:
-    if main is None:   # 8 questions against 12 lists of a ~130-doc shard
-        emb, ids = _ivf_lists(torch, gen, [11] * 12, 16, 256)
-        q = torch.randn(8, 256, generator=gen, device=DEV)
-        q = q / q.norm(dim=1, keepdim=True)
-        probe = torch.stack([torch.randperm(12, generator=gen, device=DEV)
-                             [:2] for _ in range(8)]).to(torch.int32)
-        main = ((q, emb, ids, probe, 3), {})
-    qm, em, im, pm, km = main[0]
+def kernels_ivf(torch, ops, ref, gen, main, rec, card, traced) -> None:
+    """``traced``: names of the device kernels one main-path call ran
+    under torch.profiler, or None when no session could trace it."""
+    qm, em, im, pm, km = main
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ops.ivf_retrieval_topk_plan(qm.shape[0], pm.shape[1],
+                                       im.shape[0], im.shape[1], sms)
+    log(f"  ivf_retrieval_topk plan (group blocks, splits, rows per "
+        f"split): main path {plan}")
     _, _, err_main = _ivf_check(torch, ops, ref, qm, em, im, pm, km,
                                 "main path")
+    _ivf_same_twice(torch, ops, main, "main-path")
+    if traced is None:
+        log("  ivf_retrieval_topk [profile] not counted: the --profile "
+            "slice pass held this process's profiler session")
+    else:
+        names = [n for n in traced if IVF_KERNEL.search(n)]
+        log(f"  ivf_retrieval_topk [profile] one main-path call ran "
+            f"{len(names)} device kernel(s): {names}")
+        check(len(names) == 2, f"ivf main path: {len(names)} device kernels")
     _ivf_cases(torch, ops, ref, gen)
-    _ivf_shard(torch, ops, ref, card)
+    shard = _ivf_shard(torch, ops, ref, card)
+    if IVF_SWEEP:
+        kernel_sweep(torch, ops, "ivf_topk", "ivf_retrieval_topk",
+                     IVF_VARIANTS, ops.ivf_retrieval_topk,
+                     {"main path": main, **shard}, card)
 
-    t_k = bench_ms(lambda: ops.ivf_retrieval_topk(qm, em, im, pm, km))
-    t_p = bench_ms(lambda: ref.ivf_topk_ref(qm, em, im, pm, km))
-    _, scored = _ivf_library(torch, qm, em, im, pm, km)
-    t_g = bench_ms(lambda: em[pm.long()])
-    t_l = bench_ms(scored)
-    nbytes, flops, traffic = ivf_work(qm, em, im, pm, km)
-    bnd, by = bound_ms(nbytes, flops, "float32")
-    log(f"  ivf_retrieval_topk main path Nq{qm.shape[0]} lists "
-        f"{tuple(im.shape)} nprobe{pm.shape[1]} k{km}: kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, gather {t_g:.4f} ms + topk(einsum) "
-        f"{t_l:.4f} ms, bound {bnd:.5f} ms ({by}, {nbytes} bytes; the "
-        f"kernel reads {traffic}) [{card['smi']}]")
+    t_k, t_p, t_d, bnd, by = _ivf_times(
+        torch, ops, ref, main, lambda: ref.ivf_topk_ref(*main), "main path",
+        card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        ops.ivf_retrieval_topk(*main)
+    host = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    log(f"  ivf_retrieval_topk main path: the wrapper's host time "
+        f"{host:.1f} us a call (100 calls enqueued) [{card['smi']}]")
     rec["ivf_retrieval_topk"] = dict(
         max_abs_err=err_main, ms=t_k, plain_ms=t_p, bound_ms=bnd,
-        bound_by=by, library_ms=t_l)
+        bound_by=by, library_ms=t_d)
 
 
 def phase_kernels(torch, card, captured: dict, rec: dict,
@@ -1491,9 +1776,21 @@ def phase_kernels(torch, card, captured: dict, rec: dict,
                   rec, card)
     kernels_flash(torch, F, ops, ref, gen, main("flash_attention"), rec,
                   card)
-    kernels_topk(torch, ops, ref, gen, main("retrieval_topk"), rec, card,
-                 traced)
-    kernels_ivf(torch, ops, ref, gen, main("ivf_retrieval_topk"), rec, card)
+    topk_main = _topk_main(torch, gen, main("retrieval_topk"))
+    ivf_main = _ivf_main(torch, gen, main("ivf_retrieval_topk"))
+    # one profiler session per process: after the --profile slice pass a
+    # second session traced no kernels on the card, so the top-k count
+    # then comes from that pass, whose one FlatIndex search is a main-path
+    # call, and the IVF probe (not on the slice path) goes uncounted
+    if traced:
+        profiled = ("the profiled slice pass's main-path call", traced)
+    else:
+        profiled = ("one main-path call", _device_kernels(
+            torch, lambda: (ops.retrieval_topk(*topk_main),
+                            ops.ivf_retrieval_topk(*ivf_main))))
+    kernels_topk(torch, ops, ref, gen, topk_main, rec, card, profiled)
+    kernels_ivf(torch, ops, ref, gen, ivf_main, rec, card,
+                None if traced else profiled[1])
 
 
 def _to_device(tree, dev):
@@ -1556,9 +1853,11 @@ def main(argv=None) -> int:
     ap.add_argument("--topk-sweep", action="store_true",
                     help="kernels phase: also time topk.cu rebuilt with "
                     "other ring depths, chunk widths and L2 hints")
+    ap.add_argument("--ivf-sweep", action="store_true",
+                    help="kernels phase: the same for ivf_topk.cu")
     args = ap.parse_args(argv)
-    global TOPK_SWEEP
-    TOPK_SWEEP = args.topk_sweep
+    global TOPK_SWEEP, IVF_SWEEP
+    TOPK_SWEEP, IVF_SWEEP = args.topk_sweep, args.ivf_sweep
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in ALL_PHASES]
     if bad:

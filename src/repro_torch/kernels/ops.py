@@ -30,7 +30,7 @@ _SIGNATURES = {
     ("flash_attention", "flash_attention"):
         [_VP] * 6 + [_I] * 8 + [_F, _I, _VP],
     ("topk", "retrieval_topk"): [_VP] * 6 + [_I] * 6 + [_VP],
-    ("ivf_topk", "ivf_retrieval_topk"): [_VP] * 8 + [_I] * 6 + [_VP],
+    ("ivf_topk", "ivf_retrieval_topk"): [_VP] * 8 + [_I] * 9 + [_VP],
 }
 _FNS: Dict[str, object] = {}   # entry point name -> ctypes function
 
@@ -297,9 +297,16 @@ def ivf_retrieval_topk(queries: torch.Tensor, list_emb: torch.Tensor,
                        k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """IVF probe top-k: queries [Nq,D] scored only against their routed
     lists, list_emb [n_lists,L,D] f32 with list_ids [n_lists,L] int32
-    (-1 = padding) and probe_ids [Nq,nprobe] int32 -> (scores [Nq,k] f32,
-    global ids [Nq,k] int32).  Ties go to the earlier probe, then the
-    earlier slot; slots past the probed documents are (-1e30, -1)."""
+    (-1 = padding, anywhere in a row) and probe_ids [Nq,nprobe] int32 ->
+    (scores [Nq,k] f32, global ids [Nq,k] int32).  The top-k of each
+    query over the concatenation of its probed lists in probe order: ties
+    go to the earlier probe, then the earlier slot, a list named twice is
+    seen twice, and slots past the probed documents are (-1e30, -1).
+
+    On CUDA one launch scores each probed list's live rows once per group
+    of the (query, probe) pairs that name it (the cut is
+    ``ivf_retrieval_topk_plan``), one sorted partial per (query, probe,
+    split), and a second merges each query's partials."""
     if _on_cpu(queries, list_emb, list_ids, probe_ids):
         return ref.ivf_topk_ref(queries, list_emb, list_ids, probe_ids, k)
     Nq, D = queries.shape
@@ -315,8 +322,13 @@ def ivf_retrieval_topk(queries: torch.Tensor, list_emb: torch.Tensor,
              f"list_emb {tuple(list_emb.shape)}, list_ids "
              f"{tuple(list_ids.shape)}, probe_ids {tuple(probe_ids.shape)} "
              f"do not match queries {tuple(queries.shape)}")
+    # k <= 32 is kept on purpose: no ported caller asks for more than 5,
+    # and the reference sizes its merge for k <= 32 (ROADMAP queue C)
     _require(1 <= k <= 32, f"k={k} outside [1, 32]")
-    _require(nprobe <= 65535, f"nprobe={nprobe} above 65535")
+    _require(nprobe <= IVF_MAX_PARTIALS,
+             f"nprobe={nprobe} above {IVF_MAX_PARTIALS}")
+    _require(Nq * nprobe < 2 ** 31 and n_lists < 2 ** 31,
+             "probe table and list count must fit int32")
     _contiguous(queries=queries, list_emb=list_emb, list_ids=list_ids,
                 probe_ids=probe_ids)
     dev = queries.device
@@ -325,14 +337,67 @@ def ivf_retrieval_topk(queries: torch.Tensor, list_emb: torch.Tensor,
         return (torch.full((Nq, k), ref.NEG_INF, dtype=torch.float32,
                            device=dev),
                 torch.full((Nq, k), -1, dtype=torch.int32, device=dev))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _ivf_launch(queries, list_emb, list_ids, probe_ids, k,
+                       *ivf_retrieval_topk_plan(Nq, nprobe, n_lists, L, sms))
+
+
+def _ivf_launch(queries, list_emb, list_ids, probe_ids, k: int,
+                group_blocks: int, n_splits: int, per: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the IVF scan and merge kernels on checked CUDA inputs, lists
+    cut into splits of ``per`` rows, ``group_blocks`` blocks per (list,
+    split)."""
+    Nq, D = queries.shape
+    n_lists, L, _ = list_emb.shape
+    nprobe = probe_ids.shape[1]
+    dev = queries.device
     out_s = torch.empty((Nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Nq, k), dtype=torch.int32, device=dev)
-    part_s = torch.empty((Nq, nprobe, k), dtype=torch.float32, device=dev)
-    part_r = torch.empty((Nq, nprobe, k), dtype=torch.int32, device=dev)
+    part_s = torch.empty((Nq, nprobe, n_splits, k), dtype=torch.float32,
+                         device=dev)
+    part_r = torch.empty((Nq, nprobe, n_splits, k), dtype=torch.int32,
+                         device=dev)
     rc = _fn("ivf_topk", "ivf_retrieval_topk")(
         _ptr(queries), _ptr(list_emb), _ptr(list_ids), _ptr(probe_ids),
         _ptr(part_s), _ptr(part_r), _ptr(out_s), _ptr(out_i), Nq, n_lists,
-        L, D, nprobe, k, _stream(queries))
+        L, D, nprobe, k, per, n_splits, group_blocks, _stream(queries))
     _check_rc(rc, "ivf_retrieval_topk")
     launches["ivf_retrieval_topk"] += 1
     return out_s, out_i
+
+
+IVF_GROUP = 32    # (query, probe) pairs per IVF group (csrc/ivf_topk.cu kG)
+IVF_TILE = 128    # list rows per IVF tile (csrc/ivf_topk.cu kTD)
+IVF_SPLIT_TILES = 8   # tiles a split holds at most (a block's stream)
+IVF_MAX_PARTIALS = 16384   # nprobe * n_splits one merge block holds
+
+
+def ivf_retrieval_topk_plan(Nq: int, nprobe: int, n_lists: int, L: int,
+                            sms: int) -> Tuple[int, int, int]:
+    """How the IVF kernel cuts its work: (group blocks, splits per list,
+    rows per split), one thread block per (list, split, group block).
+
+    The (query, probe) pairs that name a list form groups of
+    ``IVF_GROUP`` in probe-table order; a block scores its split's live
+    rows once for each group g of its list with g = z, z + group blocks,
+    ... (z its group block), so a list's rows are read once per group.
+    There are enough group blocks for the pairs of an even spread over the
+    lists (at most 65535, a grid dimension).  At most min(n_lists * group
+    blocks, Nq * nprobe) (list, group block) pairs can have work; the lists
+    are split for about two blocks per SM over the ``sms`` SMs, and into
+    splits of at most ``IVF_SPLIT_TILES`` tiles of ``IVF_TILE`` rows, so
+    that the longest lists leave no tail of a few long blocks; but a split
+    keeps at least four tiles (a list of up to four tiles is one block)
+    and a query's nprobe * splits partials stay within
+    ``IVF_MAX_PARTIALS``.  A split is a whole number of tiles, the last one
+    may be short; splits cover [0, L) without overlap."""
+    pairs = max(1, Nq * nprobe)
+    group_blocks = min(65535, max(1, -(-pairs // (max(1, n_lists)
+                                                * IVF_GROUP))))
+    units = max(1, min(n_lists * group_blocks, pairs))
+    tiles = max(1, -(-L // IVF_TILE))
+    want = max(1, -(-2 * sms // units), -(-tiles // IVF_SPLIT_TILES))
+    n = max(1, min(want, tiles // 4, IVF_MAX_PARTIALS // max(1, nprobe)))
+    per = -(-tiles // n) * IVF_TILE
+    return group_blocks, max(1, -(-L // per)), per
