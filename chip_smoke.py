@@ -21,15 +21,22 @@ Phases, in order:
            the inputs of its costliest call; the measured pass starts
            with every launch count at 0 and checks answers, prefix hits,
            finite logits and that every kernel was launched on this path
-  cluster  two live edge nodes at olmo-1b's full width (bf16, seeds 0
-           and 1), each over its own domain-partitioned shard behind an
-           IVFIndex on the card, with a semantic query cache and one
-           sketch-routed FederatedRetriever, serving two slots each
-           through the paged continuous queue.  A warm pass records the
-           IVF kernel's costliest inputs; the measured pass, on fresh
-           nodes with every launch count at 0, checks answers (equal to
-           the warm pass), cache and prefix hits, remote contexts,
-           finite logits and the path's kernel launches
+  cluster  the README quickstart's first two nodes at published width
+           (bf16): olmo-1b (node 0, seed 0) and xlstm-350m (node 1, seed
+           1, mLSTM/sLSTM with per-row recurrent state), each over its
+           own domain-partitioned shard behind an IVFIndex on the card,
+           with a semantic query cache and one sketch-routed
+           FederatedRetriever, serving two slots each through the paged
+           continuous queue.  A warm pass records the IVF kernel's
+           costliest inputs; the measured pass, on fresh nodes with
+           every launch count at 0, checks answers (equal to the warm
+           pass), cache and prefix hits on each node (on node 1, forks
+           from a recurrent-state snapshot), remote contexts, finite
+           logits and the path's kernel launches, node by node (node 1
+           launches the IVF probe and no attention kernel).  A last
+           pass of node 1's slots, synchronised around every prefill
+           chunk, decode step and recurrent cell, splits its time
+           between mLSTM and sLSTM layers
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -52,9 +59,13 @@ Phases, in order:
            Nq 1; forced split counts; a gathering and a dense masked
            yardstick), with two calls bitwise equal and the scan and
            merge kernels of one main-path call counted
-  parity   the same slice and the same two-node cluster at the olmo-1b
-           smoke config (f32) on the card and on the CPU, from the same
-           weights: answers (and the nodes' contexts and sources) agree
+  parity   the same slice at the olmo-1b smoke config (f32), and the
+           two-node cluster with two olmo-1b nodes and with olmo-1b +
+           xlstm-350m, on the card and on the CPU from the same weights:
+           answers (and the nodes' contexts and sources) agree; the
+           xlstm-350m smoke model's forward, chunk and decode logits
+           agree within 1e-4 and its recurrent state after a
+           left-padded chunk within atol 1e-5, rtol 1e-4
 
 The lines before the last are the card's nvidia-smi name and power limit
 and the kernels' JSON record; the last line is {"ok": true, "device":
@@ -104,6 +115,8 @@ KERNEL_META = {
 }
 TOPK_KERNEL = re.compile(r"\btopk_(scan|merge)_kernel\b")
 IVF_KERNEL = re.compile(r"\bivf_(scan|merge)_kernel\b")
+# the cluster phase's nodes: the first two of the README quickstart's
+CLUSTER_ARCHS = ("olmo-1b", "xlstm-350m")
 # the kernels each main path must launch
 SLICE_KERNELS = ("paged_decode_attention", "flash_attention",
                  "retrieval_topk")
@@ -476,9 +489,9 @@ def _rag(cfg, params, docs, tok, enc, device, max_len, chunk, block, batch,
 def timed_segments(torch):
     """While open, every decode segment is synchronised and timed:
     yields {"s": seconds in decode segments, "tokens": tokens they
-    produced}."""
+    produced, "by": {model name: [seconds, tokens]}}."""
     from repro_torch.serving.engine import ContinuousSession
-    seg = {"s": 0.0, "tokens": 0}
+    seg = {"s": 0.0, "tokens": 0, "by": {}}
     run_segment = ContinuousSession.run_segment
 
     def timed_segment(self, drain=False):
@@ -486,9 +499,14 @@ def timed_segments(torch):
         t = time.perf_counter()
         events = run_segment(self, drain)
         torch.cuda.synchronize()
-        seg["s"] += time.perf_counter() - t
+        dt = time.perf_counter() - t
         # idx of finished rows still counts their tokens at this point
-        seg["tokens"] += int(self.idx.sum()) - before
+        n = int(self.idx.sum()) - before
+        seg["s"] += dt
+        seg["tokens"] += n
+        by = seg["by"].setdefault(self.eng.cfg.name, [0.0, 0])
+        by[0] += dt
+        by[1] += n
         return events
 
     ContinuousSession.run_segment = timed_segment
@@ -600,50 +618,115 @@ def _cluster_setup(n_entities: int):
     return tok, shards, slots
 
 
-def _cluster(cfg, params, tok, shards, device, **kw):
+def _cluster(cfgs, params, tok, shards, device, **kw):
     """Two federated IVF nodes with semantic caches over the paged
     continuous queue (cluster_serve --index ivf --federated --cache
-    --paged)."""
+    --paged); node n serves ``cfgs[n]`` with ``params[n]``."""
     from repro_torch.cluster import LiveEdgeNode, enable_federation
     from repro_torch.retrieval.cache import SemanticQueryCache
     from repro_torch.retrieval.encoder import TextEncoder
-    nodes = [LiveEdgeNode(n, "olmo-1b", cfg, params[n], shards[n], tok,
-                          TextEncoder(seed=0), seed=10 * n,
-                          index_kind="ivf", cache=SemanticQueryCache(),
-                          queue="continuous", paged=True, device=device,
-                          **kw) for n in range(2)]
+    nodes = [LiveEdgeNode(n, cfg.name.removesuffix("-smoke"), cfg,
+                          params[n], shards[n], tok, TextEncoder(seed=0),
+                          seed=10 * n, index_kind="ivf",
+                          cache=SemanticQueryCache(), queue="continuous",
+                          paged=True, device=device, **kw)
+             for n, cfg in enumerate(cfgs)]
     fed = enable_federation(nodes, fanout=2, n_centroids=8, seed=0)
     return nodes, fed
 
 
-def _serve_slots(nodes, slots, slo_s):
-    """Both nodes' slots in turn; returns per (slot, node) the answers,
-    contexts and sources, and each node's retrieval seconds per slot."""
+def _queries(node_slots, j):
     from repro_torch.core.cluster import Query
     from repro_torch.retrieval.encoder import TextEncoder
     enc = TextEncoder(seed=0)
-    out, retr = [], [[] for _ in nodes]
+    return [Query(qa.domain, enc.encode([qa.question])[0], qid, qa.question,
+                  qa.answer) for qid, qa in node_slots[j]]
+
+
+def _serve_slots(nodes, slots, slo_s):
+    """Both nodes' slots in turn; returns per (slot, node) the answers,
+    contexts and sources, and per node its retrieval seconds per slot,
+    its kernel launches, its seconds in ``process_slot`` (the card
+    synchronised around each slot) and the peak device memory allocated
+    while it served."""
+    import torch
+    from repro_torch.kernels import ops
+    out = []
+    per = [{"retr": [], "launches": dict.fromkeys(ops.launches, 0),
+            "wall": 0.0, "peak": 0} for _ in nodes]
     for j in range(2):
         for n, node in enumerate(nodes):
-            qs = [Query(qa.domain, enc.encode([qa.question])[0], qid,
-                        qa.question, qa.answer) for qid, qa in slots[n][j]]
+            qs = _queries(slots[n], j)
             before = node.stats.retrieval_s
+            counts = dict(ops.launches)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
             res = node.process_slot(qs, slo_s)
-            retr[n].append(node.stats.retrieval_s - before)
+            torch.cuda.synchronize()
+            per[n]["peak"] = max(per[n]["peak"],
+                                 torch.cuda.max_memory_allocated())
+            per[n]["wall"] += time.perf_counter() - t0
+            per[n]["retr"].append(node.stats.retrieval_s - before)
+            for name, c in ops.launches.items():
+                per[n]["launches"][name] += c - counts[name]
             out.append(([(r.qid, r.answer, r.dropped) for r in res],
                         node.last_contexts, node.last_sources))
-    return out, retr
+    return out, per
+
+
+def layer_split(torch, node, node_slots, slo_s) -> dict:
+    """Serve one node's slots once more with the device synchronised
+    around every prefill chunk, decode step and recurrent cell: host-clock
+    seconds in ``prefill_chunk`` and ``decode_step`` and, inside them, in
+    each layer kind's cells ({"prefill": s, "decode": s, ("prefill",
+    "mlstm"): s, ...}).  The synchronisations slow the pass; the shares
+    are what it is for."""
+    model = node.engine.model
+    t = {}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            t[key] = t.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    cell = model._cell
+
+    def timed_cell(p, kind, h, state, mask=None, step=False):
+        key = ("decode" if step else "prefill", kind)
+        return timed(key, cell)(p, kind, h, state, mask, step)
+
+    model._cell = timed_cell
+    model.prefill_chunk = timed("prefill", model.prefill_chunk)
+    model.decode_step = timed("decode", model.decode_step)
+    try:
+        for j in range(2):
+            node.process_slot(_queries(node_slots, j), slo_s)
+    finally:
+        for name in ("_cell", "prefill_chunk", "decode_step"):
+            delattr(model, name)
+    return t
 
 
 def phase_cluster(torch, card, captured: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import Model
-    cfg = get_config("olmo-1b")
+    cfgs = [get_config(arch) for arch in CLUSTER_ARCHS]
     t0 = time.perf_counter()
-    params = [Model(cfg).init_params(seed=n, device=DEV) for n in range(2)]
+    params = [Model(cfg).init_params(seed=n, device=DEV)
+              for n, cfg in enumerate(cfgs)]
     torch.cuda.synchronize()
-    log(f"cluster: 2 x olmo-1b {cfg.dtype} params (seeds 0, 1) drawn in "
+    log(f"cluster: node 0 {cfgs[0].name}, node 1 {cfgs[1].name} "
+        f"({cfgs[1].num_layers} layers {'/'.join(cfgs[1].layer_pattern)} "
+        f"d{cfgs[1].d_model} {cfgs[1].num_heads}x"
+        f"{cfgs[1].resolved_head_dim} vocab {cfgs[1].vocab_size}), "
+        f"{cfgs[0].dtype}/{cfgs[1].dtype} params (seeds 0, 1) drawn in "
         f"{time.perf_counter() - t0:.1f} s")
     tok, shards, slots = _cluster_setup(40)
     kw = dict(batch_size=4, max_len=512, prefill_chunk=16, block_size=16,
@@ -664,27 +747,29 @@ def phase_cluster(torch, card, captured: dict) -> dict:
 
     # warm pass: cuBLAS handles, allocator, and the IVF kernel's
     # costliest main-path inputs
-    nodes, _ = _cluster(cfg, params, tok, shards, DEV, **kw)
+    nodes, _ = _cluster(cfgs, params, tok, shards, DEV, **kw)
     rec = MainPathInputs(ops)
     rec.install()
     try:
+        t0 = time.perf_counter()
         warm, _ = _serve_slots(nodes, slots, slo)
+        torch.cuda.synchronize()
+        log(f"cluster: warm pass {time.perf_counter() - t0:.3f} s")
     finally:
         rec.remove()
     captured["ivf_retrieval_topk"] = rec.best["ivf_retrieval_topk"]
     del nodes
     torch.cuda.synchronize()
 
-    nodes, fed = _cluster(cfg, params, tok, shards, DEV, **kw)
+    nodes, fed = _cluster(cfgs, params, tok, shards, DEV, **kw)
     watch(nodes)
     log(f"cluster: shards of {[len(s) for s in shards]} docs, IVF "
         f"n_lists {[nd.index.n_lists for nd in nodes]} nprobe "
         f"{[nd.index.nprobe for nd in nodes]}")
-    torch.cuda.reset_peak_memory_stats()
     with timed_segments(torch) as seg:
         ops.reset_launches()
         t0 = time.perf_counter()
-        got, retr = _serve_slots(nodes, slots, slo)
+        got, per = _serve_slots(nodes, slots, slo)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.launches)
@@ -695,27 +780,42 @@ def phase_cluster(torch, card, captured: dict) -> dict:
     check(sum(st.remote_contexts for st in sts) > 0,
           "federation served no remote context")
     check(all(st.cache_hits >= 1 for st in sts), "no semantic-cache hit")
-    check(all(st.prefix_hits >= 1 for st in sts), "no prefix hit")
+    check(all(st.prefix_hits >= 1 for st in sts), "a node had no prefix "
+          "hit (on node 1: no fork from a recurrent-state snapshot)")
     check(bool(torch.stack(finite).all()), "non-finite logits")
     for name in CLUSTER_KERNELS:
         check(launches.get(name, 0) > 0,
               f"kernel {name} was not launched on the cluster path")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(per[1]["launches"]["ivf_retrieval_topk"] > 0,
+          "node 1 did not launch the IVF probe kernel")
+    for name in ("flash_attention", "paged_decode_attention"):
+        check(per[1]["launches"][name] == 0,
+              f"node 1 ({cfgs[1].name}) launched {name}")
+        check(per[0]["launches"][name] > 0, f"node 0 did not launch {name}")
+    peak = max(p["peak"] for p in per) / 2 ** 30
     tag = f"[{card['smi']}]"
     nq = sum(st.queries for st in sts)
     log(f"cluster: {nq} queries over 2 nodes x 2 slots in {wall:.3f} s "
         f"wall {tag}")
     for n, st in enumerate(sts):
-        log(f"cluster: node {n} retrieval ms per slot "
-            f"{[round(1e3 * r, 3) for r in retr[n]]}, mean TTFT "
+        name = cfgs[n].name
+        s_dec, n_dec = seg["by"].get(name, (0.0, 0))
+        log(f"cluster: node {n} ({name}) {per[n]['wall']:.3f} s in its "
+            f"slots, retrieval ms per slot "
+            f"{[round(1e3 * r, 3) for r in per[n]['retr']]}, mean TTFT "
             f"{st.ttft_mean * 1e3:.2f} ms, {st.queries_per_s:.2f} queries/s "
             f"(retrieval {st.retrieval_s:.3f} s + generate "
             f"{st.generate_s:.3f} s) {tag}")
+        log(f"cluster: node {n} ({name}) decode "
+            f"{n_dec / max(s_dec, 1e-9):.1f} tokens/s ({n_dec} tokens in "
+            f"{s_dec:.3f} s of decode segments), peak memory while it "
+            f"served {per[n]['peak'] / 2 ** 30:.2f} GiB {tag}")
         log(f"cluster: node {n} cache hits {st.cache_hits}, prefix hits "
             f"{st.prefix_hits} misses {st.prefix_misses}, refills "
             f"{st.refills}, frames {st.waves}, tokens {st.tokens_out}, "
             f"remote contexts {st.remote_contexts} (gold "
             f"{st.remote_gold})")
+        log(f"cluster: node {n} launches {json.dumps(per[n]['launches'])}")
     log(f"cluster: decode {seg['tokens'] / max(seg['s'], 1e-9):.1f} "
         f"tokens/s ({seg['tokens']} tokens in {seg['s']:.3f} s of decode "
         f"segments) {tag}")
@@ -723,6 +823,17 @@ def phase_cluster(torch, card, captured: dict) -> dict:
     log(f"cluster: peak memory {peak:.2f} GiB {tag}")
     log(f"cluster: federation {json.dumps(vars(fed.stats))}")
     log(f"cluster: launches on the path {json.dumps(launches)}")
+
+    t = layer_split(torch, nodes[1], slots[1], slo)
+    for phase in ("prefill", "decode"):
+        total = t.get(phase, 0.0)
+        parts = ", ".join(
+            f"{kind} {t.get((phase, kind), 0.0):.3f} s "
+            f"({100 * t.get((phase, kind), 0.0) / max(total, 1e-9):.1f}%)"
+            for kind in ("mlstm", "slstm"))
+        log(f"cluster: node 1 {phase} {total:.3f} s in "
+            f"{'prefill_chunk' if phase == 'prefill' else 'decode_step'} "
+            f"(synchronised pass): {parts} {tag}")
     return launches
 
 
@@ -1820,27 +1931,109 @@ def phase_parity(torch) -> None:
           f"card and CPU answers differ:\n{answers}")
     log(f"parity: {len(qs)} smoke-config answers equal on card and CPU")
 
-    # the two-node federated IVF cluster with semantic caches
+    xlstm_parity(torch)
+
+    # the two-node federated IVF cluster with semantic caches: two olmo-1b
+    # nodes, and the quickstart's olmo-1b + xlstm-350m
     tok, shards, slots = _cluster_setup(8)
-    cfg = get_smoke_config("olmo-1b", vocab=len(tok))
-    params_cpu = [Model(cfg).init_params(seed=n, device="cpu")
-                  for n in range(2)]
-    served = {}
-    for dev in ("cuda", "cpu"):
-        params = [_to_device(p, dev) for p in params_cpu]
-        nodes, fed = _cluster(cfg, params, tok, shards, dev, batch_size=2,
-                              max_len=192, prefill_chunk=8, block_size=8,
-                              top_k=2, max_new_tokens=6)
-        served[dev], _ = _serve_slots(nodes, slots, 1e9)
-        log(f"parity[{dev}]: cluster cache hits "
-            f"{[nd.stats.cache_hits for nd in nodes]}, prefix hits "
-            f"{[nd.stats.prefix_hits for nd in nodes]}, remote contexts "
-            f"{fed.stats.remote_contexts}")
-    check(served["cuda"] == served["cpu"],
-          "card and CPU cluster answers, contexts or sources differ:\n"
-          f"{served}")
-    log(f"parity: {sum(len(o[0]) for o in served['cpu'])} cluster answers, "
-        "contexts and sources equal on card and CPU")
+    for archs in (("olmo-1b", "olmo-1b"), CLUSTER_ARCHS):
+        cfgs = [get_smoke_config(a, vocab=len(tok)) for a in archs]
+        params_cpu = [Model(cfg).init_params(seed=n, device="cpu")
+                      for n, cfg in enumerate(cfgs)]
+        served = {}
+        for dev in ("cuda", "cpu"):
+            params = [_to_device(p, dev) for p in params_cpu]
+            nodes, fed = _cluster(cfgs, params, tok, shards, dev,
+                                  batch_size=2, max_len=192,
+                                  prefill_chunk=8, block_size=8, top_k=2,
+                                  max_new_tokens=6)
+            served[dev], _ = _serve_slots(nodes, slots, 1e9)
+            log(f"parity[{dev}]: {'+'.join(archs)} cluster cache hits "
+                f"{[nd.stats.cache_hits for nd in nodes]}, prefix hits "
+                f"{[nd.stats.prefix_hits for nd in nodes]}, remote contexts "
+                f"{fed.stats.remote_contexts}")
+            check(all(nd.stats.prefix_hits >= 1 for nd in nodes),
+                  f"parity[{dev}]: a {'+'.join(archs)} node had no "
+                  "prefix hit")
+        check(served["cuda"] == served["cpu"],
+              f"card and CPU {'+'.join(archs)} cluster answers, contexts "
+              f"or sources differ:\n{served}")
+        log(f"parity: {sum(len(o[0]) for o in served['cpu'])} "
+            f"{'+'.join(archs)} cluster answers, contexts and sources "
+            "equal on card and CPU")
+
+
+# card-vs-CPU tolerances of the xlstm smoke model (f32): the CPU tests'
+# against the reference (the same f32 math summed in another order)
+XLSTM_LOGIT_TOL = 1e-4
+XLSTM_STATE_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _xlstm_run(torch, cfg, params, dev):
+    """The xlstm smoke model on ``dev``: full-forward logits, then a
+    two-row paged run (row 0 left-padded by 5 in its first chunk):
+    chunk logits and the recurrent state after the first chunk, and four
+    decode steps of seeded tokens (row 1 frozen after two; its state
+    steps all the same).  Returns the named tensors on
+    the CPU."""
+    import numpy as np
+    from repro_torch.models import Model
+    model = Model(cfg)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(5, cfg.vocab_size, (2, 24)).astype(np.int64)
+    pos = np.broadcast_to(np.arange(24), (2, 24)).copy()
+    T = lambda a: torch.as_tensor(a, device=dev)
+    out = {"forward": model.forward(params, T(toks), T(pos))}
+    C, frame, first = 8, 24, np.asarray([5, 0], np.int32)
+    cache = model.init_paged_cache(2, 48, 8, 12, dev)
+    cache.first = T(first)
+    cache.block_tables = T(np.arange(12, dtype=np.int32).reshape(2, 6))
+    for j in range(frame // C):
+        length = np.full(2, j * C, np.int32)
+        abs_pos = length[:, None] + np.arange(C)[None]
+        p = np.where(abs_pos >= first[:, None], abs_pos - first[:, None], -1)
+        out[f"chunk{j}"] = model.prefill_chunk(
+            params, T(toks[:, j * C:(j + 1) * C]), T(p.astype(np.int32)),
+            cache)
+        if j == 0:
+            for i, st in cache.state.items():
+                for name, a in st.items():
+                    out[f"state{i}.{name}"] = a.clone()
+    steps = rng.integers(5, cfg.vocab_size, (4, 2, 1)).astype(np.int64)
+    for step in range(4):
+        active = T(np.asarray([True, step < 2]))
+        out[f"decode{step}"] = model.decode_step(params, T(steps[step]),
+                                                 cache, active=active)
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def xlstm_parity(torch) -> None:
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = get_smoke_config("xlstm-350m", num_layers=4)
+    params_cpu = Model(cfg).init_params(seed=0, device="cpu")
+    got = _xlstm_run(torch, cfg, _to_device(params_cpu, "cuda"), "cuda")
+    want = _xlstm_run(torch, cfg, params_cpu, "cpu")
+    check(sorted(got) == sorted(want), "xlstm parity: different outputs")
+    errs = {}
+    for k, w in want.items():
+        g = got[k]
+        errs[k] = max_err(g, w)
+        if k.startswith("state"):
+            tol = XLSTM_STATE_TOL
+            ok = bool(torch.allclose(g, w, **tol))
+        else:
+            tol = XLSTM_LOGIT_TOL
+            ok = errs[k] <= tol
+        check(ok, f"xlstm parity: {k} differs on card and CPU by "
+              f"{errs[k]:.3g} (tolerance {tol})")
+    worst = lambda pre: max(e for k, e in errs.items() if k.startswith(pre))
+    log(f"parity: xlstm-350m smoke ({cfg.num_layers} layers d"
+        f"{cfg.d_model}, f32) card vs CPU max |err|: forward "
+        f"{worst('forward'):.3g}, chunks {worst('chunk'):.3g}, decode "
+        f"{worst('decode'):.3g} (tolerance {XLSTM_LOGIT_TOL}), state after "
+        f"a left-padded chunk {worst('state'):.3g} "
+        f"(allclose {XLSTM_STATE_TOL})")
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,13 @@
 """Parameter conversion between the reference's layout and the port's.
 
 The reference keeps one pytree whose decoder leaves are stacked over
-pattern cycles: ``params["blocks"]["s0_attn"][...]`` has a leading
-``[num_layers]`` axis for a single-"attn" pattern.  The port keeps a
-list of per-layer dicts.  Both use the ``[d_in, d_out]`` matmul layout,
-so leaves convert without transposes.  The reference side is handed over
-as nested dicts of numpy arrays; nothing here imports the reference.
+pattern cycles: ``params["blocks"][f"s{j}_{kind}"]`` holds slot j of the
+layer pattern with a leading ``[num_layers // P]`` cycle axis, P being
+the pattern's length.  The port keeps a list of per-layer dicts: port
+layer i is slot ``i % P`` at cycle ``i // P``.  Both use the ``[d_in,
+d_out]`` matmul layout, so leaves convert without transposes.  The
+reference side is handed over as nested dicts of numpy arrays; nothing
+here imports the reference.
 
 ``ivf_state_from_numpy`` carries a trained IVF quantizer (centroids and
 packed lists) into the port's ``IVFIndex`` the same way, so a search can
@@ -21,7 +23,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
-_SLOT = "s0_attn"
+
+def _slot(cfg: ModelConfig, i: int) -> str:
+    """The reference's slot name of port layer ``i``."""
+    return f"s{i % len(cfg.layer_pattern)}_{cfg.pattern_for_layer(i)}"
 
 
 def _to_torch(tree: Any, device: torch.device) -> Any:
@@ -56,21 +61,24 @@ def _stack(trees: list) -> Any:
 def params_from_numpy(np_params: Dict[str, Any], cfg: ModelConfig,
                       device: DeviceLike = "cuda") -> dict:
     """Reference-layout numpy parameters -> the port's parameters."""
-    if tuple(cfg.layer_pattern) != ("attn",):
-        raise NotImplementedError("bridge covers single-'attn' patterns")
     dev = resolve_device(device)
-    stacked = np_params["blocks"][_SLOT]
+    P = len(cfg.layer_pattern)
     out = {k: _to_torch(v, dev) for k, v in np_params.items()
            if k != "blocks"}
-    out["blocks"] = [_to_torch(_layer(stacked, i), dev)
-                     for i in range(cfg.num_layers)]
+    out["blocks"] = [
+        _to_torch(_layer(np_params["blocks"][_slot(cfg, i)], i // P), dev)
+        for i in range(cfg.num_layers)]
     return out
 
 
-def params_to_numpy(params: dict) -> Dict[str, Any]:
+def params_to_numpy(params: dict, cfg: ModelConfig) -> Dict[str, Any]:
     """The port's parameters -> reference-layout numpy parameters."""
+    P = len(cfg.layer_pattern)
     out = {k: _to_numpy(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {_SLOT: _stack([_to_numpy(b) for b in params["blocks"]])}
+    out["blocks"] = {
+        _slot(cfg, j): _stack([_to_numpy(b)
+                               for b in params["blocks"][j::P]])
+        for j in range(P)}
     return out
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``repro/cluster/node.py`` for the paged continuous path.
 A ``LiveEdgeNode`` owns
 
-  * a paged, chunk-prefilling ``ServeEngine`` on its device,
+  * a paged, chunk-prefilling ``ServeEngine`` on its device, for any
+    architecture the port's ``Model`` serves (attention layers in a
+    paged KV pool, xLSTM layers with per-row recurrent state),
   * a private domain-partitioned corpus behind a ``VectorIndex``
     backend (exact ``flat`` scan or ``ivf`` ANN probe) on the same device,
   * optionally a ``SemanticQueryCache`` (repeat queries skip the probe)

@@ -23,6 +23,7 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
 # arch id (public, dashed) -> module name (importable, underscored)
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "olmo_1b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

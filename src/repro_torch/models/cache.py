@@ -1,15 +1,22 @@
-"""Paged KV cache: block allocator, pool layout, scatter writes, gathers.
+"""Paged KV cache: block allocator, pool layout, scatter writes, gathers,
+and the per-row recurrent state beside the pool.
 
-Counterpart of the paged half of ``repro/models/cache.py``, for the
-"attn" slot kind only (rolling-window, recurrent and encoder state come
-with later slices).
+Counterpart of the paged half of ``repro/models/cache.py`` for the
+"attn", "mlstm" and "slstm" slot kinds (rolling-window, Mamba and
+encoder state come with later slices).
 
-Layout (``PagedCache``): per-layer K/V pools ``[L, P, bs, KV, hd]``,
-per-row ``length`` [B], ``first`` [B] and ``block_tables`` [B, NB]
-(-1 = unallocated).  Row r's absolute position p lives in pool block
-``block_tables[r, p // bs]`` at offset ``p % bs``.  The reference
-consumes donated caches inside compiled programs; here the pools are
-preallocated and written in place.
+Layout (``PagedCache``): K/V pools ``[La, P, bs, KV, hd]`` for the La
+"attn" layers only (``paged_slot_names`` in the reference), per-row
+``length`` [B], ``first`` [B] and ``block_tables`` [B, NB] (-1 =
+unallocated).  Row r's absolute position p lives in pool block
+``block_tables[r, p // bs]`` at offset ``p % bs``.  Every other layer
+keeps per-row state ``state[layer]`` (a dict of [B, ...] f32 tensors:
+mLSTM ``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m``).  A model
+without "attn" layers has empty pools (La = 0): the block allocator,
+the block tables and the copy-on-write decisions run all the same.  The
+reference consumes donated caches inside compiled programs; here the
+pools are preallocated and written in place, and a layer's state is
+replaced by the new tensors its cell returns.
 
 Invalid writes (pad tokens, finished rows, unallocated blocks) must
 write nowhere.  The reference routes them to a positive out-of-bounds
@@ -23,10 +30,15 @@ row, decode) and ``paged_write_seq`` (a chunk per row, prefill).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm
+
+RowState = Dict[int, Dict[str, torch.Tensor]]   # layer -> name -> [B, ...]
 
 
 def full_kv_positions(length: torch.Tensor, s_max: int) -> torch.Tensor:
@@ -107,13 +119,38 @@ def num_row_blocks(max_len: int, block_size: int) -> int:
     return -(-max_len // block_size)
 
 
+def init_row_state(cfg: ModelConfig, batch: int, device) -> RowState:
+    """Zeroed per-row state of every recurrent layer, batch ``batch``: a
+    plain refill starts from ``init_row_state(cfg, 1, dev)``."""
+    init = {"mlstm": ssm.mlstm_init_state, "slstm": ssm.slstm_init_state}
+    kinds = [cfg.pattern_for_layer(i) for i in range(cfg.num_layers)]
+    return {i: init[kind](cfg, batch, device)
+            for i, kind in enumerate(kinds) if kind != "attn"}
+
+
+def extract_row(state: RowState, row: int) -> RowState:
+    """A copy of batch row ``row`` (kept as a size-1 batch): the snapshot
+    a prefix entry keeps, and the private copy a fork resumes from."""
+    return {i: {k: a[row:row + 1].clone() for k, a in st.items()}
+            for i, st in state.items()}
+
+
+def insert_row(state: RowState, src: RowState, row: int) -> None:
+    """Copy the one row of ``src`` into row ``row`` of ``state`` in place:
+    the per-slot state swap of a refill."""
+    for i, st in state.items():
+        for k, a in st.items():
+            a[row] = src[i][k][0]
+
+
 @dataclass
 class PagedCache:
     length: torch.Tensor          # [B] int32 tokens absorbed per row
     first: torch.Tensor           # [B] int32 first valid abs position
     block_tables: torch.Tensor    # [B, NB] int32 pool block ids, -1 free
-    k: torch.Tensor               # [L, P, bs, KV, hd]
-    v: torch.Tensor               # [L, P, bs, KV, hd]
+    k: torch.Tensor               # [La, P, bs, KV, hd] ("attn" layers)
+    v: torch.Tensor               # [La, P, bs, KV, hd]
+    state: RowState               # recurrent layers: [B, ...] f32
 
     @property
     def block_size(self) -> int:
@@ -124,30 +161,37 @@ class PagedCache:
         return self.k.shape[1]
 
     def staging_row(self, table_row: torch.Tensor, length0: int,
-                    first0: int) -> "PagedCache":
+                    first0: int, row_state: RowState) -> "PagedCache":
         """A one-row cache over the SAME pools: chunk writes through
-        ``table_row`` land directly in the shared pool."""
+        ``table_row`` land directly in the shared pool, while the
+        recurrent layers run on ``row_state`` (zeros, or a copy of a
+        prefix snapshot), which the chunks replace as they go."""
         dev = self.length.device
         return PagedCache(
             length=torch.tensor([length0], dtype=torch.int32, device=dev),
             first=torch.tensor([first0], dtype=torch.int32, device=dev),
             block_tables=table_row.reshape(1, -1).to(torch.int32),
-            k=self.k, v=self.v)
+            k=self.k, v=self.v, state=row_state)
 
 
-def init_paged_cache(num_layers: int, kv_heads: int, head_dim: int,
-                     batch: int, max_len: int, block_size: int,
-                     num_blocks: int, dtype, device) -> PagedCache:
-    """Zeroed pools of ``num_blocks`` blocks per layer, all rows empty."""
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     block_size: int, num_blocks: int, dtype,
+                     device) -> PagedCache:
+    """Zeroed pools of ``num_blocks`` blocks for each "attn" layer, zeroed
+    recurrent state, all rows empty."""
     NB = num_row_blocks(max_len, block_size)
-    shape = (num_layers, num_blocks, block_size, kv_heads, head_dim)
+    n_attn = sum(cfg.pattern_for_layer(i) == "attn"
+                 for i in range(cfg.num_layers))
+    shape = (n_attn, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
     return PagedCache(
         length=torch.zeros(batch, dtype=torch.int32, device=device),
         first=torch.zeros(batch, dtype=torch.int32, device=device),
         block_tables=torch.full((batch, NB), -1, dtype=torch.int32,
                                 device=device),
         k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device))
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        state=init_row_state(cfg, batch, device))
 
 
 def pool_write_plan(table: torch.Tensor, abs_pos: torch.Tensor,

@@ -1,11 +1,15 @@
-"""Dense decoder on torch tensors, serving through a paged KV cache.
+"""Decoder on torch tensors, serving through a paged KV cache and
+per-row recurrent state.
 
-Counterpart of the dense "attn" path of ``repro/models/model.py``.  The
-reference stacks per-layer parameters and scans over them; here the
-parameters are a list of per-layer dicts and the stack is a Python loop.
+Counterpart of the "attn", "mlstm" and "slstm" paths of
+``repro/models/model.py``.  The reference stacks per-layer parameters
+by pattern slot and scans over cycles; here the parameters are a list of
+per-layer dicts and the stack is a Python loop that dispatches on the
+layer's kind (``cfg.pattern_for_layer``).  Recurrent layers (xLSTM
+cells, ``models.ssm``) have no MLP sublayer.
 
 Entry points (pure functions of the parameter dict, except that the
-paged cache's pools and ``length`` are updated in place):
+paged cache's pools, recurrent state and ``length`` are updated):
 
   forward(params, tokens, positions)                  -> logits [B,S,V]
   prefill_chunk(params, tokens, positions, cache)     -> last logits [B,V]
@@ -13,8 +17,10 @@ paged cache's pools and ``length`` are updated in place):
 
 Positions are per-row RELATIVE (counted from ``cache.first``; -1 at
 pads) while pool slots are keyed by absolute position, as in the
-reference's continuous-batching mode.  Layer kinds other than "attn",
-MoE, encoder-decoder, qk-norm and non-RoPE position embeddings raise
+reference's continuous-batching mode; a recurrent layer treats a -1
+position as an identity step.  Layer kinds other than "attn", "mlstm"
+and "slstm", MoE, encoder-decoder, qk-norm, sliding windows and
+position embeddings other than RoPE or none raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -28,6 +34,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
+
+KINDS = ("attn", "mlstm", "slstm")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -37,7 +46,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 class Model:
     def __init__(self, cfg: ModelConfig):
         unsupported = []
-        if tuple(cfg.layer_pattern) != ("attn",):
+        if any(kind not in KINDS for kind in cfg.layer_pattern):
             unsupported.append(f"layer_pattern={cfg.layer_pattern}")
         if cfg.moe is not None:
             unsupported.append("MoE")
@@ -51,9 +60,13 @@ class Model:
             unsupported.append("sliding_window")
         if unsupported:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense full-attention "
-                f"decoders only so far ({', '.join(unsupported)})")
+                f"{cfg.name}: the port serves full-attention and xLSTM "
+                f"layers only so far ({', '.join(unsupported)})")
         self.cfg = cfg
+        self.kinds = [cfg.pattern_for_layer(i) for i in range(cfg.num_layers)]
+        # layer -> index into the K/V pools, for the "attn" layers
+        attn = [i for i, kind in enumerate(self.kinds) if kind == "attn"]
+        self.pool_index = {i: j for j, i in enumerate(attn)}
 
     # ------------------------------------------------------------------ init
 
@@ -68,10 +81,15 @@ class Model:
         params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype, dev)}
         blocks = []
-        for _ in range(cfg.num_layers):
-            blk = {"ln1": L.init_norm(cfg, dtype, dev),
-                   "attn": L.init_attention(gen, cfg, dtype, dev)}
-            if cfg.mlp_type != "none":
+        for kind in self.kinds:
+            blk = {"ln1": L.init_norm(cfg, dtype, dev)}
+            if kind == "mlstm":
+                blk["cell"] = ssm.init_mlstm(gen, cfg, dtype, dev)
+            elif kind == "slstm":
+                blk["cell"] = ssm.init_slstm(gen, cfg, dtype, dev)
+            else:
+                blk["attn"] = L.init_attention(gen, cfg, dtype, dev)
+            if kind == "attn" and cfg.mlp_type != "none":
                 blk["ln2"] = L.init_norm(cfg, dtype, dev)
                 blk["mlp"] = L.init_mlp(gen, cfg, dtype, dev)
             blocks.append(blk)
@@ -85,11 +103,9 @@ class Model:
     def init_paged_cache(self, batch: int, max_len: int, block_size: int,
                          num_blocks: int, device: DeviceLike
                          ) -> cache_lib.PagedCache:
-        cfg = self.cfg
         return cache_lib.init_paged_cache(
-            cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim, batch,
-            max_len, block_size, num_blocks, torch_dtype(cfg),
-            resolve_device(device))
+            self.cfg, batch, max_len, block_size, num_blocks,
+            torch_dtype(self.cfg), resolve_device(device))
 
     # -------------------------------------------------------------- helpers
 
@@ -122,16 +138,32 @@ class Model:
                 logits.float() / cfg.final_logit_softcap)
         return logits
 
+    def _cell(self, p, kind: str, h: torch.Tensor, state: Optional[dict],
+              mask: Optional[torch.Tensor] = None, step: bool = False):
+        """A recurrent layer's cell on the normed input ``h``: the chunkwise
+        mLSTM or the sLSTM scan over a sequence (identity steps where
+        ``mask`` is False), or one decode step.  Returns (y, new state)."""
+        if step:
+            fn = ssm.mlstm_step if kind == "mlstm" else ssm.slstm_step
+            return fn(p["cell"], h, self.cfg, state)
+        fn = ssm.mlstm_forward_chunked if kind == "mlstm" \
+            else ssm.slstm_forward
+        return fn(p["cell"], h, self.cfg, state, mask=mask)
+
     # ---------------------------------------------------------------- public
 
     def forward(self, params, tokens: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward: tokens/positions [B,S] -> logits [B,S,V]."""
+        """Full-sequence forward: tokens/positions [B,S] -> logits [B,S,V]
+        (recurrent layers start from zero state)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         angles = self._angles(positions)
-        for p in params["blocks"]:
+        for kind, p in zip(self.kinds, params["blocks"]):
             h = L.apply_norm(p["ln1"], x, cfg)
+            if kind != "attn":
+                x = x + self._cell(p, kind, h, None)[0]
+                continue
             q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
             a = L.flash_attention(q, k, v, positions, positions, causal=True,
                                   softcap=cfg.attn_logit_softcap)
@@ -145,31 +177,44 @@ class Model:
                       ) -> torch.Tensor:
         """Absorb one [B, C] prompt chunk into the paged cache.
 
-        Each row's queries attend to its cached past (the full block-table
-        width is gathered; slots at or beyond ``length`` and before
-        ``first`` are masked) plus the chunk itself, then the chunk's K/V
-        are written to the row's blocks.  ``positions`` are relative (-1 at
-        pads, which write nowhere).  Advances ``cache.length`` by C and
-        returns the logits at ``last_col`` [B] (default: the last column)."""
+        In an "attn" layer each row's queries attend to its cached past
+        (the full block-table width is gathered; slots at or beyond
+        ``length`` and before ``first`` are masked) plus the chunk itself,
+        then the chunk's K/V are written to the row's blocks.  A recurrent
+        layer runs its cell over the chunk from the row's state, with an
+        identity step at every pad.  ``positions`` are relative (-1 at
+        pads, which write nowhere and leave the state alone).  Advances
+        ``cache.length`` by C and returns the logits at ``last_col`` [B]
+        (default: the last column)."""
         cfg = self.cfg
         B, S = tokens.shape
-        tables, first, start = cache.block_tables, cache.first, cache.length
-        bs, P = cache.block_size, cache.num_blocks
-        L_buf = tables.shape[1] * bs
-        abs_write = torch.where(positions >= 0, positions + first[:, None],
-                                torch.full_like(positions, -1))
-        plan = cache_lib.pool_write_plan(tables, abs_write, bs, P)
-        past = cache_lib.full_kv_positions(start[:, None], L_buf) \
-            - first[:, None]
-        kv_pos = torch.cat([past, positions.to(torch.int32)], dim=1)
+        if self.pool_index:
+            tables, first, start = cache.block_tables, cache.first, \
+                cache.length
+            bs, P = cache.block_size, cache.num_blocks
+            L_buf = tables.shape[1] * bs
+            abs_write = torch.where(positions >= 0,
+                                    positions + first[:, None],
+                                    torch.full_like(positions, -1))
+            plan = cache_lib.pool_write_plan(tables, abs_write, bs, P)
+            past = cache_lib.full_kv_positions(start[:, None], L_buf) \
+                - first[:, None]
+            kv_pos = torch.cat([past, positions.to(torch.int32)], dim=1)
+        mask = positions >= 0
         x = self._embed(params, tokens)
         angles = self._angles(positions)
-        for i, p in enumerate(params["blocks"]):
+        for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
             h = L.apply_norm(p["ln1"], x, cfg)
+            if kind != "attn":
+                y, cache.state[i] = self._cell(p, kind, h, cache.state[i],
+                                               mask)
+                x = x + y
+                continue
+            j = self.pool_index[i]
             q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
             k_buf, v_buf = cache_lib.paged_gather_kv(
-                cache.k[i], cache.v[i], tables, tables.shape[1])
-            cache_lib.paged_write(cache.k[i], cache.v[i], k, v, plan)
+                cache.k[j], cache.v[j], tables, tables.shape[1])
+            cache_lib.paged_write(cache.k[j], cache.v[j], k, v, plan)
             k_all = torch.cat([k_buf, k.to(k_buf.dtype)], dim=1)
             v_all = torch.cat([v_buf, v.to(v_buf.dtype)], dim=1)
             a = L.flash_attention(q, k_all, v_all, positions, kv_pos,
@@ -188,27 +233,37 @@ class Model:
                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
         """token [B,1] -> next-token logits [B,V].
 
-        Each row writes its token at absolute position ``length`` (rows
-        with ``active`` False write nowhere and keep their length), then
-        attends through the first ``nb_cap`` block-table columns with the
-        paged decode kernel: slots ``first <= pos <= length`` count."""
+        In an "attn" layer each row writes its token at absolute position
+        ``length`` (rows with ``active`` False write nowhere), then attends
+        through the first ``nb_cap`` block-table columns with the paged
+        decode kernel: slots ``first <= pos <= length`` count.  A recurrent
+        layer steps every row's state, as the reference does (a finished
+        row's state is replaced when the row is refilled).  Rows with
+        ``active`` False keep their length."""
         cfg = self.cfg
-        nb_total = cache.block_tables.shape[1]
-        nb = nb_total if nb_cap is None else min(nb_cap, nb_total)
         first, start = cache.first, cache.length
         pos = (start - first)[:, None]
-        plan = cache_lib.pool_write_plan(cache.block_tables, start[:, None],
-                                         cache.block_size, cache.num_blocks,
-                                         active)
-        tables = cache.block_tables[:, :nb].contiguous()
+        if self.pool_index:
+            nb_total = cache.block_tables.shape[1]
+            nb = nb_total if nb_cap is None else min(nb_cap, nb_total)
+            plan = cache_lib.pool_write_plan(
+                cache.block_tables, start[:, None], cache.block_size,
+                cache.num_blocks, active)
+            tables = cache.block_tables[:, :nb].contiguous()
         x = self._embed(params, token)
         angles = self._angles(pos)
-        for i, p in enumerate(params["blocks"]):
+        for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
             h = L.apply_norm(p["ln1"], x, cfg)
+            if kind != "attn":
+                y, cache.state[i] = self._cell(p, kind, h, cache.state[i],
+                                               step=True)
+                x = x + y
+                continue
+            j = self.pool_index[i]
             q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
-            cache_lib.paged_write(cache.k[i], cache.v[i], k, v, plan)
+            cache_lib.paged_write(cache.k[j], cache.v[j], k, v, plan)
             a = ops.paged_decode_attention(
-                q[:, 0].contiguous(), cache.k[i], cache.v[i], tables, first,
+                q[:, 0].contiguous(), cache.k[j], cache.v[j], tables, first,
                 start, softcap=cfg.attn_logit_softcap)
             x = x + L.attention_out(p["attn"], a[:, None])
             x = self._mlp(p, x)

@@ -2,10 +2,12 @@
 
 Counterpart of the paged half of ``repro/serving/engine.py``.  Prompts
 are absorbed ``prefill_chunk`` tokens at a time (``Model.prefill_chunk``)
-into a shared KV block pool; ``ContinuousSession`` admits a request into
-a finished row the moment one frees up (plain refill, or a fork of a
-cached retrieved-context prefix with a copy-on-write tail block), and
-decodes in segments that return to the host whenever a row finishes.
+into a shared KV block pool and, for recurrent layers, per-row state;
+``ContinuousSession`` admits a request into a finished row the moment
+one frees up (plain refill from zero state, or a fork of a cached
+retrieved-context prefix: its blocks with a copy-on-write tail block,
+and a copy of its recurrent-state snapshot), and decodes in segments
+that return to the host whenever a row finishes.
 
 The reference compiles each step into a donated XLA program and runs the
 decode segment as one device ``while_loop`` with one summary transfer.
@@ -122,10 +124,16 @@ class ServeEngine:
                                       l_end)
         return logits.float()
 
+    def _zero_row_state(self) -> cache_lib.RowState:
+        """Zeroed one-row recurrent state: what a plain refill and a
+        prefix prefill start from."""
+        return cache_lib.init_row_state(self.cfg, 1, self.device)
+
     @staticmethod
     def _copy_block(cache: cache_lib.PagedCache, src: int, dst: int) -> None:
-        """Copy pool block ``src`` into ``dst`` in every layer: the
-        copy-on-write step when a fork's prefix ends mid-block."""
+        """Copy pool block ``src`` into ``dst`` in every "attn" layer (none
+        in a model without one): the copy-on-write step when a fork's
+        prefix ends mid-block."""
         cache.k[:, dst] = cache.k[:, src]
         cache.v[:, dst] = cache.v[:, src]
 
@@ -381,15 +389,18 @@ class ContinuousSession:
         self.refills += 1
         _sync(self.eng.device)      # the row's first token exists now
 
-    def _admit_row(self, toks, slot, table_row, length0, l_end,
-                   first0) -> None:
+    def _admit_row(self, toks, slot, table_row, length0, l_end, first0,
+                   row_state: cache_lib.RowState) -> None:
         """Prefill ``toks`` into ``slot`` through a staging row that shares
-        the pool, sample its first token, point the row at its blocks."""
+        the pool and starts from ``row_state`` (the staging row consumes
+        it), sample its first token, swap the staging row's recurrent
+        state into the slot and point the row at its blocks."""
         cache = self.cache
         row = self.eng._tensor(table_row)
-        staging = cache.staging_row(row, length0, first0)
+        staging = cache.staging_row(row, length0, first0, row_state)
         logits = self.eng._scan_chunks(toks, staging, l_end)
         self.tok[slot] = sample_token(logits, self.gen, self.generator)[0]
+        cache_lib.insert_row(cache.state, staging.state, slot)
         cache.first[slot] = first0
         cache.length[slot] = l_end
         cache.block_tables[slot] = row
@@ -406,7 +417,8 @@ class ContinuousSession:
         table_row[:len(ids)] = ids
         toks = np.full((1, padded), self.eng.pad_id, np.int32)
         toks[0, padded - p:] = list(prompt)
-        self._admit_row(toks, slot, table_row, 0, padded, padded - p)
+        self._admit_row(toks, slot, table_row, 0, padded, padded - p,
+                        self.eng._zero_row_state())
 
     def _refill_fork(self, slot: int, prompt: Sequence[int], budget: int,
                      prefix: tuple) -> None:
@@ -433,13 +445,17 @@ class ContinuousSession:
         kq = -(-q // self.C)
         toks = np.full((1, kq * self.C), self.eng.pad_id, np.int32)
         toks[0, :q] = suffix
-        self._admit_row(toks, slot, table_row, L0, L0 + q, entry.pad)
+        # resume from a private copy of the snapshot: the entry forks
+        # into more rows, and the suffix chunks replace the state
+        self._admit_row(toks, slot, table_row, L0, L0 + q, entry.pad,
+                        cache_lib.extract_row(entry.row_state, 0))
 
     def _prefill_prefix(self, prefix: tuple) -> PrefixEntry:
         """Prefill a canonical prefix run (left-padded to a chunk multiple
         so relative positions are admission-invariant) into its own
-        blocks.  The dense model keeps no per-row state beside the pool,
-        so the entry's ``row_state`` is empty."""
+        blocks.  The entry keeps the staging row's recurrent state at the
+        prefix end (empty for a model of "attn" layers only): the
+        snapshot every fork of the prefix resumes from."""
         bs = self.eng.block_size
         p = len(prefix)
         pad0 = (-p) % self.C
@@ -449,10 +465,11 @@ class ContinuousSession:
         table_row[:len(ids)] = ids
         toks = np.full((1, L0), self.eng.pad_id, np.int32)
         toks[0, pad0:] = list(prefix)
-        staging = self.cache.staging_row(self.eng._tensor(table_row), 0, pad0)
+        staging = self.cache.staging_row(self.eng._tensor(table_row), 0,
+                                         pad0, self.eng._zero_row_state())
         self.eng._scan_chunks(toks, staging, L0)
         return PrefixEntry(block_ids=list(ids), length=L0, pad=pad0,
-                           row_state={})
+                           row_state=staging.state)
 
     # ------------------------------------------------------------- decoding
 

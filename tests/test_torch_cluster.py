@@ -2,8 +2,9 @@
 copied from it (semantic query cache, edge-data partition, answer
 quality), sketch-routed federated retrieval over IVF shards, the
 ContinuousQueue additions the live node needs (shed hint, snapshot /
-delta), and two federated IVF olmo-1b smoke nodes with semantic caches
-over the paged continuous queue, slot for slot.
+delta), and two federated IVF smoke nodes with semantic caches over the
+paged continuous queue, slot for slot: two olmo-1b nodes, and the
+quickstart's pair, olmo-1b (node 0) + xlstm-350m (node 1).
 
 The reference's IVF shards run their kernel path (``use_pallas=True``,
 the Pallas kernel in interpret mode on the CPU), which orders exact ties
@@ -203,16 +204,16 @@ def test_queue_shed_hint_and_stats_deltas_match_reference(small_model):
 # ------------------------------------------------------------ live nodes
 
 
-def _nodes(world, port: bool):
-    """Two federated IVF olmo-1b smoke nodes with semantic caches over
-    the paged continuous queue (build_cluster's knobs, reduced)."""
+def _nodes(world, port: bool, archs):
+    """Two federated IVF smoke nodes of ``archs`` with semantic caches
+    over the paged continuous queue (build_cluster's knobs, reduced)."""
     docs, qas, tok, prim, node_docs, j_node_docs = world
-    cfg = get_smoke_config("olmo-1b", max_d_model=32, vocab=len(tok))
     kw = dict(batch_size=2, max_len=192, top_k=2, max_new_tokens=6,
               index_kind="ivf", queue="continuous", prefill_chunk=8,
               paged=True, block_size=8)
     nodes = []
-    for n in range(2):
+    for n, arch in enumerate(archs):
+        cfg = get_smoke_config(arch, max_d_model=32, vocab=len(tok))
         jparams = JModel(cfg).init_params(jax.random.PRNGKey(n),
                                           max_seq=192)
         if port:
@@ -220,11 +221,11 @@ def _nodes(world, port: bool):
                 jax.tree_util.tree_map(np.asarray, jparams), cfg,
                 device="cpu")
             nodes.append(LiveEdgeNode(
-                n, "olmo-1b", cfg, params, node_docs[n], tok,
+                n, arch, cfg, params, node_docs[n], tok,
                 TextEncoder(seed=0), seed=10 * n, cache=SemanticQueryCache(),
                 device="cpu", **kw))
         else:
-            node = JNode(n, "olmo-1b", cfg, jparams, j_node_docs[n],
+            node = JNode(n, arch, cfg, jparams, j_node_docs[n],
                          JTokenizer(tok.vocab), JEncoder(seed=0),
                          seed=10 * n, cache=JCache(), **kw)
             node.index.use_pallas = True
@@ -252,11 +253,14 @@ def _slots(world):
     return slots, emb
 
 
-def test_live_nodes_match_reference(world):
+@pytest.mark.parametrize("archs", [("olmo-1b", "olmo-1b"),
+                                   ("olmo-1b", "xlstm-350m")],
+                         ids=["olmo+olmo", "olmo+xlstm"])
+def test_live_nodes_match_reference(world, archs):
     slots, emb = _slots(world)
     runs = {}
     for port in (True, False):
-        nodes = _nodes(world, port)
+        nodes = _nodes(world, port, archs)
         Q = Query if port else JQuery
         out = []
         for j in range(2):

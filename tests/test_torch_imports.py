@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it pulls in no JAX, no file of
 it imports the JAX package, entry points refuse to fall back to the CPU
-when no GPU is present, and its olmo-1b config equals the reference's."""
+when no GPU is present, and its olmo-1b and xlstm-350m configs equal
+the reference's."""
 import ast
 import dataclasses
 import pathlib
@@ -90,16 +91,20 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
                      TextEncoder(dim=16, hash_dim=64), paged=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(cfg).init_params(seed=0)
+    xcfg = port_configs.get_smoke_config("xlstm-350m", max_d_model=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(xcfg).init_params(seed=0)
 
 
+@pytest.mark.parametrize("arch", ["olmo-1b", "xlstm-350m"])
 @pytest.mark.parametrize("smoke", [False, True])
-def test_olmo_config_matches_reference(smoke):
+def test_olmo_config_matches_reference(smoke, arch):
     if smoke:
         kw = dict(max_d_model=64, vocab=300)
-        ours = port_configs.get_smoke_config("olmo-1b", **kw)
-        theirs = get_smoke_config("olmo-1b", **kw)
+        ours = port_configs.get_smoke_config(arch, **kw)
+        theirs = get_smoke_config(arch, **kw)
     else:
-        ours = port_configs.get_config("olmo-1b")
-        theirs = get_config("olmo-1b")
+        ours = port_configs.get_config(arch)
+        theirs = get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-    assert port_configs.ARCH_IDS == ["olmo-1b"]
+    assert port_configs.ARCH_IDS == ["olmo-1b", "xlstm-350m"]

@@ -1,9 +1,14 @@
-"""The port's dense model against the reference on a bridged olmo-1b
-smoke model (f32): parameter round trip, full forward, and paged chunked
-prefill + decode with a frozen row, logits and pool contents step by step.
+"""The port's model against the reference on bridged olmo-1b (dense
+attention) and xlstm-350m (alternating mLSTM/sLSTM, 4 layers so that
+the pattern cycles twice) smoke models (f32): parameter round trip,
+full forward, and paged chunked prefill + decode with a frozen row,
+logits, pool contents and recurrent state step by step.
 
 Tolerances: logits 1e-4 absolute (a few f32 matmuls and softmaxes summed
-in another order), pool K/V 1e-5; parameters round-trip exactly."""
+in another order), pool K/V 1e-5, recurrent state atol 1e-5 rtol 1e-4;
+parameters round-trip exactly."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,16 +21,20 @@ from repro.models import Model as JModel  # noqa: E402
 from repro.models import cache as jcache  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_smoke_config as port_smoke  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import cache as cache_lib  # noqa: E402
 
 LOGIT_TOL = 1e-4
 KV_TOL = 1e-5
+STATE_TOL = dict(atol=1e-5, rtol=1e-4)
+SMOKE = {"olmo-1b": {}, "xlstm-350m": {"num_layers": 4}}
 
 
-@pytest.fixture(scope="module")
-def models():
-    cfg = get_smoke_config("olmo-1b", max_d_model=64, vocab=96)
+@pytest.fixture(scope="module", params=list(SMOKE))
+def models(request):
+    cfg = get_smoke_config(request.param, max_d_model=64, vocab=96,
+                           **SMOKE[request.param])
     jm = JModel(cfg)
     jparams = jm.init_params(jax.random.PRNGKey(0))
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
@@ -36,7 +45,7 @@ def models():
 def test_bridge_round_trip_is_exact(models):
     cfg, _, _, np_params, _, params = models
     assert len(params["blocks"]) == cfg.num_layers
-    back = bridge.params_to_numpy(params)
+    back = bridge.params_to_numpy(params, cfg)
     flat_a = jax.tree_util.tree_leaves_with_path(np_params)
     flat_b = jax.tree_util.tree_leaves_with_path(back)
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
@@ -97,6 +106,7 @@ def test_paged_prefill_and_decode_match(models):
                                   last_col=torch.from_numpy(last_col))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=LOGIT_TOL)
+        _check_cache(cfg, tc, jc)
         length += C
 
     jdecode = jax.jit(jm.decode_step, static_argnames=("relative", "nb_cap"))
@@ -113,11 +123,32 @@ def test_paged_prefill_and_decode_match(models):
         np.testing.assert_array_equal(tc.length.numpy(),
                                       np.asarray(jc["length"]))
         tok = np.asarray(want).argmax(-1).astype(np.int32)[:, None]
-    for name in ("k", "v"):
-        np.testing.assert_allclose(
-            getattr(tc, name).numpy(),
-            np.asarray(jc["slots"]["s0_attn"][name]), rtol=0, atol=KV_TOL)
+        _check_cache(cfg, tc, jc)
     assert tc.length.tolist() == [frame + 4, frame + 2]
+
+
+def _check_cache(cfg, tc, jc):
+    """Pool K/V of the "attn" layers and the recurrent state of the
+    others against the reference's cycle-stacked slots (every row: the
+    reference steps a frozen row's recurrent state too)."""
+    P = len(cfg.layer_pattern)
+    pooled = 0
+    for i in range(cfg.num_layers):
+        kind = cfg.pattern_for_layer(i)
+        slot = jc["slots"][f"s{i % P}_{kind}"]
+        if kind == "attn":
+            for name in ("k", "v"):
+                np.testing.assert_allclose(
+                    getattr(tc, name)[pooled].numpy(),
+                    np.asarray(slot[name][i // P]), rtol=0, atol=KV_TOL)
+            pooled += 1
+            continue
+        assert sorted(tc.state[i]) == sorted(slot)
+        for name, a in tc.state[i].items():
+            np.testing.assert_allclose(a.numpy(),
+                                       np.asarray(slot[name][i // P]),
+                                       **STATE_TOL)
+    assert tc.k.shape[0] == pooled
 
 
 def test_block_allocator_contract():
@@ -137,3 +168,18 @@ def test_block_allocator_contract():
     assert a.available == 3 and a.high_watermark == 2
     with pytest.raises(ValueError):
         cache_lib.BlockAllocator(0)
+
+
+@pytest.mark.parametrize("change", [
+    {"layer_pattern": ("mlstm", "hymba")},
+    {"layer_pattern": ("local", "attn")},
+    {"sliding_window": 16},
+    {"is_encoder_decoder": True},
+    {"pos_embedding": "learned"},
+], ids=["hymba", "local", "window", "enc-dec", "learned-pos"])
+def test_kinds_not_ported_raise(change):
+    """What the port does not serve yet raises instead of running."""
+    cfg = dataclasses.replace(port_smoke("xlstm-350m", max_d_model=32),
+                              **change)
+    with pytest.raises(NotImplementedError):
+        Model(cfg)

@@ -1,11 +1,14 @@
 """The port's paged ContinuousQueue against the reference's on the same
-bridged olmo-1b smoke model (f32) and the same request stream: batch 2
-with more requests than rows (refills), mixed prompt lengths, a shared
-retrieved-context prefix (a miss, then forks with a copy-on-write tail)
-and an EOS stop, under FIFO and SJF admission.  Greedy tokens must be
-equal, and so must the scheduler's counters: prefix hits, misses and
-evictions, forks, refills, frames, decode segments, admission skips,
-pool exhaustions and tokens out.
+bridged smoke model (f32; olmo-1b, and xlstm-350m, whose forks resume
+from a recurrent-state snapshot) and the same request stream, under
+FIFO and SJF admission.  Two streams, both at batch 2 with more
+requests than rows (refills) and an EOS stop: "mixed" has mixed prompt
+lengths and a shared retrieved-context prefix (a miss, then forks with
+a copy-on-write tail); "forks" forks one prefix into four rows, so a
+snapshot that a fork wrote through would change every later fork.
+Greedy tokens must be equal, and so must the scheduler's counters:
+prefix hits, misses and evictions, forks, refills, frames, decode
+segments, admission skips, pool exhaustions and tokens out.
 
 The greedy comparison is only meaningful away from near-ties: the test
 recomputes the reference's logits at every generated position and checks
@@ -41,40 +44,49 @@ REQUESTS = [                                      # (prompt, prefix_len)
     (CTX + [9, 1, 5], len(CTX)),
     ([12, 33, 6, 7, 9, 10, 3, 8, 45], 0),
 ]
+FORKS = [
+    ([8, 30, 2, 19, 7], 0),
+    ([21, 3, 3, 17, 5, 6, 29], 0),
+    (CTX + [14, 4, 1], len(CTX)),
+    (CTX + [7, 8, 2, 40], len(CTX)),
+    (CTX + [9, 1, 5], len(CTX)),
+    (CTX + [14, 4, 1], len(CTX)),
+]
+STREAMS = {"mixed": REQUESTS, "forks": FORKS}
 COUNTERS = ("prefix_hits", "prefix_misses", "prefix_evictions", "cow_forks",
             "refills", "frames", "segments", "admission_skips",
             "kv_exhaustions", "tokens_out")
 
 
-@pytest.fixture(scope="module")
-def bridged():
-    cfg = get_smoke_config("olmo-1b", max_d_model=64, vocab=VOCAB)
+@pytest.fixture(scope="module", params=["olmo-1b", "xlstm-350m"])
+def bridged(request):
+    cfg = get_smoke_config(request.param, max_d_model=64, vocab=VOCAB)
     jparams = JModel(cfg).init_params(jax.random.PRNGKey(3))
     params = bridge.params_from_numpy(
         jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
     return cfg, jparams, params
 
 
-def _run(queue):
-    rids = [queue.submit(p, prefix_len=pl) for p, pl in REQUESTS]
+def _run(queue, requests):
+    rids = [queue.submit(p, prefix_len=pl) for p, pl in requests]
     outs = queue.run()
     return [outs[r] for r in rids], queue.stats
 
 
-def _port_run(cfg, params, eos, policy):
+def _port_run(cfg, params, eos, policy, requests):
     eng = ServeEngine(cfg, params, max_len=64, batch_size=2, prefill_chunk=8,
                       paged=True, block_size=8, device="cpu")
     return _run(ContinuousQueue(eng, GenerationParams(max_new_tokens=BUDGET,
                                                       eos_id=eos),
-                                policy=policy))
+                                policy=policy), requests)
 
 
-def _min_greedy_gap(cfg, jparams, outs):
+def _min_greedy_gap(cfg, jparams, outs, requests):
     """Smallest top-1/top-2 logit gap of the reference model at every
     generated position (teacher-forced full forward, relative positions
     from each prompt's first token; right padding cannot leak backwards
     under the causal mask)."""
-    seqs = [p + o for (p, _), o in zip(REQUESTS, outs)]
+    seqs = [p + o for (p, _), o in zip(requests, outs)]
     L = max(len(s) for s in seqs)
     toks = np.zeros((len(seqs), L), np.int32)
     for i, s in enumerate(seqs):
@@ -84,7 +96,7 @@ def _min_greedy_gap(cfg, jparams, outs):
         jparams, {"tokens": jnp.asarray(toks), "positions": jnp.asarray(pos)})
     logits = np.asarray(logits)
     gaps = []
-    for i, ((p, _), o) in enumerate(zip(REQUESTS, outs)):
+    for i, ((p, _), o) in enumerate(zip(requests, outs)):
         for j, tok in enumerate(o):
             row = logits[i, len(p) - 1 + j]
             assert row.argmax() == tok          # greedy = the forward argmax
@@ -94,19 +106,21 @@ def _min_greedy_gap(cfg, jparams, outs):
 
 
 @pytest.mark.parametrize("policy", ["fifo", "sjf"])
-def test_continuous_queue_matches_reference(bridged, policy):
+@pytest.mark.parametrize("stream", list(STREAMS))
+def test_continuous_queue_matches_reference(bridged, stream, policy):
     cfg, jparams, params = bridged
+    requests = STREAMS[stream]
     # EOS: a token the model really emits early (the 2nd request's 3rd)
-    free_run, _ = _port_run(cfg, params, None, policy)
+    free_run, _ = _port_run(cfg, params, None, policy, requests)
     eos = free_run[1][2]
-    ours, ours_stats = _port_run(cfg, params, eos, policy)
+    ours, ours_stats = _port_run(cfg, params, eos, policy, requests)
 
     jeng = JEngine(cfg, jparams, max_len=64, batch_size=2, prefill_chunk=8,
                    paged=True, block_size=8)
     theirs, theirs_stats = _run(JQueue(jeng, JGen(max_new_tokens=BUDGET,
                                                   eos_id=eos),
                                        key=jax.random.PRNGKey(0),
-                                       policy=policy))
+                                       policy=policy), requests)
 
     assert ours == theirs
     assert any(len(o) < BUDGET and o[-1] == eos for o in ours)   # EOS stop
@@ -114,7 +128,9 @@ def test_continuous_queue_matches_reference(bridged, policy):
         assert getattr(ours_stats, name) == getattr(theirs_stats, name), name
     assert theirs_stats.refills >= 4 and theirs_stats.prefix_hits >= 1
     assert theirs_stats.cow_forks >= 1
-    assert _min_greedy_gap(cfg, jparams, theirs) > 10 * LOGIT_TOL
+    if stream == "forks":
+        assert theirs_stats.prefix_hits >= 3
+    assert _min_greedy_gap(cfg, jparams, theirs, requests) > 10 * LOGIT_TOL
 
 
 @pytest.mark.parametrize("top_k,top_p", [(5, 1.0), (0, 0.7), (7, 0.5),
