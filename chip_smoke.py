@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --phases card,build,kernels
     python3 chip_smoke.py --phases card,build,cluster
+    python3 chip_smoke.py --phases card,build,cluster,runtime
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
                                           # + topk.cu rebuilt with other knobs
@@ -37,6 +38,20 @@ Phases, in order:
            pass of node 1's slots, synchronised around every prefill
            chunk, decode step and recurrent cell, splits its time
            between mLSTM and sLSTM layers
+  runtime  the launcher's path (cluster_serve.py) over fresh nodes of
+           the same cluster (the cluster phase's weights): the PPO
+           identifier on the card, ClusterRuntime with metrics and SLO
+           feedback, profiled capacities, then replay_trace of 3 uniform
+           slots of 12 queries at SLO 1.5 s (every launch count at 0
+           just before, read just after: the IVF probe on both nodes,
+           attention on node 0 only); checks a PPO update ran and every
+           query has a result; prints capacities, per-slot load,
+           quality, drops, latency and firing nodes, identify and
+           ppo_update ms (CUDA events) and Algorithm 1's host ms.  Then
+           the same runtime at the smoke config (f32) on the card and on
+           the CPU, capacities pinned: assignments, answers and
+           ppo_updates equal, the policies after the update within the
+           CPU tests' tolerance
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -58,7 +73,12 @@ Phases, in order:
            pointer) and on a trained 1M-doc shard (Nq 32 at k 5 and 32,
            Nq 1; forced split counts; a gathering and a dense masked
            yardstick), with two calls bitwise equal and the scan and
-           merge kernels of one main-path call counted
+           merge kernels of one main-path call counted; the k > 32
+           route (csrc/topk_wide.cu) of both at k 33, 64, 257 and above
+           the candidates, with ties across tiles, IVF padding, a list
+           probed twice and probe ids outside the lists; k 64's first
+           32 bitwise equal to the narrow k 32; two calls bitwise equal;
+           times at k 64 on the main-path inputs and a 1M-doc shard
   parity   the same slice at the olmo-1b smoke config (f32), and the
            two-node cluster with two olmo-1b nodes and with olmo-1b +
            xlstm-350m, on the card and on the CPU from the same weights:
@@ -88,7 +108,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-ALL_PHASES = ("card", "build", "slice", "cluster", "kernels", "parity")
+ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "kernels",
+              "parity")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -112,6 +133,12 @@ KERNEL_META = {
     "ivf_retrieval_topk": (
         "src/repro_torch/kernels/csrc/ivf_topk.cu",
         "src/repro/kernels/topk_retrieval.py:143"),
+    "retrieval_topk_wide": (
+        "src/repro_torch/kernels/csrc/topk_wide.cu",
+        "src/repro/kernels/topk_retrieval.py:72"),
+    "ivf_retrieval_topk_wide": (
+        "src/repro_torch/kernels/csrc/topk_wide.cu",
+        "src/repro/kernels/topk_retrieval.py:143"),
 }
 TOPK_KERNEL = re.compile(r"\btopk_(scan|merge)_kernel\b")
 IVF_KERNEL = re.compile(r"\bivf_(scan|merge)_kernel\b")
@@ -122,6 +149,11 @@ SLICE_KERNELS = ("paged_decode_attention", "flash_attention",
                  "retrieval_topk")
 CLUSTER_KERNELS = ("ivf_retrieval_topk", "flash_attention",
                    "paged_decode_attention")
+# the k > 32 route of the two top-k wrappers (csrc/topk_wide.cu)
+WIDE_KERNELS = ("retrieval_topk_wide", "ivf_retrieval_topk_wide")
+# the public wrappers of ops
+WRAPPERS = ("paged_decode_attention", "flash_attention", "retrieval_topk",
+            "ivf_retrieval_topk")
 
 
 def log(msg: str) -> None:
@@ -413,7 +445,7 @@ class MainPathInputs:
     def __init__(self, ops):
         self.ops = ops
         self.best = {}
-        self.orig = {name: getattr(ops, name) for name in ops.launches}
+        self.orig = {name: getattr(ops, name) for name in WRAPPERS}
 
     def _keep(self, name, work, args, kw):
         if name not in self.best or work[0] > self.best[name][0][0]:
@@ -713,21 +745,35 @@ def layer_split(torch, node, node_slots, slo_s) -> dict:
     return t
 
 
-def phase_cluster(torch, card, captured: dict) -> dict:
+CLUSTER_MODELS = {}   # the cluster's configs and weights, drawn once
+
+
+def _cluster_models(torch):
+    """The quickstart cluster's configs and seeded weights at published
+    width on the card (seeds 0, 1), drawn on first use and shared by the
+    cluster and runtime phases."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import Model
-    cfgs = [get_config(arch) for arch in CLUSTER_ARCHS]
-    t0 = time.perf_counter()
-    params = [Model(cfg).init_params(seed=n, device=DEV)
-              for n, cfg in enumerate(cfgs)]
-    torch.cuda.synchronize()
+    if not CLUSTER_MODELS:
+        cfgs = [get_config(arch) for arch in CLUSTER_ARCHS]
+        t0 = time.perf_counter()
+        params = [Model(cfg).init_params(seed=n, device=DEV)
+                  for n, cfg in enumerate(cfgs)]
+        torch.cuda.synchronize()
+        CLUSTER_MODELS.update(cfgs=cfgs, params=params,
+                              draw_s=time.perf_counter() - t0)
+    return CLUSTER_MODELS["cfgs"], CLUSTER_MODELS["params"]
+
+
+def phase_cluster(torch, card, captured: dict) -> dict:
+    from repro_torch.kernels import ops
+    cfgs, params = _cluster_models(torch)
     log(f"cluster: node 0 {cfgs[0].name}, node 1 {cfgs[1].name} "
         f"({cfgs[1].num_layers} layers {'/'.join(cfgs[1].layer_pattern)} "
         f"d{cfgs[1].d_model} {cfgs[1].num_heads}x"
         f"{cfgs[1].resolved_head_dim} vocab {cfgs[1].vocab_size}), "
         f"{cfgs[0].dtype}/{cfgs[1].dtype} params (seeds 0, 1) drawn in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{CLUSTER_MODELS['draw_s']:.1f} s")
     tok, shards, slots = _cluster_setup(40)
     kw = dict(batch_size=4, max_len=512, prefill_chunk=16, block_size=16,
               top_k=3, max_new_tokens=16)
@@ -835,6 +881,322 @@ def phase_cluster(torch, card, captured: dict) -> dict:
             f"{'prefill_chunk' if phase == 'prefill' else 'decode_step'} "
             f"(synchronised pass): {parts} {tag}")
     return launches
+
+
+RUNTIME_SLO = 1.5        # cluster_serve's --slo default
+RUNTIME_SLOTS = 3        # cluster_serve's --slots default
+RUNTIME_VOLUME = 12      # queries a slot (uniform trace)
+
+
+class _CudaTimer:
+    """Wraps a callable: CUDA-event milliseconds of each call (the card
+    synchronised after it), host milliseconds, and the length of
+    positional argument ``size_arg`` when given (a batch size)."""
+
+    def __init__(self, torch, fn, size_arg=None):
+        self.torch, self.fn, self.size_arg = torch, fn, size_arg
+        self.ms, self.host_ms, self.sizes = [], [], []
+
+    def __call__(self, *args, **kw):
+        torch = self.torch
+        if self.size_arg is not None:
+            self.sizes.append(len(args[self.size_arg]))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = self.fn(*args, **kw)
+        end.record()
+        end.synchronize()
+        self.host_ms.append(1e3 * (time.perf_counter() - t0))
+        self.ms.append(start.elapsed_time(end))
+        return out
+
+
+def _ms(xs) -> str:
+    return (f"median {statistics.median(xs):.3f} ms (min {min(xs):.3f}, "
+            f"max {max(xs):.3f}, {len(xs)} calls)") if xs else "no calls"
+
+
+def _watch_runtime(runtime, log_):
+    """Keep each slot's assignment and dispatched results in ``log_``."""
+    route, dispatch = runtime._route, runtime._dispatch
+
+    def routed(probs, slo_s):
+        assign, props = route(probs, slo_s)
+        log_.append(("assign", assign.tolist()))
+        return assign, props
+
+    def dispatched(queries, assign, slo_s):
+        res = dispatch(queries, assign, slo_s)
+        log_.append(("results", [(r.qid, r.node, r.answer, r.dropped)
+                                 for r in res]))
+        return res
+
+    runtime._route, runtime._dispatch = routed, dispatched
+
+
+def phase_runtime(torch, card) -> dict:
+    """The launcher's path (cluster_serve.py): the quickstart cluster at
+    published width under ``ClusterRuntime`` (PPO identifier on the card,
+    Algorithm 1, metrics with SLO feedback), profiled, then a replay of
+    uniform slots; every launch count at 0 just before the replay and
+    read just after.  Then the card-vs-CPU parity of the same runtime at
+    the smoke config."""
+    from repro_torch.cluster import ClusterRuntime, LiveWorkload, \
+        replay_trace
+    from repro_torch.core import ppo
+    from repro_torch.core.identifier import OnlineQueryIdentifier
+    from repro_torch.data.corpus import generate_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.retrieval.encoder import TextEncoder
+    cfgs, params = _cluster_models(torch)
+    tok, shards, _ = _cluster_setup(40)
+    _, qas = generate_corpus(40, seed=0)
+    nodes, _ = _cluster(cfgs, params, tok, shards, DEV, batch_size=4,
+                        max_len=512, prefill_chunk=16, block_size=16,
+                        top_k=3, max_new_tokens=16)
+    enc = TextEncoder(seed=0)
+    check(enc.dim == 256, f"encoder dim {enc.dim}")
+    obs_metrics.registry().reset()
+    obs_metrics.enable_metrics()
+    tag = f"[{card['smi']}]"
+    plain_update = ppo.ppo_update
+    try:
+        ident = OnlineQueryIdentifier(enc.dim, len(nodes), seed=0,
+                                      update_threshold=16, device=DEV)
+        runtime = ClusterRuntime(nodes, ident, seed=0, slo_feedback=True)
+        t0 = time.perf_counter()
+        runtime.initialize()
+        torch.cuda.synchronize()
+        log(f"runtime: profiled in {time.perf_counter() - t0:.3f} s")
+        for node in nodes:
+            log(f"runtime: node {node.node_id} ({node.arch}) capacity "
+                f"{node.capacity.k:.3f} q/s measured -> C({RUNTIME_SLO:g} s) "
+                f"= {node.capacity(RUNTIME_SLO):.2f} queries {tag}")
+
+        identify = _CudaTimer(torch, ident.identify)
+        ident.identify = identify
+        update = _CudaTimer(torch, plain_update, size_arg=3)
+        ppo.ppo_update = update
+        route_ms, events = [], []
+        route = runtime._route
+
+        def timed_route(probs, slo_s):
+            t = time.perf_counter()
+            out = route(probs, slo_s)
+            route_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        runtime._route = timed_route
+        _watch_runtime(runtime, events)
+        per_node = [dict.fromkeys(ops.launches, 0) for _ in nodes]
+        for n, node in enumerate(nodes):
+            serve = node.process_slot
+
+            def counted(queries, slo_s, scheduler=None, n=n, serve=serve):
+                before = dict(ops.launches)
+                out = serve(queries, slo_s, scheduler=scheduler)
+                torch.cuda.synchronize()
+                for name, c in ops.launches.items():
+                    per_node[n][name] += c - before[name]
+                return out
+            node.process_slot = counted
+
+        firing = []
+
+        def on_slot(t, m):
+            now = {str(nid): sorted(mon.firing())
+                   for nid, mon in runtime.monitors.items() if mon.firing()}
+            firing.append(now)
+            load = "/".join(f"{p:.3f}" for p in m.per_node_load)
+            log(f"runtime: slot {t} n {m.n_queries} load [{load}] quality "
+                f"{m.quality_mean:.4f} drop rate {m.drop_rate:.3f} p50 "
+                f"{m.latency_p50:.3f} s p95 {m.latency_p95:.3f} s, ppo "
+                f"updates {m.ppo_updates}, firing after the slot "
+                f"{json.dumps(now)} {tag}")
+
+        workload = LiveWorkload(qas, enc, seed=2)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        report = replay_trace(runtime, workload, n_slots=RUNTIME_SLOTS,
+                              slo_s=RUNTIME_SLO, base_volume=RUNTIME_VOLUME,
+                              trace="uniform", seed=3, on_slot=on_slot)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        runtime.close()
+    finally:
+        obs_metrics.enable_metrics(False)
+        ppo.ppo_update = plain_update
+    summary = report.summary()
+    sent = sum(m.n_queries for m in report.slots)
+    answered = sum(len(e[1]) for e in events if e[0] == "results")
+    qids = [r[0] for e in events if e[0] == "results" for r in e[1]]
+    check(sent == RUNTIME_SLOTS * RUNTIME_VOLUME and answered == sent
+          and len(set(qids)) == sent, f"{sent} queries sent, {answered} "
+          f"results for {len(set(qids))} distinct queries")
+    check(ident.updates_done >= 1 and update.ms,
+          "no PPO update ran on the card")
+    for n in range(len(nodes)):
+        check(per_node[n]["ivf_retrieval_topk"] > 0,
+              f"node {n} did not launch ivf_retrieval_topk in the replay")
+    for name in ("flash_attention", "paged_decode_attention"):
+        check(per_node[0][name] > 0, f"node 0 did not launch {name} in "
+              "the replay")
+        check(per_node[1][name] == 0, f"node 1 launched {name}")
+    check(sum(per_node[n][k] for n in range(len(nodes)) for k in launches)
+          == sum(launches.values()),
+          "launches outside the nodes' slots in the replay")
+    log(f"runtime: {sent} queries in {RUNTIME_SLOTS} slots in {wall:.3f} s "
+        f"wall; summary {json.dumps(summary)} {tag}")
+    log(f"runtime: identify on the card {_ms(identify.ms)} (host "
+        f"{_ms(identify.host_ms)}) {tag}")
+    log(f"runtime: ppo_update on the card, one epoch at B "
+        f"{sorted(set(update.sizes))}: {_ms(update.ms)} (host "
+        f"{_ms(update.host_ms)}; {ident.updates_done} updates x "
+        f"{ident.update_epochs} epochs) {tag}")
+    log(f"runtime: Algorithm 1 on the host {_ms(route_ms)} {tag}")
+    log(f"runtime: firing nodes after each slot {firing}; health "
+        f"{json.dumps(runtime.health())}")
+    for n, node in enumerate(nodes):
+        st = node.stats
+        log(f"runtime: node {n} ({node.arch}) {st.queries} queries, "
+            f"{st.drops} dropped, {st.shed} shed, mean TTFT "
+            f"{st.ttft_mean * 1e3:.2f} ms, launches "
+            f"{json.dumps(per_node[n])} {tag}")
+    log(f"runtime: launches in the replay {json.dumps(launches)}")
+    runtime_parity(torch)
+    return launches
+
+
+RUNNING_STAT_TOL = dict(atol=1e-5, rtol=1e-4)   # the policy's BN stats
+
+
+def runtime_parity(torch) -> None:
+    """The runtime at the smoke config (f32) on the card and on the CPU:
+    the same policy (a seed draws it on the CPU), capacities pinned to 2
+    and 3 queries (Algorithm 1 inflates and reassigns), the SLO out of
+    the way (1e9 s): equal assignments, answers and ppo_updates over a
+    replay of 3 slots of 5 queries with a PPO update; after it, the
+    parameters within 2 lr per Adam step, the running variances and the
+    running means within ``RUNNING_STAT_TOL``, and the probabilities
+    within 1e-4 in train mode and in eval mode once the hidden pre-norm
+    biases are aligned.  Those biases have a true gradient of 0 (batch
+    norm removes them in train mode), so both sides move them by +-lr on
+    the sign of rounding noise (tests/test_torch_ppo.py).  Each train
+    forward averages its biases into the running means, so the card's
+    running means are held, and evaluated, less the drift that the two
+    sides' biases at each PPO epoch predict:
+    sum over epochs c of 0.1 * 0.9**(epochs after c) * (b_card - b_cpu)."""
+    import copy
+    import numpy as np
+    from repro_torch.cluster import ClusterRuntime, LiveWorkload, \
+        replay_trace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import ppo
+    from repro_torch.core.identifier import OnlineQueryIdentifier
+    from repro_torch.core.inter_node import CapacityFunction
+    from repro_torch.data.corpus import generate_corpus
+    from repro_torch.models import Model
+    from repro_torch.retrieval.encoder import TextEncoder
+    tok, shards, _ = _cluster_setup(8)
+    _, qas = generate_corpus(8, seed=0)
+    cfgs = [get_smoke_config(a, vocab=len(tok)) for a in CLUSTER_ARCHS]
+    params_cpu = [Model(cfg).init_params(seed=n, device="cpu")
+                  for n, cfg in enumerate(cfgs)]
+    enc = TextEncoder(seed=0)
+    probe = torch.as_tensor(enc.encode([qa.question for qa in qas[:16]]),
+                            dtype=torch.float32)
+    runs, biases = {}, {"cuda": [], "cpu": []}
+    plain_update = ppo.ppo_update
+
+    def recorded(dev):
+        def update(policy, *args, **kw):   # the biases the epoch's train
+            biases[dev].append([layer.b.detach().cpu().clone()   # forward
+                                for layer in policy.layers[:-1]])  # sees
+            return plain_update(policy, *args, **kw)
+        return update
+
+    for dev in ("cuda", "cpu"):
+        nodes, _ = _cluster(cfgs, [_to_device(p, dev) for p in params_cpu],
+                            tok, shards, dev, batch_size=2, max_len=192,
+                            prefill_chunk=8, block_size=8, top_k=2,
+                            max_new_tokens=6)
+        for node, k in zip(nodes, (2e-9, 3e-9)):
+            node.capacity = CapacityFunction(k=k, b=0.0, levels=[])
+        ident = OnlineQueryIdentifier(enc.dim, 2, seed=0, update_threshold=8,
+                                      device=dev)
+        rt = ClusterRuntime(nodes, ident, seed=0)
+        events = []
+        _watch_runtime(rt, events)
+        ppo.ppo_update = recorded(dev)
+        try:
+            report = replay_trace(rt, LiveWorkload(qas, enc, seed=2),
+                                  n_slots=3, slo_s=1e9, base_volume=5,
+                                  trace="uniform", seed=3)
+        finally:
+            ppo.ppo_update = plain_update
+        runs[dev] = (events, [m.ppo_updates for m in report.slots],
+                     [m.per_node_load.tolist() for m in report.slots], ident)
+    (ev_g, upd_g, load_g, id_g), (ev_c, upd_c, load_c, id_c) = \
+        runs["cuda"], runs["cpu"]
+    check(ev_g == ev_c, f"runtime parity: assignments or answers differ "
+          f"on card and CPU:\n{ev_g}\n{ev_c}")
+    check(upd_g == upd_c and upd_c[-1] >= 1 and load_g == load_c,
+          f"runtime parity: ppo_updates {upd_g} / {upd_c}, loads {load_g} "
+          f"/ {load_c}")
+    steps = id_c.updates_done * id_c.update_epochs
+    pol_g, pol_c = copy.deepcopy(id_g.policy).cpu(), id_c.policy
+    worst = max(max_err(a, b) for a, b in zip(
+        pol_g.state_dict().values(), pol_c.state_dict().values()))
+
+    def probs(policy, train):
+        with torch.no_grad():      # on the CPU, on copies (train mode
+            return torch.softmax(  # moves the running stats)
+                copy.deepcopy(policy)(probe, train=train), dim=-1)
+
+    # train mode normalizes by the batch: the pre-norm biases and the
+    # running stats (whose means average those biases in) drop out
+    train_err = max_err(probs(pol_g, True), probs(pol_c, True))
+    raw_err = max_err(probs(pol_g, False), probs(pol_c, False))
+    n_ep = len(biases["cpu"])
+    check(n_ep == steps and len(biases["cuda"]) == n_ep,
+          f"runtime parity: {len(biases['cuda'])} / {n_ep} PPO epochs "
+          f"recorded, {steps} expected")
+    aligned = copy.deepcopy(pol_g)
+    mu_err = var_err = drift = 0.0
+    stats_ok = True
+    for n, (layer, want) in enumerate(zip(aligned.layers[:-1],
+                                          pol_c.layers[:-1])):
+        pred = sum((1 - ppo.BN_MOMENTUM) * ppo.BN_MOMENTUM ** (n_ep - 1 - c)
+                   * (biases["cuda"][c][n] - biases["cpu"][c][n])
+                   for c in range(n_ep))
+        layer.bn_mu.sub_(pred)           # the card's own, less the drift
+        layer.b.data.copy_(want.b.data)
+        drift = max(drift, float(pred.abs().max()))
+        mu_err = max(mu_err, max_err(layer.bn_mu, want.bn_mu))
+        var_err = max(var_err, max_err(layer.bn_var, want.bn_var))
+        stats_ok &= bool(torch.allclose(layer.bn_mu, want.bn_mu,
+                                        **RUNNING_STAT_TOL)
+                         and torch.allclose(layer.bn_var, want.bn_var,
+                                            **RUNNING_STAT_TOL))
+    eval_err = max_err(probs(aligned, False), probs(pol_c, False))
+    log(f"parity: runtime at the smoke config, card vs CPU: "
+        f"{sum(len(e[1]) for e in ev_c if e[0] == 'results')} answers and "
+        f"assignments equal over 3 slots, ppo_updates {upd_c}; policies "
+        f"after the update, both evaluated on the CPU: params max |err| "
+        f"{worst:.3g} (tol {2 * id_c.lr * steps:.3g}); running means "
+        f"less the bias drift of {n_ep} epochs (max |drift| {drift:.3g}) "
+        f"{mu_err:.3g}, running variances {var_err:.3g} (allclose "
+        f"{RUNNING_STAT_TOL}); probabilities in train mode "
+        f"{train_err:.3g}, in eval mode with the pre-norm biases aligned "
+        f"and the running means less the drift {eval_err:.3g} (tol 1e-4 "
+        f"each), in eval mode as trained {raw_err:.3g} (not held)")
+    check(worst <= 2 * id_c.lr * steps and stats_ok and train_err <= 1e-4
+          and eval_err <= 1e-4,
+          "runtime parity: the policies after the update differ")
 
 
 def profile_slice(torch, rag, qs, tag) -> list:
@@ -1870,6 +2232,111 @@ def kernels_ivf(torch, ops, ref, gen, main, rec, card, traced) -> None:
         bound_by=by, library_ms=t_d)
 
 
+def _wide_times(torch, label, card, kernel, plain, library, work):
+    """Kernel, plain version and library call of the wide route, beside
+    the bound of ``work`` (bytes, flops).  Returns the JSON fields."""
+    t_k, t_p, t_l = (bench_ms(f) for f in (kernel, plain, library))
+    bnd, by = bound_ms(*work, "float32")
+    log(f"  {label}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+        f"{t_l:.4f} ms, bound {bnd:.5f} ms ({by}), "
+        f"{100 * bnd / t_k:.2f}% of the bound [{card['smi']}]")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=bnd, bound_by=by,
+                library_ms=t_l)
+
+
+def kernels_wide(torch, ops, ref, gen, topk_main, ivf_main, rec,
+                 card) -> None:
+    """The k > 32 route (csrc/topk_wide.cu) of both retrieval functions:
+    against the plain versions at k 33, 64, 257 and a k above the
+    candidates, on the main-path inputs and on more docs than one tile
+    holds; exact ties across tiles, IVF padding, a list probed twice and
+    probe ids outside the lists; the first 32 of k 64 against the narrow
+    kernel's k 32 (ids equal, scores bitwise equal: one fmaf chain per
+    pair in both); two calls bitwise equal; times at k 64 on the
+    main-path inputs and on a 1M-doc shard at Nq 32."""
+    def unit(n, d):
+        x = torch.randn(n, d, generator=gen, device=DEV)
+        return x / x.norm(dim=1, keepdim=True)
+
+    before = {name: ops.launches[name] for name in WIDE_KERNELS}
+    qm, dm, _ = topk_main
+    nd = dm.shape[0]
+    for k in (33, 64, 257, nd + 7):
+        _topk_check(torch, ops, ref, qm, dm, k, f"wide, main path, k {k}")
+    qb, db = unit(33, 256), unit(3000, 256)
+    for k in (33, 64, 257, 3001):
+        _topk_check(torch, ops, ref, qb, db, k, f"wide, 3 tiles, k {k}")
+    tile = ops.WIDE_TILE
+    dup = unit(2500, 64)
+    for j in (tile - 1, tile, 2 * tile + 5, 2499):
+        dup[j] = dup[3]
+    s, i, _ = _topk_check(torch, ops, ref, 2.0 * dup[3:4], dup, 40,
+                          "wide, ties across tiles")
+    check(i[0, :5].tolist() == [3, tile - 1, tile, 2 * tile + 5, 2499]
+          and bool((s[0, :5] == s[0, 0]).all()),
+          f"wide: ties must go to the lowest doc id: {i[0, :5].tolist()}")
+    for q, d, label in ((qm, dm, "main path"), (qb, db, "3 tiles")):
+        s64, i64 = ops.retrieval_topk(q, d, 64)
+        s32, i32 = ops.retrieval_topk(q, d, 32)
+        torch.cuda.synchronize()
+        check(torch.equal(i64[:, :32], i32)
+              and torch.equal(s64[:, :32], s32),
+              f"wide {label}: k 64's first 32 differ from the narrow k 32")
+        log(f"  retrieval_topk [wide {label}] k 64's first 32 equal the "
+            "narrow kernel's k 32 (ids, scores bitwise)")
+    _topk_same_twice(torch, ops, qb, db, 257, "wide 3-tile")
+
+    q, emb, ids, probe, _ = ivf_main
+    cand = probe.shape[1] * ids.shape[1]
+    for k in (33, 64, 257, cand + 5):
+        _ivf_check(torch, ops, ref, q, emb, ids, probe, k,
+                   f"wide, main path, k {k}")
+    emb2, ids2 = _ivf_lists(torch, gen, [900, 1100, 0, 1500], 1500, 32)
+    ids2[1, [4, 600, 1099]] = -1           # -1 slots inside a list
+    pr = torch.tensor([[3, 1, 0], [0, 0, 2], [1, 3, 3]], dtype=torch.int32,
+                      device=DEV)
+    for k in (33, 300, 2500, 5000):
+        _ivf_check(torch, ops, ref, unit(3, 32), emb2, ids2, pr, k,
+                   f"wide, 3 tiles a list, a list probed twice, k {k}")
+    _ivf_check(torch, ops, ref, unit(2, 32), emb2, ids2,
+               torch.tensor([[1, -1], [7, 3]], dtype=torch.int32, device=DEV),
+               64, "wide, probe ids outside the lists",
+               plain_probe=torch.tensor([[1, 2], [2, 3]], dtype=torch.int32,
+                                        device=DEV))
+    s64, i64 = ops.ivf_retrieval_topk(q, emb, ids, probe, 64)
+    s32, i32 = ops.ivf_retrieval_topk(q, emb, ids, probe, 32)
+    torch.cuda.synchronize()
+    check(torch.equal(i64[:, :32], i32) and torch.equal(s64[:, :32], s32),
+          "wide IVF main path: k 64's first 32 differ from the narrow k 32")
+    log("  ivf_retrieval_topk [wide main path] k 64's first 32 equal the "
+        "narrow kernel's k 32 (ids, scores bitwise)")
+    _ivf_same_twice(torch, ops, (q, emb, ids, probe, 64), "wide main-path")
+    check(all(ops.launches[name] > n for name, n in before.items()),
+          "k > 32 did not run the wide kernel")
+
+    _, _, err_e = _topk_check(torch, ops, ref, qm, dm, 64, "wide main path")
+    rec["retrieval_topk_wide"] = dict(max_abs_err=err_e, **_wide_times(
+        torch, f"retrieval_topk_wide main path Nq{qm.shape[0]} Nd{nd} k64",
+        card, lambda: ops.retrieval_topk(qm, dm, 64),
+        lambda: ref.topk_ref(qm, dm, 64),
+        lambda: torch.topk(qm @ dm.T, 64), topk_work(qm, dm, 64)))
+    _, _, err_i = _ivf_check(torch, ops, ref, q, emb, ids, probe, 64,
+                             "wide main path")
+    dense = _ivf_library(torch, q, emb, ids, probe, 64)[2]
+    rec["ivf_retrieval_topk_wide"] = dict(max_abs_err=err_i, **_wide_times(
+        torch, f"ivf_retrieval_topk_wide main path Nq{q.shape[0]} lists "
+        f"{tuple(ids.shape)} nprobe{probe.shape[1]} k64", card,
+        lambda: ops.ivf_retrieval_topk(q, emb, ids, probe, 64),
+        lambda: ref.ivf_topk_ref(q, emb, ids, probe, 64), dense,
+        ivf_work(q, emb, ids, probe, 64)[:2]))
+    qs, ds = unit(32, 256), unit(SHARD_DOCS, 256)
+    _topk_check(torch, ops, ref, qs, ds, 64, "wide, 1M-doc shard")
+    _wide_times(torch, "retrieval_topk_wide 1M-doc shard Nq32 k64", card,
+                lambda: ops.retrieval_topk(qs, ds, 64),
+                lambda: ref.topk_ref(qs, ds, 64),
+                lambda: torch.topk(qs @ ds.T, 64), topk_work(qs, ds, 64))
+
+
 def phase_kernels(torch, card, captured: dict, rec: dict,
                   traced: list) -> None:
     import torch.nn.functional as F
@@ -1902,6 +2369,7 @@ def phase_kernels(torch, card, captured: dict, rec: dict,
     kernels_topk(torch, ops, ref, gen, topk_main, rec, card, profiled)
     kernels_ivf(torch, ops, ref, gen, ivf_main, rec, card,
                 None if traced else profiled[1])
+    kernels_wide(torch, ops, ref, gen, topk_main, ivf_main, rec, card)
 
 
 def _to_device(tree, dev):
@@ -2080,9 +2548,12 @@ def main(argv=None) -> int:
         if "slice" in phases:
             launches = phase_slice(torch, card, captured, args.profile,
                                    traced)
+        # a kernel's launches are its counts over every main path
         if "cluster" in phases:
-            # a kernel's launches are its counts over both main paths
             for name, n in phase_cluster(torch, card, captured).items():
+                launches[name] = launches.get(name, 0) + n
+        if "runtime" in phases:
+            for name, n in phase_runtime(torch, card).items():
                 launches[name] = launches.get(name, 0) + n
         if "kernels" in phases:
             phase_kernels(torch, card, captured, rec, traced)

@@ -12,6 +12,11 @@ here imports the reference.
 ``ivf_state_from_numpy`` carries a trained IVF quantizer (centroids and
 packed lists) into the port's ``IVFIndex`` the same way, so a search can
 be held to the reference's independently of k-means.
+
+``policy_from_numpy`` / ``policy_to_numpy`` carry the online
+identifier's PPO policy (``{"layers": [{w, b, bn_g, bn_b, bn_mu, bn_var,
+res}, ...]}``, the last layer ``{w, b}`` only) across, so both packages
+compute the same policy.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.ppo import Policy
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -105,3 +111,26 @@ def ivf_state_from_numpy(index, centroids: np.ndarray, list_emb: np.ndarray,
                                       device=index.device)
     index._list_sizes = np.asarray(list_sizes)
     index._dirty = False
+
+
+def policy_from_numpy(np_params: Dict[str, Any],
+                      device: DeviceLike = "cuda") -> Policy:
+    """The reference identifier's policy params -> a port ``Policy``."""
+    layers = np_params["layers"]
+    widths = [np.shape(layer["w"])[1] for layer in layers]
+    policy = Policy(np.shape(layers[0]["w"])[0], widths[-1],
+                    hidden=widths[:-1])
+    state = {f"layers.{i}.{name}": torch.tensor(
+        np.asarray(value, np.float32))
+        for i, layer in enumerate(layers) for name, value in layer.items()}
+    policy.load_state_dict(state, strict=True)
+    return policy.to(resolve_device(device))
+
+
+def policy_to_numpy(policy: Policy) -> Dict[str, Any]:
+    """A port ``Policy`` -> the reference's params layout (numpy)."""
+    layers = [{} for _ in policy.layers]
+    for key, value in policy.state_dict().items():
+        _, i, name = key.split(".")
+        layers[int(i)][name] = value.detach().cpu().numpy()
+    return {"layers": layers}

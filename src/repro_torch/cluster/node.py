@@ -22,11 +22,15 @@ and drops queries whose latency exceeds the SLO (quality 0, the paper's
 invalid-query rule).  Per-slot queue stats are ``delta``s of a snapshot.
 ``profile`` measures throughput into a linear ``CapacityFunction``.
 
+When metrics are enabled (``obs.enable_metrics``) each slot pushes its
+rollup into the metrics registry: the ``node_*`` series the SLO
+objectives read (``obs/slo.py``).
+
 Sampling is greedy; the reference's PRNG key becomes an explicit integer
 seed.  Not ported yet (they raise ``NotImplementedError``): the standing
 queue (``queue="standing"``), the wave scheduler (``queue="wave"``), a
 non-paged engine (``paged=False``) and ``reconfigure``; nor are the
-reference's trace spans and metric pushes.
+reference's trace spans, nor the standing queue's gauges.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.data.corpus import Document
 from repro_torch.data.tokenizer import EOS, Tokenizer
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.metrics.text import composite_quality
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.rag.pipeline import build_prompt, split_prompt
 from repro_torch.retrieval.cache import SemanticQueryCache
 from repro_torch.retrieval.encoder import TextEncoder
@@ -248,7 +253,36 @@ class LiveEdgeNode:
             results.append(QueryResult(q.qid, self.node_id, self.arch,
                                        quality, dropped,
                                        latency_s=latency, answer=answer))
+        if obs_metrics.metrics_enabled():
+            self._push_metrics(delta, t_retrieval, results)
         return results
+
+    def _push_metrics(self, delta, t_retrieval: float,
+                      results: List[QueryResult]) -> None:
+        """Per-slot rollup into the global metrics registry (host-side,
+        after the slot's queue has drained).  ``delta`` is this slot's
+        ContinuousStats diff."""
+        reg = obs_metrics.registry()
+        node = str(self.node_id)
+        reg.counter("node_queries", node=node).inc(len(results))
+        reg.counter("node_drops", node=node).inc(
+            sum(r.dropped for r in results))
+        reg.counter("node_tokens_out", node=node).inc(delta.tokens_out)
+        reg.counter("node_shed", node=node).inc(delta.shed_hint_drops)
+        reg.counter("node_kv_exhaustions", node=node).inc(
+            delta.kv_exhaustions)
+        reg.histogram("node_retrieval_s", node=node).observe(t_retrieval)
+        h = reg.histogram("node_latency_s", node=node)
+        for r in results:
+            h.observe(r.latency_s)
+        h = reg.histogram("node_ttft_s", node=node)
+        for v in delta.ttft_s:
+            # queue TTFT is arrival-anchored (submit -> first token);
+            # the node's request clock starts at retrieval
+            h.observe(t_retrieval + v)
+        if self.cache is not None:
+            reg.gauge("semantic_cache_hit_rate", node=node).set(
+                self.cache.hit_rate)
 
     # ------------------------------------------------------------ lifecycle
 

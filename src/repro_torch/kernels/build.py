@@ -22,12 +22,13 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
-# library name -> source file; each exports one extern "C" entry point
+# library name -> source file; each exports its extern "C" entry points
 SOURCES: Dict[str, str] = {
     "paged_attention": "paged_attention.cu",
     "flash_attention": "flash_attention.cu",
     "topk": "topk.cu",
     "ivf_topk": "ivf_topk.cu",
+    "topk_wide": "topk_wide.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -6,7 +6,8 @@ launches the hand-written CUDA kernel (``csrc/``, built on first use by
 or raises: there is no fallback from a CUDA tensor to the plain version.
 Each wrapper adds one to ``launches[<name>]`` where it launches its
 kernel, and nowhere else, so a run can show which kernels it went
-through (``reset_launches()`` zeroes the counts).
+through; the k > 32 route of the two top-k functions
+(``csrc/topk_wide.cu``) counts under its entry point's name.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ from repro_torch.kernels import build, ref
 launches: Dict[str, int] = {"paged_decode_attention": 0,
                             "flash_attention": 0,
                             "retrieval_topk": 0,
-                            "ivf_retrieval_topk": 0}
+                            "ivf_retrieval_topk": 0,
+                            "retrieval_topk_wide": 0,
+                            "ivf_retrieval_topk_wide": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -31,6 +34,8 @@ _SIGNATURES = {
         [_VP] * 6 + [_I] * 8 + [_F, _I, _VP],
     ("topk", "retrieval_topk"): [_VP] * 6 + [_I] * 6 + [_VP],
     ("ivf_topk", "ivf_retrieval_topk"): [_VP] * 8 + [_I] * 9 + [_VP],
+    ("topk_wide", "retrieval_topk_wide"): [_VP] * 6 + [_I] * 4 + [_VP],
+    ("topk_wide", "ivf_retrieval_topk_wide"): [_VP] * 8 + [_I] * 6 + [_VP],
 }
 _FNS: Dict[str, object] = {}   # entry point name -> ctypes function
 
@@ -225,26 +230,41 @@ def flash_attention_aligned(q: torch.Tensor, k: torch.Tensor,
 def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner-product search, [Nq,D] x [Nd,D] (f32) ->
-    (scores [Nq,k] f32, ids [Nq,k] int32); ties go to the lower id, and
-    slots beyond Nd are (-1e30, -1)."""
+    (scores [Nq,k] f32, ids [Nq,k] int32) for any k >= 1; ties go to the
+    lower id, and slots beyond Nd are (-1e30, -1).  On CUDA a k of at most
+    ``TOPK_NARROW_MAX`` runs ``csrc/topk.cu``, a wider one
+    ``csrc/topk_wide.cu``."""
+    _require(k >= 1, f"k={k} must be at least 1")
     if _on_cpu(queries, docs):
         return ref.topk_ref(queries, docs, k)
+    _check_exact(queries, docs)
+    Nq, Nd = queries.shape[0], docs.shape[0]
+    if Nq == 0:
+        return _fill(0, k, queries.device)
+    if wide_route(k):
+        return _topk_wide_launch(queries, docs, k)
+    sms = torch.cuda.get_device_properties(queries.device
+                                           ).multi_processor_count
+    _, n_splits, per = retrieval_topk_plan(Nq, Nd, sms)
+    return _topk_launch(queries, docs, k, n_splits, per)
+
+
+def _check_exact(queries: torch.Tensor, docs: torch.Tensor) -> None:
+    """The exact top-k kernels' checks of CUDA inputs."""
     Nq, D = queries.shape
     Nd = docs.shape[0]
     _require(queries.dtype == torch.float32 and docs.dtype == torch.float32,
              "queries and docs must be float32")
     _require(docs.shape == (Nd, D), f"docs {tuple(docs.shape)} vs D={D}")
     _require(D >= 1, "embedding width D must be at least 1")
-    _require(1 <= k <= 32, f"k={k} outside [1, 32]")
-    _require(Nd < 2 ** 31, "doc count must fit int32")
+    _require(Nd < 2 ** 31 - WIDE_TILE, "doc count must fit int32")
     _contiguous(queries=queries, docs=docs)
-    dev = queries.device
-    if Nq == 0:
-        return (torch.empty((0, k), dtype=torch.float32, device=dev),
-                torch.empty((0, k), dtype=torch.int32, device=dev))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _, n_splits, per = retrieval_topk_plan(Nq, Nd, sms)
-    return _topk_launch(queries, docs, k, n_splits, per)
+
+
+def _fill(Nq: int, k: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every slot the (-1e30, -1) fill."""
+    return (torch.full((Nq, k), ref.NEG_INF, dtype=torch.float32, device=dev),
+            torch.full((Nq, k), -1, dtype=torch.int32, device=dev))
 
 
 def _topk_launch(queries, docs, k: int, n_splits: int, per: int
@@ -298,17 +318,37 @@ def ivf_retrieval_topk(queries: torch.Tensor, list_emb: torch.Tensor,
     """IVF probe top-k: queries [Nq,D] scored only against their routed
     lists, list_emb [n_lists,L,D] f32 with list_ids [n_lists,L] int32
     (-1 = padding, anywhere in a row) and probe_ids [Nq,nprobe] int32 ->
-    (scores [Nq,k] f32, global ids [Nq,k] int32).  The top-k of each
-    query over the concatenation of its probed lists in probe order: ties
-    go to the earlier probe, then the earlier slot, a list named twice is
-    seen twice, and slots past the probed documents are (-1e30, -1).
+    (scores [Nq,k] f32, global ids [Nq,k] int32), for any k >= 1.  The
+    top-k of each query over the concatenation of its probed lists in
+    probe order: ties go to the earlier probe, then the earlier slot, a
+    list named twice is seen twice, and slots past the probed documents
+    are (-1e30, -1).
 
-    On CUDA one launch scores each probed list's live rows once per group
-    of the (query, probe) pairs that name it (the cut is
-    ``ivf_retrieval_topk_plan``), one sorted partial per (query, probe,
-    split), and a second merges each query's partials."""
+    On CUDA, for k up to ``TOPK_NARROW_MAX``, one launch scores each
+    probed list's live rows once per group of the (query, probe) pairs
+    that name it (the cut is ``ivf_retrieval_topk_plan``), one sorted
+    partial per (query, probe, split), and a second merges each query's
+    partials; a wider k runs ``csrc/topk_wide.cu``."""
+    _require(k >= 1, f"k={k} must be at least 1")
     if _on_cpu(queries, list_emb, list_ids, probe_ids):
         return ref.ivf_topk_ref(queries, list_emb, list_ids, probe_ids, k)
+    if not _check_ivf(queries, list_emb, list_ids, probe_ids):
+        return _fill(queries.shape[0], k, queries.device)
+    if wide_route(k):
+        return _ivf_wide_launch(queries, list_emb, list_ids, probe_ids, k)
+    Nq, nprobe = probe_ids.shape
+    n_lists, L, _ = list_emb.shape
+    _require(nprobe <= IVF_MAX_PARTIALS,
+             f"nprobe={nprobe} above {IVF_MAX_PARTIALS}")
+    sms = torch.cuda.get_device_properties(queries.device
+                                           ).multi_processor_count
+    return _ivf_launch(queries, list_emb, list_ids, probe_ids, k,
+                       *ivf_retrieval_topk_plan(Nq, nprobe, n_lists, L, sms))
+
+
+def _check_ivf(queries, list_emb, list_ids, probe_ids) -> bool:
+    """The IVF kernels' checks of CUDA inputs; False when there is
+    nothing to score (every slot is then the fill)."""
     Nq, D = queries.shape
     n_lists, L, D2 = list_emb.shape
     nprobe = probe_ids.shape[1]
@@ -322,24 +362,12 @@ def ivf_retrieval_topk(queries: torch.Tensor, list_emb: torch.Tensor,
              f"list_emb {tuple(list_emb.shape)}, list_ids "
              f"{tuple(list_ids.shape)}, probe_ids {tuple(probe_ids.shape)} "
              f"do not match queries {tuple(queries.shape)}")
-    # k <= 32 is kept on purpose: no ported caller asks for more than 5,
-    # and the reference sizes its merge for k <= 32 (ROADMAP queue C)
-    _require(1 <= k <= 32, f"k={k} outside [1, 32]")
-    _require(nprobe <= IVF_MAX_PARTIALS,
-             f"nprobe={nprobe} above {IVF_MAX_PARTIALS}")
-    _require(Nq * nprobe < 2 ** 31 and n_lists < 2 ** 31,
-             "probe table and list count must fit int32")
+    _require(Nq * nprobe < 2 ** 31 and n_lists < 2 ** 31
+             and nprobe * L < 2 ** 31 - WIDE_TILE,
+             "probe table, list count and probed slots must fit int32")
     _contiguous(queries=queries, list_emb=list_emb, list_ids=list_ids,
                 probe_ids=probe_ids)
-    dev = queries.device
-    if Nq == 0 or nprobe == 0 or n_lists == 0 or L == 0:
-        # nothing to score: every slot is the fill
-        return (torch.full((Nq, k), ref.NEG_INF, dtype=torch.float32,
-                           device=dev),
-                torch.full((Nq, k), -1, dtype=torch.int32, device=dev))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _ivf_launch(queries, list_emb, list_ids, probe_ids, k,
-                       *ivf_retrieval_topk_plan(Nq, nprobe, n_lists, L, sms))
+    return Nq > 0 and nprobe > 0 and n_lists > 0 and L > 0
 
 
 def _ivf_launch(queries, list_emb, list_ids, probe_ids, k: int,
@@ -401,3 +429,52 @@ def ivf_retrieval_topk_plan(Nq: int, nprobe: int, n_lists: int, L: int,
     n = max(1, min(want, tiles // 4, IVF_MAX_PARTIALS // max(1, nprobe)))
     per = -(-tiles // n) * IVF_TILE
     return group_blocks, max(1, -(-L // per)), per
+
+
+TOPK_NARROW_MAX = 32   # widest k of csrc/topk.cu and csrc/ivf_topk.cu
+WIDE_TILE = 1024       # candidates per tile of csrc/topk_wide.cu (kT)
+
+
+def wide_route(k: int) -> bool:
+    """True when a CUDA top-k of width ``k`` runs ``csrc/topk_wide.cu``
+    (k above ``TOPK_NARROW_MAX``), False when it runs the narrow kernel."""
+    return k > TOPK_NARROW_MAX
+
+
+def _topk_wide_launch(queries, docs, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/topk_wide.cu``'s exact top-k on checked CUDA inputs:
+    one block per query walks the docs in tiles of ``WIDE_TILE``."""
+    Nq, D = queries.shape
+    out_s, out_i, buf_s, buf_i = _wide_buffers(Nq, k, queries.device)
+    rc = _fn("topk_wide", "retrieval_topk_wide")(
+        _ptr(queries), _ptr(docs), _ptr(buf_s), _ptr(buf_i), _ptr(out_s),
+        _ptr(out_i), Nq, docs.shape[0], D, k, _stream(queries))
+    _check_rc(rc, "retrieval_topk_wide")
+    launches["retrieval_topk_wide"] += 1
+    return out_s, out_i
+
+
+def _ivf_wide_launch(queries, list_emb, list_ids, probe_ids, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/topk_wide.cu``'s IVF probe on checked CUDA inputs:
+    one block per query walks its probed lists' slots in tiles of
+    ``WIDE_TILE``."""
+    Nq, D = queries.shape
+    n_lists, L, _ = list_emb.shape
+    out_s, out_i, buf_s, buf_i = _wide_buffers(Nq, k, queries.device)
+    rc = _fn("topk_wide", "ivf_retrieval_topk_wide")(
+        _ptr(queries), _ptr(list_emb), _ptr(list_ids), _ptr(probe_ids),
+        _ptr(buf_s), _ptr(buf_i), _ptr(out_s), _ptr(out_i), Nq, n_lists, L,
+        D, probe_ids.shape[1], k, _stream(queries))
+    _check_rc(rc, "ivf_retrieval_topk_wide")
+    launches["ivf_retrieval_topk_wide"] += 1
+    return out_s, out_i
+
+
+def _wide_buffers(Nq: int, k: int, dev):
+    """Outputs [Nq, k] and the carried lists' double buffer [2, Nq, k]."""
+    return (torch.empty((Nq, k), dtype=torch.float32, device=dev),
+            torch.empty((Nq, k), dtype=torch.int32, device=dev),
+            torch.empty((2, Nq, k), dtype=torch.float32, device=dev),
+            torch.empty((2, Nq, k), dtype=torch.int32, device=dev))

@@ -186,7 +186,9 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
                            torch.zeros(2, 1, dtype=torch.int32), 2)
     assert ops.launches == {"paged_decode_attention": 0,
                             "flash_attention": 0, "retrieval_topk": 0,
-                            "ivf_retrieval_topk": 0}
+                            "ivf_retrieval_topk": 0,
+                            "retrieval_topk_wide": 0,
+                            "ivf_retrieval_topk_wide": 0}
 
 
 def test_wrappers_reject_other_devices():
