@@ -73,12 +73,21 @@ Phases, in order:
            pointer) and on a trained 1M-doc shard (Nq 32 at k 5 and 32,
            Nq 1; forced split counts; a gathering and a dense masked
            yardstick), with two calls bitwise equal and the scan and
-           merge kernels of one main-path call counted; the k > 32
-           route (csrc/topk_wide.cu) of both at k 33, 64, 257 and above
-           the candidates, with ties across tiles, IVF padding, a list
-           probed twice and probe ids outside the lists; k 64's first
-           32 bitwise equal to the narrow k 32; two calls bitwise equal;
-           times at k 64 on the main-path inputs and a 1M-doc shard
+           merge kernels of one main-path call counted, and the k > 32
+           IVF route (csrc/topk_wide.cu) timed on the same shard at Nq 32,
+           k 64; the exact top-k above k 32 (csrc/topk_list.cu up to
+           ops.TOPK_LIST_MAX, csrc/topk_wide.cu above): the route of each
+           k by launch counts, k 33, 64, 256, 1024, the limit and one
+           above it, ties across tiles and splits (at forced split
+           counts, group sizes and merge depths), D 30, Nq 1, an
+           unaligned pointer and the 1M-doc shard (Nq 32 at k 64 and
+           256, Nq 1 at k 64, and csrc/topk_wide.cu at k 64 and the
+           limit + 1; other group sizes timed beside); the IVF k > 32
+           route at k 33, 64, 257 and above the candidates, with IVF
+           padding, a list probed twice and probe ids outside the
+           lists; k 64's first 32
+           bitwise equal to the narrow k 32; two calls bitwise equal;
+           times at k 64 on the main-path inputs
   parity   the same slice at the olmo-1b smoke config (f32), and the
            two-node cluster with two olmo-1b nodes and with olmo-1b +
            xlstm-350m, on the card and on the CPU from the same weights:
@@ -133,6 +142,9 @@ KERNEL_META = {
     "ivf_retrieval_topk": (
         "src/repro_torch/kernels/csrc/ivf_topk.cu",
         "src/repro/kernels/topk_retrieval.py:143"),
+    "retrieval_topk_list": (
+        "src/repro_torch/kernels/csrc/topk_list.cu",
+        "src/repro/kernels/topk_retrieval.py:72"),
     "retrieval_topk_wide": (
         "src/repro_torch/kernels/csrc/topk_wide.cu",
         "src/repro/kernels/topk_retrieval.py:72"),
@@ -149,8 +161,6 @@ SLICE_KERNELS = ("paged_decode_attention", "flash_attention",
                  "retrieval_topk")
 CLUSTER_KERNELS = ("ivf_retrieval_topk", "flash_attention",
                    "paged_decode_attention")
-# the k > 32 route of the two top-k wrappers (csrc/topk_wide.cu)
-WIDE_KERNELS = ("retrieval_topk_wide", "ivf_retrieval_topk_wide")
 # the public wrappers of ops
 WRAPPERS = ("paged_decode_attention", "flash_attention", "retrieval_topk",
             "ivf_retrieval_topk")
@@ -411,7 +421,8 @@ def phase_build() -> None:
     # the top-k and IVF scan kernels' instruction mix: f32 FFMA, shared
     # loads (LDS.128 are the float4 reads of the register tile), cp.async
     for lib, scan in (("topk", "topk_scan_kernel"),
-                      ("ivf_topk", "ivf_scan_kernel")):
+                      ("ivf_topk", "ivf_scan_kernel"),
+                      ("topk_list", "topk_list_scan_kernel")):
         ops_of, fn = {}, None
         for line in build.sass(lib).splitlines():
             if "Function :" in line:
@@ -1744,7 +1755,8 @@ def _topk_main(torch, gen, main):
     return q / q.norm(dim=1, keepdim=True), d / d.norm(dim=1, keepdim=True), 3
 
 
-def kernels_topk(torch, ops, ref, gen, main, rec, card, profiled) -> None:
+def kernels_topk(torch, ops, ref, gen, main, shard, rec, card,
+                 profiled) -> None:
     """``profiled``: (what, names of the device kernels it ran), the
     main-path call traced under torch.profiler."""
     def unit(n, d):
@@ -1787,7 +1799,7 @@ def kernels_topk(torch, ops, ref, gen, main, rec, card, profiled) -> None:
                 flat[256:].view(11, 256), 4, "unaligned, D 256")
     _topk_check(torch, ops, ref, unit(40, 2048), unit(3000, 2048), 5,
                 "queries staged, D 2048")
-    qs, ds = unit(32, 256), unit(SHARD_DOCS, 256)
+    qs, ds = shard
     _topk_check(torch, ops, ref, qs, ds, 5, "1M-doc shard")
     _topk_check(torch, ops, ref, qs, ds, 32, "1M-doc shard")
     _topk_check(torch, ops, ref, qs[:1], ds, 5, "1M-doc shard")
@@ -2185,6 +2197,20 @@ def _ivf_shard(torch, ops, ref, card) -> dict:
         log(f"  ivf_retrieval_topk 1M-doc shard {label} forced splits "
             f"(bitwise equal to the rule's {n_rule}) ms {'; '.join(times)} "
             f"{tag}")
+    # the k > 32 route (csrc/topk_wide.cu) on the same shard
+    s, i = ops.ivf_retrieval_topk(qs, el, il, probe, 64)
+    s2, i2 = plain_of(qs, probe, 64)()
+    torch.cuda.synchronize()
+    err = max_err(s, s2)
+    log(f"  ivf_retrieval_topk_wide [1M-doc shard Nq32 k64] scores max|err| "
+        f"{err:.3e} (tol 1e-05), ids equal {int((i == i2).sum())}/"
+        f"{i.numel()}")
+    check(err <= 1e-5 and _ids_agree(torch, s2, i, i2, 1e-5),
+          f"ivf 1M shard k 64: wide kernel and plain version differ ({err})")
+    _ivf_times(torch, ops, ref, (qs, el, il, probe, 64),
+               plain_of(qs, probe, 64),
+               "1M-doc shard Nq32 k64 (csrc/topk_wide.cu)", card,
+               chunks=chunked(qs, probe))
     return {f"1M {label}": (q, el, il, pr, k)
             for label, (q, pr, k) in cases.items() if k == 5}
 
@@ -2232,10 +2258,11 @@ def kernels_ivf(torch, ops, ref, gen, main, rec, card, traced) -> None:
         bound_by=by, library_ms=t_d)
 
 
-def _wide_times(torch, label, card, kernel, plain, library, work):
+def _wide_times(torch, label, card, kernel, plain, library, work,
+                reps=25):
     """Kernel, plain version and library call of the wide route, beside
     the bound of ``work`` (bytes, flops).  Returns the JSON fields."""
-    t_k, t_p, t_l = (bench_ms(f) for f in (kernel, plain, library))
+    t_k, t_p, t_l = (bench_ms(f, reps) for f in (kernel, plain, library))
     bnd, by = bound_ms(*work, "float32")
     log(f"  {label}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
         f"{t_l:.4f} ms, bound {bnd:.5f} ms ({by}), "
@@ -2244,48 +2271,180 @@ def _wide_times(torch, label, card, kernel, plain, library, work):
                 library_ms=t_l)
 
 
-def kernels_wide(torch, ops, ref, gen, topk_main, ivf_main, rec,
-                 card) -> None:
-    """The k > 32 route (csrc/topk_wide.cu) of both retrieval functions:
-    against the plain versions at k 33, 64, 257 and a k above the
-    candidates, on the main-path inputs and on more docs than one tile
-    holds; exact ties across tiles, IVF padding, a list probed twice and
-    probe ids outside the lists; the first 32 of k 64 against the narrow
-    kernel's k 32 (ids equal, scores bitwise equal: one fmaf chain per
-    pair in both); two calls bitwise equal; times at k 64 on the
-    main-path inputs and on a 1M-doc shard at Nq 32."""
+def _topk_ties(i, s, ties, label) -> None:
+    """Row 0's first ids are ``ties`` (equal rows), lowest first."""
+    n = len(ties)
+    check(i[0, :n].tolist() == ties and bool((s[0, :n] == s[0, 0]).all()),
+          f"{label}: ties must go to the lowest doc id: {i[0, :n].tolist()}")
+
+
+def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
+                      card) -> None:
+    """The exact top-k above k 32: csrc/topk_list.cu up to
+    ops.TOPK_LIST_MAX, csrc/topk_wide.cu above.  Which kernel each k
+    launches (by the launch counts); both against the plain version at
+    k 33, 64, 256, 1024, the limit and one above it on the main-path
+    inputs and on 3000 docs (several splits and groups), and on D 30, Nq 1
+    (spread warps), an unaligned pointer; exact ties across tiles and
+    splits (at the rule's plan and at forced split counts, group sizes and
+    merge depths); the first 32 of k 64 against the narrow kernel's k 32
+    (ids equal, scores bitwise equal: one fmaf chain per pair in both);
+    two calls bitwise equal; times on the main-path inputs at k 64 (the
+    list kernel) and on 8192 docs at the limit + 1 (csrc/topk_wide.cu),
+    and on a 1M-doc shard at Nq 32 (k 64, 256; the limit + 1 through
+    csrc/topk_wide.cu) and Nq 1 (k 64), beside other group sizes and
+    csrc/topk_wide.cu at k 64."""
     def unit(n, d):
         x = torch.randn(n, d, generator=gen, device=DEV)
         return x / x.norm(dim=1, keepdim=True)
 
-    before = {name: ops.launches[name] for name in WIDE_KERNELS}
+    limit = ops.TOPK_LIST_MAX
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     qm, dm, _ = topk_main
     nd = dm.shape[0]
-    for k in (33, 64, 257, nd + 7):
-        _topk_check(torch, ops, ref, qm, dm, k, f"wide, main path, k {k}")
+    for k in (32, 33, 64, 256, limit, limit + 1):
+        before = dict(ops.launches)
+        ops.retrieval_topk(qm, dm, k)
+        ran = {n: c - before[n] for n, c in ops.launches.items()
+               if c != before[n]}
+        check(ran == {ops.topk_route(k): 1},
+              f"retrieval_topk k {k} launched {ran}, not "
+              f"{ops.topk_route(k)}")
+    log(f"  retrieval_topk launch counts: k 32 ran retrieval_topk, 33 .. "
+        f"{limit} retrieval_topk_list, {limit + 1} retrieval_topk_wide")
+    plan = ops.retrieval_topk_wide_plan
+    log(f"  retrieval_topk_list plan (group, groups, splits, docs per "
+        f"split): main path k 64 {plan(qm.shape[0], nd, 64, sms)}, 3000 "
+        f"docs Nq 33 k 64 {plan(33, 3000, 64, sms)}, 1M docs Nq 32 k 64 "
+        f"{plan(32, SHARD_DOCS, 64, sms)}, k 256 "
+        f"{plan(32, SHARD_DOCS, 256, sms)}, Nq 1 k 64 "
+        f"{plan(1, SHARD_DOCS, 64, sms)}")
+    for k in (33, 64, 256, nd + 7, limit, limit + 1):
+        _topk_check(torch, ops, ref, qm, dm, k,
+                    f"{ops.topk_route(k)}, main path")
     qb, db = unit(33, 256), unit(3000, 256)
-    for k in (33, 64, 257, 3001):
-        _topk_check(torch, ops, ref, qb, db, k, f"wide, 3 tiles, k {k}")
-    tile = ops.WIDE_TILE
+    for k in (33, 64, 256, 1024, 3001, limit, limit + 1):
+        _topk_check(torch, ops, ref, qb, db, k,
+                    f"{ops.topk_route(k)}, 3000 docs")
+    _topk_check(torch, ops, ref, unit(5, 30), unit(2000, 30), 100,
+                "retrieval_topk_list, D 30")
+    _topk_check(torch, ops, ref, unit(1, 256), db, 64,
+                "retrieval_topk_list, Nq 1 (spread)")
+    flat = unit(1, 12 * 256 + 1).view(-1)[1:]     # 4 bytes off 16
+    _topk_check(torch, ops, ref, flat[:256].view(1, 256),
+                flat[256:].view(11, 256), 40, "retrieval_topk_list, unaligned")
+    # equal rows across the list kernel's tiles (128 docs) and splits and
+    # csrc/topk_wide.cu's tiles (1024): ids lowest first
     dup = unit(2500, 64)
-    for j in (tile - 1, tile, 2 * tile + 5, 2499):
+    ties = [3, 127, 128, 255, 256, 1023, 1024, 2053, 2499]
+    for j in ties[1:]:
         dup[j] = dup[3]
-    s, i, _ = _topk_check(torch, ops, ref, 2.0 * dup[3:4], dup, 40,
-                          "wide, ties across tiles")
-    check(i[0, :5].tolist() == [3, tile - 1, tile, 2 * tile + 5, 2499]
-          and bool((s[0, :5] == s[0, 0]).all()),
-          f"wide: ties must go to the lowest doc id: {i[0, :5].tolist()}")
-    for q, d, label in ((qm, dm, "main path"), (qb, db, "3 tiles")):
+    q1 = 2.0 * dup[3:4]
+    for k in (40, 2048, limit + 1):
+        s, i, _ = _topk_check(torch, ops, ref, q1, dup, k,
+                              f"{ops.topk_route(k)}, ties")
+        _topk_ties(i, s, ties, f"{ops.topk_route(k)} k {k}")
+    # forced: 10 splits of 2 tiles (k 40: one merge level; k 2048, fan-in
+    # 2: four), at group 4 and at group 32 (one query: spread warps)
+    for k, group in ((40, 4), (2048, 4), (40, 32)):
+        s, i = ops._topk_list_launch(q1, dup, k, group, 1, 10,
+                                     2 * ops.TOPK_TILE)
+        _topk_ties(i, s, ties,
+                   f"retrieval_topk_list k {k} group {group}, 10 splits")
+    log("  retrieval_topk_list [ties] ids lowest first across tiles, 10 "
+        "forced splits, 1 and 4 merge levels, groups 4 and 32")
+    for q, d, label in ((qm, dm, "main path"), (qb, db, "3000 docs")):
         s64, i64 = ops.retrieval_topk(q, d, 64)
         s32, i32 = ops.retrieval_topk(q, d, 32)
         torch.cuda.synchronize()
         check(torch.equal(i64[:, :32], i32)
               and torch.equal(s64[:, :32], s32),
-              f"wide {label}: k 64's first 32 differ from the narrow k 32")
-        log(f"  retrieval_topk [wide {label}] k 64's first 32 equal the "
+              f"list {label}: k 64's first 32 differ from the narrow k 32")
+        log(f"  retrieval_topk_list [{label}] k 64's first 32 equal the "
             "narrow kernel's k 32 (ids, scores bitwise)")
-    _topk_same_twice(torch, ops, qb, db, 257, "wide 3-tile")
+    _topk_same_twice(torch, ops, qb, db, 257, "3000-doc k 257")
 
+    _, _, err = _topk_check(torch, ops, ref, qm, dm, 64,
+                            "retrieval_topk_list main path")
+    rec["retrieval_topk_list"] = dict(max_abs_err=err, **_wide_times(
+        torch, f"retrieval_topk_list main path Nq{qm.shape[0]} Nd{nd} k64",
+        card, lambda: ops.retrieval_topk(qm, dm, 64),
+        lambda: ref.topk_ref(qm, dm, 64),
+        lambda: torch.topk(qm @ dm.T, 64), topk_work(qm, dm, 64)))
+    # csrc/topk_wide.cu above the limit, over enough docs that one
+    # library call computes the same function
+    kw, dw = limit + 1, unit(8192, qm.shape[1])
+    _, _, err = _topk_check(torch, ops, ref, qm, dw, kw,
+                            "retrieval_topk_wide 8192 docs")
+    rec["retrieval_topk_wide"] = dict(max_abs_err=err, **_wide_times(
+        torch, f"retrieval_topk_wide Nq{qm.shape[0]} Nd8192 k{kw}", card,
+        lambda: ops.retrieval_topk(qm, dw, kw),
+        lambda: ref.topk_ref(qm, dw, kw),
+        lambda: torch.topk(qm @ dw.T, kw), topk_work(qm, dw, kw)))
+
+    qs, ds = shard
+    cases = ((qs, 64), (qs, 256), (qs[:1], 64))
+    for q, k in cases:
+        _topk_check(torch, ops, ref, q, ds, k,
+                    "retrieval_topk_list, 1M-doc shard")
+    s64, i64 = ops.retrieval_topk(qs, ds, 64)
+    s32, i32 = ops.retrieval_topk(qs, ds, 32)
+    torch.cuda.synchronize()
+    check(torch.equal(i64[:, :32], i32) and torch.equal(s64[:, :32], s32),
+          "list 1M-doc shard: k 64's first 32 differ from the narrow k 32")
+    _topk_same_twice(torch, ops, qs, ds, 64, "1M-doc k 64")
+    tag = f"[{card['smi']}]"
+    for q, k in cases:
+        _wide_times(torch, f"retrieval_topk_list 1M-doc shard Nq"
+                    f"{q.shape[0]} k{k}", card,
+                    lambda: ops.retrieval_topk(q, ds, k),
+                    lambda: ref.topk_ref(q, ds, k),
+                    lambda: torch.topk(q @ ds.T, k), topk_work(q, ds, k))
+    log(f"  retrieval_topk 1M-doc shard Nq32 k64 through the one-block-"
+        f"per-query kernel (csrc/topk_wide.cu): "
+        f"{bench_ms(lambda: ops._topk_wide_launch(qs, ds, 64), reps=3):.4f}"
+        f" ms {tag}")
+    # csrc/topk_wide.cu above the limit on the same shard
+    kw = limit + 1
+    _topk_check(torch, ops, ref, qs, ds, kw, "retrieval_topk_wide, 1M-doc "
+                "shard")
+    _wide_times(torch, f"retrieval_topk_wide 1M-doc shard Nq32 k{kw}", card,
+                lambda: ops.retrieval_topk(qs, ds, kw),
+                lambda: ref.topk_ref(qs, ds, kw),
+                lambda: torch.topk(qs @ ds.T, kw), topk_work(qs, ds, kw),
+                reps=5)
+    # the other group sizes, each bitwise equal to the rule's
+    for k, groups in ((64, (16, 8)), (256, (32, 8))):
+        s0, i0 = ops.retrieval_topk(qs, ds, k)
+        times = []
+        for g in groups:
+            groups = -(-32 // g)
+            forced = (g, groups,
+                      *ops.topk_list_splits(groups, SHARD_DOCS, k, sms))
+            s, i = ops._topk_list_launch(qs, ds, k, *forced)
+            torch.cuda.synchronize()
+            check(torch.equal(s, s0) and torch.equal(i, i0),
+                  f"list 1M k {k}: plan {forced} differs from the rule's")
+            t = bench_ms(lambda: ops._topk_list_launch(qs, ds, k, *forced))
+            times.append(f"group {g} {forced}: {t:.4f}")
+        log(f"  retrieval_topk_list 1M-doc shard Nq32 k{k} other groups "
+            f"(bitwise equal to the rule's {plan(32, SHARD_DOCS, k, sms)}) "
+            f"ms {'; '.join(times)} {tag}")
+
+
+def kernels_wide(torch, ops, ref, gen, ivf_main, rec, card) -> None:
+    """The IVF probe's k > 32 route (csrc/topk_wide.cu): against the plain
+    version at k 33, 64, 257 and a k above the candidates, on the
+    main-path inputs and on lists longer than one tile; IVF padding, a
+    list probed twice and probe ids outside the lists; the first 32 of
+    k 64 against the narrow kernel's k 32 (ids equal, scores bitwise
+    equal); two calls bitwise equal; times at k 64 on the main-path
+    inputs."""
+    def unit(n, d):
+        x = torch.randn(n, d, generator=gen, device=DEV)
+        return x / x.norm(dim=1, keepdim=True)
+
+    before = ops.launches["ivf_retrieval_topk_wide"]
     q, emb, ids, probe, _ = ivf_main
     cand = probe.shape[1] * ids.shape[1]
     for k in (33, 64, 257, cand + 5):
@@ -2311,15 +2470,8 @@ def kernels_wide(torch, ops, ref, gen, topk_main, ivf_main, rec,
     log("  ivf_retrieval_topk [wide main path] k 64's first 32 equal the "
         "narrow kernel's k 32 (ids, scores bitwise)")
     _ivf_same_twice(torch, ops, (q, emb, ids, probe, 64), "wide main-path")
-    check(all(ops.launches[name] > n for name, n in before.items()),
-          "k > 32 did not run the wide kernel")
-
-    _, _, err_e = _topk_check(torch, ops, ref, qm, dm, 64, "wide main path")
-    rec["retrieval_topk_wide"] = dict(max_abs_err=err_e, **_wide_times(
-        torch, f"retrieval_topk_wide main path Nq{qm.shape[0]} Nd{nd} k64",
-        card, lambda: ops.retrieval_topk(qm, dm, 64),
-        lambda: ref.topk_ref(qm, dm, 64),
-        lambda: torch.topk(qm @ dm.T, 64), topk_work(qm, dm, 64)))
+    check(ops.launches["ivf_retrieval_topk_wide"] > before,
+          "IVF k > 32 did not run the wide kernel")
     _, _, err_i = _ivf_check(torch, ops, ref, q, emb, ids, probe, 64,
                              "wide main path")
     dense = _ivf_library(torch, q, emb, ids, probe, 64)[2]
@@ -2329,12 +2481,6 @@ def kernels_wide(torch, ops, ref, gen, topk_main, ivf_main, rec,
         lambda: ops.ivf_retrieval_topk(q, emb, ids, probe, 64),
         lambda: ref.ivf_topk_ref(q, emb, ids, probe, 64), dense,
         ivf_work(q, emb, ids, probe, 64)[:2]))
-    qs, ds = unit(32, 256), unit(SHARD_DOCS, 256)
-    _topk_check(torch, ops, ref, qs, ds, 64, "wide, 1M-doc shard")
-    _wide_times(torch, "retrieval_topk_wide 1M-doc shard Nq32 k64", card,
-                lambda: ops.retrieval_topk(qs, ds, 64),
-                lambda: ref.topk_ref(qs, ds, 64),
-                lambda: torch.topk(qs @ ds.T, 64), topk_work(qs, ds, 64))
 
 
 def phase_kernels(torch, card, captured: dict, rec: dict,
@@ -2356,20 +2502,30 @@ def phase_kernels(torch, card, captured: dict, rec: dict,
                   card)
     topk_main = _topk_main(torch, gen, main("retrieval_topk"))
     ivf_main = _ivf_main(torch, gen, main("ivf_retrieval_topk"))
+    # the exact top-k's 1M-doc shard: 32 queries, SHARD_DOCS docs, D 256
+    shard = [x / x.norm(dim=1, keepdim=True) for x in (
+        torch.randn(n, 256, generator=gen, device=DEV)
+        for n in (32, SHARD_DOCS))]
     # one profiler session per process: after the --profile slice pass a
     # second session traced no kernels on the card, so the top-k count
     # then comes from that pass, whose one FlatIndex search is a main-path
-    # call, and the IVF probe (not on the slice path) goes uncounted
+    # call, and the IVF probe (not on the slice path) goes uncounted.
+    # Without it the session also traces csrc/topk_list.cu on the shard
+    # at k 64 and 256 (its sample scan, scan and merge levels, in order).
     if traced:
         profiled = ("the profiled slice pass's main-path call", traced)
     else:
         profiled = ("one main-path call", _device_kernels(
             torch, lambda: (ops.retrieval_topk(*topk_main),
-                            ops.ivf_retrieval_topk(*ivf_main))))
-    kernels_topk(torch, ops, ref, gen, topk_main, rec, card, profiled)
+                            ops.ivf_retrieval_topk(*ivf_main),
+                            ops.retrieval_topk(*shard, 64),
+                            ops.retrieval_topk(*shard, 256))))
+    kernels_topk(torch, ops, ref, gen, topk_main, shard, rec, card,
+                 profiled)
     kernels_ivf(torch, ops, ref, gen, ivf_main, rec, card,
                 None if traced else profiled[1])
-    kernels_wide(torch, ops, ref, gen, topk_main, ivf_main, rec, card)
+    kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec, card)
+    kernels_wide(torch, ops, ref, gen, ivf_main, rec, card)
 
 
 def _to_device(tree, dev):

@@ -27,6 +27,7 @@ SOURCES: Dict[str, str] = {
     "paged_attention": "paged_attention.cu",
     "flash_attention": "flash_attention.cu",
     "topk": "topk.cu",
+    "topk_list": "topk_list.cu",
     "ivf_topk": "ivf_topk.cu",
     "topk_wide": "topk_wide.cu",
 }

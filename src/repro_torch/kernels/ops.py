@@ -6,8 +6,8 @@ launches the hand-written CUDA kernel (``csrc/``, built on first use by
 or raises: there is no fallback from a CUDA tensor to the plain version.
 Each wrapper adds one to ``launches[<name>]`` where it launches its
 kernel, and nowhere else, so a run can show which kernels it went
-through; the k > 32 route of the two top-k functions
-(``csrc/topk_wide.cu``) counts under its entry point's name.
+through; each route of the two top-k functions counts under its entry
+point's name (``topk_route``, ``wide_route``).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ launches: Dict[str, int] = {"paged_decode_attention": 0,
                             "flash_attention": 0,
                             "retrieval_topk": 0,
                             "ivf_retrieval_topk": 0,
+                            "retrieval_topk_list": 0,
                             "retrieval_topk_wide": 0,
                             "ivf_retrieval_topk_wide": 0}
 
@@ -34,6 +35,7 @@ _SIGNATURES = {
         [_VP] * 6 + [_I] * 8 + [_F, _I, _VP],
     ("topk", "retrieval_topk"): [_VP] * 6 + [_I] * 6 + [_VP],
     ("ivf_topk", "ivf_retrieval_topk"): [_VP] * 8 + [_I] * 9 + [_VP],
+    ("topk_list", "retrieval_topk_list"): [_VP] * 8 + [_I] * 8 + [_VP],
     ("topk_wide", "retrieval_topk_wide"): [_VP] * 6 + [_I] * 4 + [_VP],
     ("topk_wide", "ivf_retrieval_topk_wide"): [_VP] * 8 + [_I] * 6 + [_VP],
 }
@@ -231,9 +233,10 @@ def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner-product search, [Nq,D] x [Nd,D] (f32) ->
     (scores [Nq,k] f32, ids [Nq,k] int32) for any k >= 1; ties go to the
-    lower id, and slots beyond Nd are (-1e30, -1).  On CUDA a k of at most
-    ``TOPK_NARROW_MAX`` runs ``csrc/topk.cu``, a wider one
-    ``csrc/topk_wide.cu``."""
+    lower id, and slots beyond Nd are (-1e30, -1).  On CUDA the width
+    picks the kernel (``topk_route``): ``csrc/topk.cu`` up to
+    ``TOPK_NARROW_MAX``, ``csrc/topk_list.cu`` up to ``TOPK_LIST_MAX``,
+    ``csrc/topk_wide.cu`` above."""
     _require(k >= 1, f"k={k} must be at least 1")
     if _on_cpu(queries, docs):
         return ref.topk_ref(queries, docs, k)
@@ -241,10 +244,14 @@ def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
     Nq, Nd = queries.shape[0], docs.shape[0]
     if Nq == 0:
         return _fill(0, k, queries.device)
-    if wide_route(k):
+    route = topk_route(k)
+    if route == "retrieval_topk_wide":
         return _topk_wide_launch(queries, docs, k)
     sms = torch.cuda.get_device_properties(queries.device
                                            ).multi_processor_count
+    if route == "retrieval_topk_list":
+        return _topk_list_launch(queries, docs, k,
+                                 *retrieval_topk_wide_plan(Nq, Nd, k, sms))
     _, n_splits, per = retrieval_topk_plan(Nq, Nd, sms)
     return _topk_launch(queries, docs, k, n_splits, per)
 
@@ -432,13 +439,128 @@ def ivf_retrieval_topk_plan(Nq: int, nprobe: int, n_lists: int, L: int,
 
 
 TOPK_NARROW_MAX = 32   # widest k of csrc/topk.cu and csrc/ivf_topk.cu
+TOPK_LIST_MAX = 6176   # widest k of csrc/topk_list.cu (its group of 4)
 WIDE_TILE = 1024       # candidates per tile of csrc/topk_wide.cu (kT)
 
 
 def wide_route(k: int) -> bool:
-    """True when a CUDA top-k of width ``k`` runs ``csrc/topk_wide.cu``
-    (k above ``TOPK_NARROW_MAX``), False when it runs the narrow kernel."""
+    """True when a CUDA IVF top-k of width ``k`` runs
+    ``csrc/topk_wide.cu`` (k above ``TOPK_NARROW_MAX``), False when it runs
+    the narrow kernel."""
     return k > TOPK_NARROW_MAX
+
+
+def topk_route(k: int) -> str:
+    """The entry point, and ``launches`` name, a CUDA exact top-k of
+    width ``k`` runs: ``retrieval_topk`` (``csrc/topk.cu``) up to
+    ``TOPK_NARROW_MAX``, ``retrieval_topk_list`` (``csrc/topk_list.cu``)
+    up to ``TOPK_LIST_MAX``, ``retrieval_topk_wide``
+    (``csrc/topk_wide.cu``) above."""
+    if k <= TOPK_NARROW_MAX:
+        return "retrieval_topk"
+    if k <= TOPK_LIST_MAX:
+        return "retrieval_topk_list"
+    return "retrieval_topk_wide"
+
+
+TOPK_CHUNK = 32       # dims per ring chunk (csrc/topk_core.cuh kKC)
+TOPK_STAGES = 2       # ring depth (kStages)
+TOPK_BUFFER = 32      # candidate buffer per (warp, query) (topk_list.cu kLB)
+TOPK_LIST_GROUPS = (4, 8, 16, 32)   # queries per block of topk_list.cu
+SMEM_BLOCK = 232_448  # shared memory one block may take on sm_90 (kSmemMax)
+# ... and at most what two blocks may take each on one SM (228 KB, 1 KB
+# of it reserved per block)
+SMEM_TWO_BLOCKS = (233_472 - 2 * 1024) // 2
+TOPK_MERGE_ENTRIES = 4096   # lists x k one merge block holds at most
+# a split corpus gets the sample pass from this group size up
+# (topk_list.cu kSampleGroup)
+TOPK_LIST_SAMPLE_GROUP = 16
+# tests/test_torch_topk_wide_plan.py holds these and topk_list_smem to
+# csrc/topk_list.cu's own constants and scan_smem.
+
+
+def topk_list_smem(group: int, k: int) -> int:
+    """Shared memory of a ``csrc/topk_list.cu`` scan block: the ring of
+    doc and query chunks, and per (warp, query) a candidate buffer and a
+    list of k (score, id) entries."""
+    return 4 * (TOPK_STAGES * (TOPK_TILE + group) * TOPK_CHUNK
+                + 2 * group * (TOPK_BUFFER + k))
+
+
+def retrieval_topk_wide_plan(Nq: int, Nd: int, k: int, sms: int
+                             ) -> Tuple[int, int, int, int]:
+    """How ``csrc/topk_list.cu`` cuts a top-k of width ``k`` (33 to
+    ``TOPK_LIST_MAX``): (queries per group, query groups, doc splits, docs
+    per split), one thread block per (group, split).
+
+    Each doc row is read once per group.  The group is the smallest of
+    ``TOPK_LIST_GROUPS`` that holds all Nq queries, among those whose
+    block (``topk_list_smem``, which grows with k) lets two blocks share
+    an SM; at a k where none does, 4.  So a wider k shrinks the group and
+    the docs are read ceil(Nq / group) times.  The splits follow
+    ``topk_list_splits``."""
+    fits = [g for g in TOPK_LIST_GROUPS
+            if topk_list_smem(g, k) <= SMEM_TWO_BLOCKS] or [
+                TOPK_LIST_GROUPS[0]]
+    group = next((g for g in fits if g >= Nq), fits[-1])
+    groups = max(1, -(-Nq // group))
+    return (group, groups) + topk_list_splits(groups, Nd, k, sms)
+
+
+def topk_list_splits(groups: int, Nd: int, k: int, sms: int
+                     ) -> Tuple[int, int]:
+    """(doc splits, docs per split) of ``csrc/topk_list.cu`` for
+    ``groups`` query groups: about two blocks per SM over the ``sms`` SMs,
+    but a split keeps at least four tiles of ``TOPK_TILE`` docs and at
+    least k docs: a corpus of up to that many is one split, and one block
+    then writes the result in a single launch.  A split is a whole number
+    of tiles, and the last one may be short; splits cover [0, Nd) without
+    overlap."""
+    tiles = max(1, -(-Nd // TOPK_TILE))
+    want = max(1, -(-2 * sms // groups))
+    least = max(4, -(-k // TOPK_TILE))
+    per = -(-tiles // max(1, min(want, tiles // least))) * TOPK_TILE
+    return max(1, -(-Nd // per)), per
+
+
+def topk_merge_fan_in(k: int) -> int:
+    """Sorted lists of width ``k`` one block of ``csrc/topk_list.cu``'s
+    merge takes at a level: the largest power of two, at least 2, whose
+    lists hold at most ``TOPK_MERGE_ENTRIES`` entries."""
+    fan_in = 2
+    while 2 * fan_in * k <= TOPK_MERGE_ENTRIES:
+        fan_in *= 2
+    return fan_in
+
+
+def _topk_list_launch(queries, docs, k: int, group: int, groups: int,
+                      n_splits: int, per: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/topk_list.cu`` (its scan, and its merge levels when
+    ``n_splits`` > 1) on checked CUDA inputs, queries in groups of
+    ``group`` and docs cut into splits of ``per`` rows."""
+    Nq, D = queries.shape
+    dev = queries.device
+    out_s = torch.empty((Nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Nq, k), dtype=torch.int32, device=dev)
+    # the splits' lists, and the merge's second buffer of lists
+    scratch = [None] * 4
+    fan_in = 0
+    if n_splits > 1:
+        fan_in = topk_merge_fan_in(k)
+        for j, n in enumerate((n_splits, -(-n_splits // fan_in))):
+            scratch[2 * j] = torch.empty((Nq, n, k), dtype=torch.float32,
+                                         device=dev)
+            scratch[2 * j + 1] = torch.empty((Nq, n, k), dtype=torch.int32,
+                                             device=dev)
+    rc = _fn("topk_list", "retrieval_topk_list")(
+        _ptr(queries), _ptr(docs),
+        *(None if t is None else _ptr(t) for t in scratch), _ptr(out_s),
+        _ptr(out_i), Nq, docs.shape[0], D, k, group, per, n_splits, fan_in,
+        _stream(queries))
+    _check_rc(rc, "retrieval_topk_list")
+    launches["retrieval_topk_list"] += 1
+    return out_s, out_i
 
 
 def _topk_wide_launch(queries, docs, k: int

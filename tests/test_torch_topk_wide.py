@@ -1,11 +1,14 @@
-"""Top-k for any k >= 1: the k > 32 route of both retrieval wrappers
-(``csrc/topk_wide.cu`` on CUDA), on the CPU.
+"""Top-k for any k >= 1: the k > 32 routes of both retrieval wrappers
+(``csrc/topk_wide.cu`` on CUDA; for the exact function up to
+``ops.TOPK_LIST_MAX`` ``csrc/topk_list.cu``, whose own tests are in
+``tests/test_torch_topk_wide_plan.py``), on the CPU.
 
 - The CPU wrappers at k 33, 64 and above the candidates against the
   reference's Pallas kernels in interpret mode (``topk_pallas``,
   ``ivf_topk_pallas``), with exact ties, IVF padding and a list probed
   twice.
-- The route choice (``ops.wide_route``) and the limit k >= 1.
+- The route choice (``ops.wide_route``, ``ops.topk_route``) and the
+  limit k >= 1.
 - The kernel's algorithm (tiles of candidates keyed by doc id or by
   probe rank * L + slot, each sorted best first and merged with the
   carried list by ranks) emulated in torch at small tiles.
@@ -71,6 +74,15 @@ def test_route_choice():
     assert ops.TOPK_NARROW_MAX == 32
     assert [ops.wide_route(k) for k in (1, 5, 31, 32)] == [False] * 4
     assert [ops.wide_route(k) for k in (33, 64, 257, 10 ** 6)] == [True] * 4
+    # the exact function has a third route: csrc/topk_list.cu between the
+    # narrow kernel and csrc/topk_wide.cu
+    limit = ops.TOPK_LIST_MAX
+    assert [ops.topk_route(k) for k in (1, 5, 31, 32)] == \
+        ["retrieval_topk"] * 4
+    assert [ops.topk_route(k) for k in (33, 64, 257, limit)] == \
+        ["retrieval_topk_list"] * 4
+    assert [ops.topk_route(k) for k in (limit + 1, 10 ** 6)] == \
+        ["retrieval_topk_wide"] * 2
 
 
 @pytest.mark.parametrize("k", [0, -1])
@@ -85,14 +97,18 @@ def test_k_below_one_raises(fn, k):
 
 
 def test_launch_counts_name_each_route():
-    assert {"retrieval_topk", "ivf_retrieval_topk", "retrieval_topk_wide",
-            "ivf_retrieval_topk_wide"} <= set(ops.launches)
+    assert {"retrieval_topk", "ivf_retrieval_topk", "retrieval_topk_list",
+            "retrieval_topk_wide", "ivf_retrieval_topk_wide"} <= \
+        set(ops.launches)
     ops.launches["retrieval_topk_wide"] = 3
+    ops.launches["retrieval_topk_list"] = 4
     ops.launches["ivf_retrieval_topk"] = 2
     ops.reset_launches()
     assert set(ops.launches.values()) == {0}
+    assert ("topk_list", "retrieval_topk_list") in ops._SIGNATURES
     assert ("topk_wide", "retrieval_topk_wide") in ops._SIGNATURES
     assert ("topk_wide", "ivf_retrieval_topk_wide") in ops._SIGNATURES
+    assert build.SOURCES["topk_list"] == "topk_list.cu"
     assert build.SOURCES["topk_wide"] == "topk_wide.cu"
 
 
