@@ -76,13 +76,18 @@ Phases, in order:
            merge kernels of one main-path call counted, and the k > 32
            IVF route (csrc/topk_wide.cu) timed on the same shard at Nq 32,
            k 64; the exact top-k above k 32 (csrc/topk_list.cu up to
-           ops.TOPK_LIST_MAX, csrc/topk_wide.cu above): the route of each
-           k by launch counts, k 33, 64, 256, 1024, the limit and one
-           above it, ties across tiles and splits (at forced split
-           counts, group sizes and merge depths), D 30, Nq 1, an
-           unaligned pointer and the 1M-doc shard (Nq 32 at k 64 and
-           256, Nq 1 at k 64, and csrc/topk_wide.cu at k 64 and the
-           limit + 1; other group sizes timed beside); the IVF k > 32
+           ops.TOPK_LIST_MAX, csrc/topk_select.cu above): the route of
+           each k by launch counts, k 33, 64, 256, 1024, the limit and
+           one above it, ties across tiles and splits (at forced split
+           counts, group sizes and merge depths) and, above the limit, at
+           the k-th score (integer data), D 30, Nq 1, an unaligned
+           pointer and the 1M-doc shard (Nq 32 at k 64 and 256, Nq 1 at
+           k 64; other group sizes timed beside; csrc/topk_select.cu at
+           k 6177, 16384 and 65536, Nq 1, and forced at k 256 .. the
+           limit beside the list kernel), the limit + 1's first 6176
+           bitwise equal to the list kernel's k 6176 and first 32 to the
+           narrow k 32, and its device kernels split by torch.profiler
+           (with k 65536); the IVF k > 32
            route at k 33, 64, 257 and above the candidates, with IVF
            padding, a list probed twice and probe ids outside the
            lists; k 64's first 32
@@ -145,8 +150,8 @@ KERNEL_META = {
     "retrieval_topk_list": (
         "src/repro_torch/kernels/csrc/topk_list.cu",
         "src/repro/kernels/topk_retrieval.py:72"),
-    "retrieval_topk_wide": (
-        "src/repro_torch/kernels/csrc/topk_wide.cu",
+    "retrieval_topk_select": (
+        "src/repro_torch/kernels/csrc/topk_select.cu",
         "src/repro/kernels/topk_retrieval.py:72"),
     "ivf_retrieval_topk_wide": (
         "src/repro_torch/kernels/csrc/topk_wide.cu",
@@ -422,7 +427,8 @@ def phase_build() -> None:
     # loads (LDS.128 are the float4 reads of the register tile), cp.async
     for lib, scan in (("topk", "topk_scan_kernel"),
                       ("ivf_topk", "ivf_scan_kernel"),
-                      ("topk_list", "topk_list_scan_kernel")):
+                      ("topk_list", "topk_list_scan_kernel"),
+                      ("topk_select", "select_scan_kernel")):
         ops_of, fn = {}, None
         for line in build.sass(lib).splitlines():
             if "Function :" in line:
@@ -1839,14 +1845,16 @@ def kernels_topk(torch, ops, ref, gen, main, shard, rec, card,
 
 def _ids_agree(torch, s_plain, i, i_plain, tol) -> bool:
     """Ids equal, or differing only where the plain scores tie within
-    tolerance (another summation order may swap a near-tie)."""
+    tolerance (another summation order may swap a near-tie).  The plain
+    rows are sorted best first, so a slot's nearest other score is a
+    neighbour's."""
     same = i == i_plain
     if bool(same.all()):
         return True
-    k = s_plain.shape[1]
-    gap = (s_plain[:, :, None] - s_plain[:, None, :]).abs()
-    near = ((gap <= 2 * tol) & ~torch.eye(k, dtype=torch.bool,
-                                           device=s_plain.device)).any(-1)
+    close = (s_plain[:, 1:] - s_plain[:, :-1]).abs() <= 2 * tol
+    near = torch.zeros_like(same)
+    near[:, 1:] |= close
+    near[:, :-1] |= close
     return bool((same | near).all())
 
 
@@ -2281,7 +2289,7 @@ def _topk_ties(i, s, ties, label) -> None:
 def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
                       card) -> None:
     """The exact top-k above k 32: csrc/topk_list.cu up to
-    ops.TOPK_LIST_MAX, csrc/topk_wide.cu above.  Which kernel each k
+    ops.TOPK_LIST_MAX, csrc/topk_select.cu above.  Which kernel each k
     launches (by the launch counts); both against the plain version at
     k 33, 64, 256, 1024, the limit and one above it on the main-path
     inputs and on 3000 docs (several splits and groups), and on D 30, Nq 1
@@ -2290,10 +2298,8 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
     merge depths); the first 32 of k 64 against the narrow kernel's k 32
     (ids equal, scores bitwise equal: one fmaf chain per pair in both);
     two calls bitwise equal; times on the main-path inputs at k 64 (the
-    list kernel) and on 8192 docs at the limit + 1 (csrc/topk_wide.cu),
-    and on a 1M-doc shard at Nq 32 (k 64, 256; the limit + 1 through
-    csrc/topk_wide.cu) and Nq 1 (k 64), beside other group sizes and
-    csrc/topk_wide.cu at k 64."""
+    list kernel) and on a 1M-doc shard at Nq 32 (k 64, 256) and Nq 1
+    (k 64), beside other group sizes.  Then ``kernels_topk_select``."""
     def unit(n, d):
         x = torch.randn(n, d, generator=gen, device=DEV)
         return x / x.norm(dim=1, keepdim=True)
@@ -2311,7 +2317,7 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
               f"retrieval_topk k {k} launched {ran}, not "
               f"{ops.topk_route(k)}")
     log(f"  retrieval_topk launch counts: k 32 ran retrieval_topk, 33 .. "
-        f"{limit} retrieval_topk_list, {limit + 1} retrieval_topk_wide")
+        f"{limit} retrieval_topk_list, {limit + 1} retrieval_topk_select")
     plan = ops.retrieval_topk_wide_plan
     log(f"  retrieval_topk_list plan (group, groups, splits, docs per "
         f"split): main path k 64 {plan(qm.shape[0], nd, 64, sms)}, 3000 "
@@ -2333,8 +2339,9 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
     flat = unit(1, 12 * 256 + 1).view(-1)[1:]     # 4 bytes off 16
     _topk_check(torch, ops, ref, flat[:256].view(1, 256),
                 flat[256:].view(11, 256), 40, "retrieval_topk_list, unaligned")
-    # equal rows across the list kernel's tiles (128 docs) and splits and
-    # csrc/topk_wide.cu's tiles (1024): ids lowest first
+    # equal rows across the list kernel's tiles (128 docs) and splits, and
+    # across csrc/topk_select.cu's scan splits and select chunks: ids
+    # lowest first
     dup = unit(2500, 64)
     ties = [3, 127, 128, 255, 256, 1023, 1024, 2053, 2499]
     for j in ties[1:]:
@@ -2371,17 +2378,6 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
         card, lambda: ops.retrieval_topk(qm, dm, 64),
         lambda: ref.topk_ref(qm, dm, 64),
         lambda: torch.topk(qm @ dm.T, 64), topk_work(qm, dm, 64)))
-    # csrc/topk_wide.cu above the limit, over enough docs that one
-    # library call computes the same function
-    kw, dw = limit + 1, unit(8192, qm.shape[1])
-    _, _, err = _topk_check(torch, ops, ref, qm, dw, kw,
-                            "retrieval_topk_wide 8192 docs")
-    rec["retrieval_topk_wide"] = dict(max_abs_err=err, **_wide_times(
-        torch, f"retrieval_topk_wide Nq{qm.shape[0]} Nd8192 k{kw}", card,
-        lambda: ops.retrieval_topk(qm, dw, kw),
-        lambda: ref.topk_ref(qm, dw, kw),
-        lambda: torch.topk(qm @ dw.T, kw), topk_work(qm, dw, kw)))
-
     qs, ds = shard
     cases = ((qs, 64), (qs, 256), (qs[:1], 64))
     for q, k in cases:
@@ -2400,19 +2396,6 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
                     lambda: ops.retrieval_topk(q, ds, k),
                     lambda: ref.topk_ref(q, ds, k),
                     lambda: torch.topk(q @ ds.T, k), topk_work(q, ds, k))
-    log(f"  retrieval_topk 1M-doc shard Nq32 k64 through the one-block-"
-        f"per-query kernel (csrc/topk_wide.cu): "
-        f"{bench_ms(lambda: ops._topk_wide_launch(qs, ds, 64), reps=3):.4f}"
-        f" ms {tag}")
-    # csrc/topk_wide.cu above the limit on the same shard
-    kw = limit + 1
-    _topk_check(torch, ops, ref, qs, ds, kw, "retrieval_topk_wide, 1M-doc "
-                "shard")
-    _wide_times(torch, f"retrieval_topk_wide 1M-doc shard Nq32 k{kw}", card,
-                lambda: ops.retrieval_topk(qs, ds, kw),
-                lambda: ref.topk_ref(qs, ds, kw),
-                lambda: torch.topk(qs @ ds.T, kw), topk_work(qs, ds, kw),
-                reps=5)
     # the other group sizes, each bitwise equal to the rule's
     for k, groups in ((64, (16, 8)), (256, (32, 8))):
         s0, i0 = ops.retrieval_topk(qs, ds, k)
@@ -2430,6 +2413,125 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
         log(f"  retrieval_topk_list 1M-doc shard Nq32 k{k} other groups "
             f"(bitwise equal to the rule's {plan(32, SHARD_DOCS, k, sms)}) "
             f"ms {'; '.join(times)} {tag}")
+
+
+def kernels_topk_select(torch, ops, ref, gen, topk_main, shard, rec,
+                        card) -> None:
+    """The exact top-k above ops.TOPK_LIST_MAX: csrc/topk_select.cu.
+    Against the plain version at k 6177 on the main-path queries over
+    8192 docs, on D 30, an unaligned pointer, integer data with wide ties
+    at the k-th score (ids and scores exactly equal), equal rows across
+    scan splits and select chunks, and on the 1M-doc shard at Nq 32
+    (k 6177, 16384, 65536) and Nq 1; k 6177's first 6176 bitwise equal to
+    csrc/topk_list.cu's k 6176 and its first 32 to csrc/topk.cu's k 32;
+    two calls bitwise equal; the launch counts.  Times of those cases
+    beside topk(q @ d.T, k), and of the kernel forced at k 256, 1024,
+    4096 and 6176 beside the list kernel's."""
+    def unit(n, d):
+        x = torch.randn(n, d, generator=gen, device=DEV)
+        return x / x.norm(dim=1, keepdim=True)
+
+    limit = ops.TOPK_LIST_MAX
+    kw = limit + 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ops.retrieval_topk_select_plan
+    qm = topk_main[0]
+    qs, ds = shard
+    tag = f"[{card['smi']}]"
+    before = ops.launches["retrieval_topk_select"]
+
+    def forced(q, d, k):   # the select kernel at any k, at its plan
+        chunk_q, _, n_splits, per, n_sel, sel_per = plan(q.shape[0],
+                                                         d.shape[0], k, sms)
+        return ops._topk_select_launch(q, d, k, chunk_q, n_splits, per,
+                                       n_sel, sel_per)
+
+    log(f"  retrieval_topk_select plan (queries a chunk, chunks, scan "
+        f"splits, docs per split, select chunks, docs per chunk): 8192 docs"
+        f" Nq {qm.shape[0]} {plan(qm.shape[0], 8192, kw, sms)}, 1M docs "
+        f"Nq 32 {plan(32, SHARD_DOCS, kw, sms)}, k 65536 "
+        f"{plan(32, SHARD_DOCS, 65536, sms)}, Nq 1 "
+        f"{plan(1, SHARD_DOCS, kw, sms)}")
+    dw = unit(8192, qm.shape[1])
+    _, _, err = _topk_check(torch, ops, ref, qm, dw, kw,
+                            "retrieval_topk_select, 8192 docs")
+    _topk_check(torch, ops, ref, unit(5, 30), unit(8000, 30), kw,
+                "retrieval_topk_select, D 30")
+    flat = unit(1, 7001 * 256 + 1).view(-1)[1:]   # 4 bytes off 16
+    _topk_check(torch, ops, ref, flat[:256].view(1, 256),
+                flat[256:].view(7000, 256), kw,
+                "retrieval_topk_select, unaligned")
+    # integer data: exact scores, wide ties at the k-th across the scan's
+    # splits and the select chunks; ids and scores exactly the plain's
+    di = torch.randint(-2, 3, (50_000, 64), generator=gen,
+                       device=DEV).float()
+    qi = torch.randint(-2, 3, (4, 64), generator=gen, device=DEV).float()
+    for k in (kw, 20_000):
+        s, i = ops.retrieval_topk(qi, di, k)
+        s2, i2 = ref.topk_ref(qi, di, k)
+        torch.cuda.synchronize()
+        check(torch.equal(s, s2) and torch.equal(i, i2),
+              f"retrieval_topk_select integer data k {k}: differs from the "
+              "plain version")
+        at = ((qi @ di.T) == s2[:, -1:]).sum(1).tolist()
+        log(f"  retrieval_topk_select [integer data, Nd 50000] k {k} equal "
+            f"to the plain version exactly; docs tied at the k-th: {at}")
+    # equal rows across scan splits and select chunks: ids lowest first
+    _, _, _, per, _, sel_per = plan(1, 20_000, kw, sms)
+    dup = unit(20_000, 64)
+    ties = sorted({3, per - 1, per, sel_per - 1, sel_per, 19_999})
+    for j in ties[1:]:
+        dup[j] = dup[3]
+    s, i, _ = _topk_check(torch, ops, ref, 2.0 * dup[3:4], dup, kw,
+                          "retrieval_topk_select, ties")
+    _topk_ties(i, s, ties, f"retrieval_topk_select k {kw} (split {per}, "
+               f"select chunk {sel_per} docs)")
+    for q, k in ((qs, kw), (qs, 16384), (qs, 65536), (qs[:1], kw)):
+        _topk_check(torch, ops, ref, q, ds, k,
+                    "retrieval_topk_select, 1M-doc shard")
+    for q, d, label in ((qm, dw, "8192 docs"), (qs, ds, "1M-doc shard")):
+        sw, iw = ops.retrieval_topk(q, d, kw)
+        sl, il = ops.retrieval_topk(q, d, limit)
+        sn, i_n = ops.retrieval_topk(q, d, 32)
+        torch.cuda.synchronize()
+        check(torch.equal(sw[:, :limit], sl) and torch.equal(iw[:, :limit], il)
+              and torch.equal(sw[:, :32], sn) and torch.equal(iw[:, :32], i_n),
+              f"select {label}: k {kw}'s first {limit} (or 32) differ from "
+              "the list (narrow) kernel's")
+        log(f"  retrieval_topk_select [{label}] k {kw}'s first {limit} equal "
+            f"the list kernel's k {limit}, its first 32 the narrow k 32 "
+            "(ids, scores bitwise)")
+    _topk_same_twice(torch, ops, qm, dw, kw, "8192-doc k 6177")
+    _topk_same_twice(torch, ops, qs, ds, kw, "1M-doc k 6177")
+    check(ops.launches["retrieval_topk_select"] > before,
+          f"k {kw} did not run csrc/topk_select.cu")
+
+    rec["retrieval_topk_select"] = dict(max_abs_err=err, **_wide_times(
+        torch, f"retrieval_topk_select Nq{qm.shape[0]} Nd8192 k{kw}", card,
+        lambda: ops.retrieval_topk(qm, dw, kw),
+        lambda: ref.topk_ref(qm, dw, kw),
+        lambda: torch.topk(qm @ dw.T, kw), topk_work(qm, dw, kw)))
+    for q, k in ((qs, kw), (qs, 16384), (qs, 65536), (qs[:1], kw)):
+        _wide_times(torch, f"retrieval_topk_select 1M-doc shard Nq"
+                    f"{q.shape[0]} k{k}", card,
+                    lambda: ops.retrieval_topk(q, ds, k),
+                    lambda: ref.topk_ref(q, ds, k),
+                    lambda: torch.topk(q @ ds.T, k), topk_work(q, ds, k))
+    # the select kernel forced at the list kernel's k, beside it: where
+    # the route boundary could go
+    times = []
+    for k in (256, 1024, 4096, limit):
+        s0, i0 = ops.retrieval_topk(qs, ds, k)
+        s1, i1 = forced(qs, ds, k)
+        torch.cuda.synchronize()
+        check(torch.equal(s0, s1) and torch.equal(i0, i1),
+              f"select forced at k {k} differs from the list kernel")
+        t = [bench_ms(f, reps=10) for f in (
+            lambda: ops.retrieval_topk(qs, ds, k), lambda: forced(qs, ds, k),
+            lambda: torch.topk(qs @ ds.T, k))]
+        times.append(f"k {k}: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f}")
+    log(f"  retrieval_topk 1M-doc shard Nq32, list kernel / select kernel "
+        f"forced (bitwise equal) / topk(q@d.T) ms: {'; '.join(times)} {tag}")
 
 
 def kernels_wide(torch, ops, ref, gen, ivf_main, rec, card) -> None:
@@ -2511,7 +2613,9 @@ def phase_kernels(torch, card, captured: dict, rec: dict,
     # then comes from that pass, whose one FlatIndex search is a main-path
     # call, and the IVF probe (not on the slice path) goes uncounted.
     # Without it the session also traces csrc/topk_list.cu on the shard
-    # at k 64 and 256 (its sample scan, scan and merge levels, in order).
+    # at k 64 and 256 (its sample scan, scan and merge levels, in order)
+    # and csrc/topk_select.cu at the limit + 1 and at 65536 (its scan,
+    # three histogram and pick rounds, gather, sort and merge levels).
     if traced:
         profiled = ("the profiled slice pass's main-path call", traced)
     else:
@@ -2519,12 +2623,16 @@ def phase_kernels(torch, card, captured: dict, rec: dict,
             torch, lambda: (ops.retrieval_topk(*topk_main),
                             ops.ivf_retrieval_topk(*ivf_main),
                             ops.retrieval_topk(*shard, 64),
-                            ops.retrieval_topk(*shard, 256))))
+                            ops.retrieval_topk(*shard, 256),
+                            ops.retrieval_topk(*shard,
+                                               ops.TOPK_LIST_MAX + 1),
+                            ops.retrieval_topk(*shard, 65536))))
     kernels_topk(torch, ops, ref, gen, topk_main, shard, rec, card,
                  profiled)
     kernels_ivf(torch, ops, ref, gen, ivf_main, rec, card,
                 None if traced else profiled[1])
     kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec, card)
+    kernels_topk_select(torch, ops, ref, gen, topk_main, shard, rec, card)
     kernels_wide(torch, ops, ref, gen, ivf_main, rec, card)
 
 

@@ -28,6 +28,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
     "topk": "topk.cu",
     "topk_list": "topk_list.cu",
+    "topk_select": "topk_select.cu",
     "ivf_topk": "ivf_topk.cu",
     "topk_wide": "topk_wide.cu",
 }

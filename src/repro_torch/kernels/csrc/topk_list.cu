@@ -1,6 +1,6 @@
 // Exact inner-product top-k retrieval for 32 < k <= 6176, for sm_90a: a
 // list of width k per query in shared memory.  (csrc/topk.cu keeps
-// k <= 32, csrc/topk_wide.cu a wider k.)
+// k <= 32, csrc/topk_select.cu a wider k.)
 //
 // Replaces, for those k: src/repro/kernels/topk_retrieval.py, topk_pallas
 //   (kernel body _topk_kernel), whose lax.top_k over [carried best +

@@ -1,36 +1,34 @@
-// Top-k retrieval for any k, for sm_90a: the k > 32 route of both
-// retrieval functions (csrc/topk.cu and csrc/ivf_topk.cu keep k <= 32).
+// IVF probe top-k for k > 32, for sm_90a (csrc/ivf_topk.cu keeps
+// k <= 32; the exact top-k's wider routes are csrc/topk_list.cu and
+// csrc/topk_select.cu).
 //
-// Replaces, for k > 32: src/repro/kernels/topk_retrieval.py, topk_pallas
-//   (kernel body _topk_kernel) and ivf_topk_pallas (_ivf_topk_kernel),
-//   whose lax.top_k over [carried best + tile] serves any k.
+// Replaces, for k > 32: src/repro/kernels/topk_retrieval.py,
+//   ivf_topk_pallas (kernel body _ivf_topk_kernel), whose lax.top_k over
+//   [carried best + tile] serves any k.
 //
-// retrieval_topk_wide: queries [Nq, D] x docs [Nd, D] (f32) -> scores
-//   [Nq, k] f32 and doc ids [Nq, k] int32, ordered by (score desc, id
-//   asc).
 // ivf_retrieval_topk_wide: queries [Nq, D] x list_emb [n_lists, L, D] f32
 //   with list_ids [n_lists, L] int32 (-1 = padding) and probe_ids [Nq,
 //   nprobe] int32 -> the top-k of the concatenation of each query's
 //   probed lists in probe order, ordered by (score desc, probe rank asc,
 //   slot asc); a probe id outside [0, n_lists) probes an empty list.
-// Both: when fewer than k candidates exist the tail is (-1e30, -1); any
-//   k >= 1, Nq, Nd, D.  The contract of the narrow kernels, exactly.
+//   When fewer than k candidates exist the tail is (-1e30, -1); any
+//   k >= 1, Nq, n_lists, L, D.  The contract of csrc/ivf_topk.cu, exactly.
 //
-// Bound: memory at the serving path's few queries: the docs (or the
-//   probed lists' live rows) read once, 2 flops per 4 bytes per query.
-//   This design reads them once per query instead, and is far from that
-//   bound: it is the simple, right version (PERF.md has its times).
+// Bound: memory at the serving path's few queries: the probed lists'
+//   live rows read once, 2 flops per 4 bytes per query.  This design
+//   reads them once per query instead, and is far from that bound: it is
+//   the simple, right version (PERF.md has its times).
 //
 // Design: one launch, one block of 256 threads per query.
-//  - Candidates are numbered c = 0, 1, ... (a doc id; for IVF c = p * L +
-//    slot), and c is the key that breaks score ties: keys are unique, so
-//    (score, key) is a total order and every step below is exact.
+//  - Candidates are numbered c = p * L + slot, and c is the key that
+//    breaks score ties: keys are unique, so (score, key) is a total order
+//    and every step below is exact.
 //  - The block walks its candidates in tiles of kT = 1024.  Each thread
 //    scores 4 candidates, each (query, candidate) score one fmaf chain
-//    over d = 0, 1, ..., D-1 from 0, the chain the narrow kernels use, so
-//    the scores are bitwise equal to theirs.  A candidate that does not
-//    exist (past the end, a padding slot, a probe outside the lists)
-//    scores -inf and keeps its unique key.
+//    over d = 0, 1, ..., D-1 from 0, the chain the narrow kernel uses, so
+//    the scores are bitwise equal to its.  A candidate that does not
+//    exist (a padding slot, a probe outside the lists) scores -inf and
+//    keeps its unique key.
 //  - The tile is bitonic-sorted best first in shared memory.
 //  - The carried best k lives in a global double buffer [2, Nq, k] that
 //    the wrapper allocates, so k has no upper limit; it starts as k
@@ -42,7 +40,7 @@
 //    entries that rank before it; positions below k are written to the
 //    other buffer, which then becomes the carried list.
 //  - At the end an entry of score -inf becomes (-1e30, -1); any other
-//    key becomes its doc id (IVF: list_ids[probe_ids[q, p], slot]).
+//    key becomes its doc id, list_ids[probe_ids[q, p], slot].
 // No atomics; two calls on the same inputs are bitwise equal.
 
 #include <limits.h>
@@ -80,7 +78,6 @@ __device__ __forceinline__ int rank_in(const float* xs, const int* xi, int n,
   return lo;
 }
 
-template <bool kIvf>
 __global__ void __launch_bounds__(kThreads)
     topk_wide_kernel(const float* __restrict__ queries,
                      const float* __restrict__ emb,
@@ -103,8 +100,7 @@ __global__ void __launch_bounds__(kThreads)
     ci[j] = INT_MIN + j;
   }
   const float* qrow = queries + static_cast<size_t>(blockIdx.x) * D;
-  const int* prow =
-      kIvf ? probe_ids + static_cast<size_t>(blockIdx.x) * nprobe : nullptr;
+  const int* prow = probe_ids + static_cast<size_t>(blockIdx.x) * nprobe;
   const int m = min(kT, k);            // tile entries that can enter
 
   for (int base = 0; base < n_cand; base += kT) {
@@ -117,17 +113,12 @@ __global__ void __launch_bounds__(kThreads)
       live[r] = c < n_cand;
       row[r] = qrow;   // a readable row for a candidate that does not exist
       if (!live[r]) continue;
-      if (kIvf) {
-        const int p = c / L;
-        const int slot = c - p * L;
-        const int pid = __ldg(prow + p);
-        live[r] = pid >= 0 && pid < n_lists &&
-                  __ldg(list_ids + static_cast<size_t>(pid) * L + slot) >= 0;
-        if (live[r])
-          row[r] = emb + (static_cast<size_t>(pid) * L + slot) * D;
-      } else {
-        row[r] = emb + static_cast<size_t>(c) * D;
-      }
+      const int p = c / L;
+      const int slot = c - p * L;
+      const int pid = __ldg(prow + p);
+      live[r] = pid >= 0 && pid < n_lists &&
+                __ldg(list_ids + static_cast<size_t>(pid) * L + slot) >= 0;
+      if (live[r]) row[r] = emb + (static_cast<size_t>(pid) * L + slot) * D;
     }
     float acc[kPer];
 #pragma unroll
@@ -196,13 +187,9 @@ __global__ void __launch_bounds__(kThreads)
     const int key = ci[j];
     int id = -1;
     if (s != -INFINITY) {
-      if (kIvf) {
-        const int p = key / L;
-        const int slot = key - p * L;
-        id = __ldg(list_ids + static_cast<size_t>(__ldg(prow + p)) * L + slot);
-      } else {
-        id = key;
-      }
+      const int p = key / L;
+      const int slot = key - p * L;
+      id = __ldg(list_ids + static_cast<size_t>(__ldg(prow + p)) * L + slot);
     }
     out_s[qk + j] = id < 0 ? rt::kNegInf : s;
     out_i[qk + j] = id;
@@ -213,19 +200,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // buf_s / buf_i: [2, Nq, k] scratch of the carried lists.  Returns a
 // cudaError_t.
-extern "C" int retrieval_topk_wide(const void* queries, const void* docs,
-                                   void* buf_s, void* buf_i, void* out_s,
-                                   void* out_i, int Nq, int Nd, int D, int k,
-                                   void* stream) {
-  if (Nq < 1 || Nd < 0 || D < 1 || k < 1 || Nd > INT_MAX - kT)
-    return static_cast<int>(cudaErrorInvalidValue);
-  topk_wide_kernel<false><<<Nq, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(docs),
-      nullptr, nullptr, static_cast<float*>(buf_s), static_cast<int*>(buf_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), Nd, 0, 1, D, 0, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int ivf_retrieval_topk_wide(const void* queries,
                                        const void* list_emb,
                                        const void* list_ids,
@@ -236,7 +210,7 @@ extern "C" int ivf_retrieval_topk_wide(const void* queries,
   if (Nq < 1 || n_lists < 1 || L < 1 || D < 1 || nprobe < 1 || k < 1 ||
       static_cast<long long>(nprobe) * L > INT_MAX - kT)
     return static_cast<int>(cudaErrorInvalidValue);
-  topk_wide_kernel<true><<<Nq, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  topk_wide_kernel<<<Nq, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(queries), static_cast<const float*>(list_emb),
       static_cast<const int*>(list_ids), static_cast<const int*>(probe_ids),
       static_cast<float*>(buf_s), static_cast<int*>(buf_i),

@@ -23,7 +23,7 @@ launches: Dict[str, int] = {"paged_decode_attention": 0,
                             "retrieval_topk": 0,
                             "ivf_retrieval_topk": 0,
                             "retrieval_topk_list": 0,
-                            "retrieval_topk_wide": 0,
+                            "retrieval_topk_select": 0,
                             "ivf_retrieval_topk_wide": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
@@ -36,7 +36,7 @@ _SIGNATURES = {
     ("topk", "retrieval_topk"): [_VP] * 6 + [_I] * 6 + [_VP],
     ("ivf_topk", "ivf_retrieval_topk"): [_VP] * 8 + [_I] * 9 + [_VP],
     ("topk_list", "retrieval_topk_list"): [_VP] * 8 + [_I] * 8 + [_VP],
-    ("topk_wide", "retrieval_topk_wide"): [_VP] * 6 + [_I] * 4 + [_VP],
+    ("topk_select", "retrieval_topk_select"): [_VP] * 7 + [_I] * 9 + [_VP],
     ("topk_wide", "ivf_retrieval_topk_wide"): [_VP] * 8 + [_I] * 6 + [_VP],
 }
 _FNS: Dict[str, object] = {}   # entry point name -> ctypes function
@@ -236,7 +236,7 @@ def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
     lower id, and slots beyond Nd are (-1e30, -1).  On CUDA the width
     picks the kernel (``topk_route``): ``csrc/topk.cu`` up to
     ``TOPK_NARROW_MAX``, ``csrc/topk_list.cu`` up to ``TOPK_LIST_MAX``,
-    ``csrc/topk_wide.cu`` above."""
+    ``csrc/topk_select.cu`` above."""
     _require(k >= 1, f"k={k} must be at least 1")
     if _on_cpu(queries, docs):
         return ref.topk_ref(queries, docs, k)
@@ -245,10 +245,13 @@ def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
     if Nq == 0:
         return _fill(0, k, queries.device)
     route = topk_route(k)
-    if route == "retrieval_topk_wide":
-        return _topk_wide_launch(queries, docs, k)
     sms = torch.cuda.get_device_properties(queries.device
                                            ).multi_processor_count
+    if route == "retrieval_topk_select":
+        chunk_q, _, n_splits, per, n_sel, sel_per = \
+            retrieval_topk_select_plan(Nq, Nd, k, sms)
+        return _topk_select_launch(queries, docs, k, chunk_q, n_splits, per,
+                                   n_sel, sel_per)
     if route == "retrieval_topk_list":
         return _topk_list_launch(queries, docs, k,
                                  *retrieval_topk_wide_plan(Nq, Nd, k, sms))
@@ -454,13 +457,13 @@ def topk_route(k: int) -> str:
     """The entry point, and ``launches`` name, a CUDA exact top-k of
     width ``k`` runs: ``retrieval_topk`` (``csrc/topk.cu``) up to
     ``TOPK_NARROW_MAX``, ``retrieval_topk_list`` (``csrc/topk_list.cu``)
-    up to ``TOPK_LIST_MAX``, ``retrieval_topk_wide``
-    (``csrc/topk_wide.cu``) above."""
+    up to ``TOPK_LIST_MAX``, ``retrieval_topk_select``
+    (``csrc/topk_select.cu``) above."""
     if k <= TOPK_NARROW_MAX:
         return "retrieval_topk"
     if k <= TOPK_LIST_MAX:
         return "retrieval_topk_list"
-    return "retrieval_topk_wide"
+    return "retrieval_topk_select"
 
 
 TOPK_CHUNK = 32       # dims per ring chunk (csrc/topk_core.cuh kKC)
@@ -563,20 +566,6 @@ def _topk_list_launch(queries, docs, k: int, group: int, groups: int,
     return out_s, out_i
 
 
-def _topk_wide_launch(queries, docs, k: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/topk_wide.cu``'s exact top-k on checked CUDA inputs:
-    one block per query walks the docs in tiles of ``WIDE_TILE``."""
-    Nq, D = queries.shape
-    out_s, out_i, buf_s, buf_i = _wide_buffers(Nq, k, queries.device)
-    rc = _fn("topk_wide", "retrieval_topk_wide")(
-        _ptr(queries), _ptr(docs), _ptr(buf_s), _ptr(buf_i), _ptr(out_s),
-        _ptr(out_i), Nq, docs.shape[0], D, k, _stream(queries))
-    _check_rc(rc, "retrieval_topk_wide")
-    launches["retrieval_topk_wide"] += 1
-    return out_s, out_i
-
-
 def _ivf_wide_launch(queries, list_emb, list_ids, probe_ids, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/topk_wide.cu``'s IVF probe on checked CUDA inputs:
@@ -600,3 +589,85 @@ def _wide_buffers(Nq: int, k: int, dev):
             torch.empty((Nq, k), dtype=torch.int32, device=dev),
             torch.empty((2, Nq, k), dtype=torch.float32, device=dev),
             torch.empty((2, Nq, k), dtype=torch.int32, device=dev))
+
+
+SELECT_BYTES = 1 << 30   # scratch of one csrc/topk_select.cu call, at most
+SELECT_BINS = 2048       # the widest radix digit's bins (topk_select.cu kBins)
+SELECT_STATE = 4         # ints of per-query state (kState)
+SELECT_MAX_CHUNKS = 32   # select chunks a query is cut into, at most
+SELECT_MIN_CHUNK = 4096  # docs a select chunk holds, at least (but Nd)
+# tests/test_torch_topk_select.py holds these and topk_select_scratch to
+# csrc/topk_select.cu's own constants and work_ints.
+
+
+def topk_select_scratch(chunk_q: int, Nd: int, k: int, n_sel: int
+                        ) -> Tuple[int, int, int]:
+    """Scratch of ``csrc/topk_select.cu`` for a chunk of ``chunk_q``
+    queries: (score floats, work ints, candidate entries of 8 bytes).
+    The scores S [chunk_q, Nd rounded up to 4]; per query each of its
+    ``n_sel`` select chunks' histogram (``SELECT_BINS`` counts) and two
+    counts, and the query's state; per query two buffers of min(k, Nd)
+    candidates (the sort's runs and the merge's output)."""
+    ld = -(-Nd // 4) * 4
+    return (chunk_q * ld,
+            chunk_q * (n_sel * (SELECT_BINS + 2) + SELECT_STATE),
+            2 * chunk_q * min(k, Nd))
+
+
+def topk_select_bytes(chunk_q: int, Nd: int, k: int, n_sel: int) -> int:
+    n_s, n_w, n_c = topk_select_scratch(chunk_q, Nd, k, n_sel)
+    return 4 * n_s + 4 * n_w + 8 * n_c
+
+
+def retrieval_topk_select_plan(Nq: int, Nd: int, k: int, sms: int
+                               ) -> Tuple[int, int, int, int, int, int]:
+    """How ``csrc/topk_select.cu`` cuts a top-k of width ``k`` (above
+    ``TOPK_LIST_MAX``): (queries per chunk, query chunks, doc splits of
+    the scan, docs per split, select chunks, docs per select chunk).
+
+    The queries run in chunks whose scratch (``topk_select_scratch``)
+    stays within ``SELECT_BYTES``: all Nq when they fit, else as many as
+    fit, a multiple of ``TOPK_GROUP`` when that is one or more (whole scan
+    groups), at least
+    one (a single query over more docs than the limit holds takes what it
+    needs) and at most 65535 (a grid dimension).  In a chunk the scan's
+    grid is (query group, doc split) of ``retrieval_topk_plan``, so each
+    doc row is read once per group.  The select passes cut each query's
+    docs into chunks of a multiple of 4 docs, enough for about four
+    blocks per SM over the ``sms`` SMs, but at most
+    ``SELECT_MAX_CHUNKS`` (one block a query sums their histograms) and
+    each at least ``SELECT_MIN_CHUNK`` docs.  Splits and select chunks
+    each cover [0, Nd) without overlap."""
+    per_q = topk_select_bytes(1, Nd, k, SELECT_MAX_CHUNKS)
+    chunk_q = max(1, min(Nq, 65535, SELECT_BYTES // per_q))
+    if TOPK_GROUP <= chunk_q < Nq:
+        chunk_q -= chunk_q % TOPK_GROUP
+    _, n_splits, per = retrieval_topk_plan(chunk_q, Nd, sms)
+    n_sel = max(1, min(SELECT_MAX_CHUNKS, -(-4 * sms // chunk_q),
+                       Nd // SELECT_MIN_CHUNK))
+    sel_per = max(4, -(-(-(-Nd // n_sel)) // 4) * 4)
+    return (chunk_q, -(-Nq // chunk_q), n_splits, per,
+            max(1, -(-Nd // sel_per)), sel_per)
+
+
+def _topk_select_launch(queries, docs, k: int, chunk_q: int, n_splits: int,
+                        per: int, n_sel: int, sel_per: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/topk_select.cu`` (per chunk of ``chunk_q`` queries:
+    the scan, three select rounds, the gather, the sort and its merge
+    levels) on checked CUDA inputs."""
+    Nq, D = queries.shape
+    Nd = docs.shape[0]
+    dev = queries.device
+    n_s, n_w, n_c = topk_select_scratch(chunk_q, Nd, k, n_sel)
+    scores = torch.empty(n_s, dtype=torch.float32, device=dev)
+    work = torch.empty(n_w, dtype=torch.int32, device=dev)
+    cand = torch.empty(n_c, dtype=torch.int64, device=dev)
+    out_s = torch.empty((Nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Nq, k), dtype=torch.int32, device=dev)
+    rc = _fn("topk_select", "retrieval_topk_select")(
+        *map(_ptr, (queries, docs, scores, work, cand, out_s, out_i)), Nq,
+        Nd, D, k, chunk_q, per, n_splits, n_sel, sel_per, _stream(queries))
+    _check_rc(rc, "retrieval_topk_select")
+    launches["retrieval_topk_select"] += 1
+    return out_s, out_i

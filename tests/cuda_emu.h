@@ -9,10 +9,12 @@
 // tests/test_torch_topk_wide.py and tests/test_torch_topk_wide_plan.py
 // to run csrc/topk_wide.cu and csrc/topk_list.cu as written; it checks a
 // kernel's logic (ranks, merges, barriers, warp exchanges), not its speed
-// or what nvcc makes of it.
+// or what nvcc makes of it.  Also used by tests/test_torch_topk_select.py
+// (csrc/topk_select.cu: shared-memory atomics, block-wide votes, scans).
 #pragma once
 #include <algorithm>
 #include <array>
+#include <atomic>
 #include <barrier>
 #include <climits>
 #include <cmath>
@@ -31,6 +33,7 @@
 #define __launch_bounds__(x)
 #define __restrict__
 #define __noinline__ __attribute__((noinline))
+#define __align__(n) alignas(n)
 
 struct dim3 {
   unsigned x, y, z;
@@ -39,6 +42,9 @@ struct dim3 {
 };
 struct alignas(16) float4 {
   float x, y, z, w;
+};
+struct alignas(16) int4 {
+  int x, y, z, w;
 };
 inline thread_local dim3 threadIdx{0, 0, 0};
 inline dim3 blockIdx{0, 0, 0}, gridDim{1, 1, 1};
@@ -71,6 +77,11 @@ template <typename T>
 T __shfl_sync(unsigned, T v, int src_lane) {
   return emu_exchange(v, src_lane);
 }
+template <typename T>
+T __shfl_up_sync(unsigned, T v, int delta) {
+  const int lane = static_cast<int>(threadIdx.x % 32);
+  return emu_exchange(v, lane >= delta ? lane - delta : lane);
+}
 inline unsigned __ballot_sync(unsigned, bool pred) {
   auto& slots = emu_warp_slots[threadIdx.x / 32];
   slots[threadIdx.x % 32] = pred;
@@ -80,6 +91,28 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
     if (slots[l]) m |= 1u << l;
   __syncwarp();
   return m;
+}
+// 1 if pred is non-zero in any thread of the block, in every thread
+inline std::atomic<int> emu_vote{0};
+inline int __syncthreads_or(int pred) {
+  __syncthreads();   // every thread has read the last vote
+  if (threadIdx.x == 0) emu_vote = 0;
+  __syncthreads();
+  if (pred) emu_vote = 1;
+  __syncthreads();
+  return emu_vote.load();
+}
+// the card's atomics are device-wide; a block's threads are std::threads
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline int __any_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) != 0;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) {

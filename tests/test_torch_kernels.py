@@ -188,7 +188,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
                             "flash_attention": 0, "retrieval_topk": 0,
                             "ivf_retrieval_topk": 0,
                             "retrieval_topk_list": 0,
-                            "retrieval_topk_wide": 0,
+                            "retrieval_topk_select": 0,
                             "ivf_retrieval_topk_wide": 0}
 
 

@@ -1,7 +1,9 @@
-"""Top-k for any k >= 1: the k > 32 routes of both retrieval wrappers
-(``csrc/topk_wide.cu`` on CUDA; for the exact function up to
-``ops.TOPK_LIST_MAX`` ``csrc/topk_list.cu``, whose own tests are in
-``tests/test_torch_topk_wide_plan.py``), on the CPU.
+"""Top-k for any k >= 1: the k > 32 routes of both retrieval wrappers, on
+the CPU.  On CUDA the IVF probe's is ``csrc/topk_wide.cu``; the exact
+function's are ``csrc/topk_list.cu`` up to ``ops.TOPK_LIST_MAX`` and
+``csrc/topk_select.cu`` above, whose own tests are in
+``tests/test_torch_topk_wide_plan.py`` and
+``tests/test_torch_topk_select.py``.
 
 - The CPU wrappers at k 33, 64 and above the candidates against the
   reference's Pallas kernels in interpret mode (``topk_pallas``,
@@ -12,9 +14,9 @@
 - The kernel's algorithm (tiles of candidates keyed by doc id or by
   probe rank * L + slot, each sorted best first and merged with the
   carried list by ranks) emulated in torch at small tiles.
-- ``csrc/topk_wide.cu`` itself, compiled with g++ against
-  ``tests/cuda_emu.h`` (threads and a barrier for a block), which runs
-  its ranks, merges and barriers as written.
+- ``csrc/topk_wide.cu`` itself (the IVF probe), compiled with g++
+  against ``tests/cuda_emu.h`` (threads and a barrier for a block), which
+  runs its ranks, merges and barriers as written.
 
 Tolerance: scores within 1e-5 absolute (the same f32 dot products summed
 in another order); ids equal, except where the plain scores of two slots
@@ -75,14 +77,14 @@ def test_route_choice():
     assert [ops.wide_route(k) for k in (1, 5, 31, 32)] == [False] * 4
     assert [ops.wide_route(k) for k in (33, 64, 257, 10 ** 6)] == [True] * 4
     # the exact function has a third route: csrc/topk_list.cu between the
-    # narrow kernel and csrc/topk_wide.cu
+    # narrow kernel and csrc/topk_select.cu
     limit = ops.TOPK_LIST_MAX
     assert [ops.topk_route(k) for k in (1, 5, 31, 32)] == \
         ["retrieval_topk"] * 4
     assert [ops.topk_route(k) for k in (33, 64, 257, limit)] == \
         ["retrieval_topk_list"] * 4
     assert [ops.topk_route(k) for k in (limit + 1, 10 ** 6)] == \
-        ["retrieval_topk_wide"] * 2
+        ["retrieval_topk_select"] * 2
 
 
 @pytest.mark.parametrize("k", [0, -1])
@@ -98,15 +100,15 @@ def test_k_below_one_raises(fn, k):
 
 def test_launch_counts_name_each_route():
     assert {"retrieval_topk", "ivf_retrieval_topk", "retrieval_topk_list",
-            "retrieval_topk_wide", "ivf_retrieval_topk_wide"} <= \
+            "retrieval_topk_select", "ivf_retrieval_topk_wide"} <= \
         set(ops.launches)
-    ops.launches["retrieval_topk_wide"] = 3
+    ops.launches["retrieval_topk_select"] = 3
     ops.launches["retrieval_topk_list"] = 4
     ops.launches["ivf_retrieval_topk"] = 2
     ops.reset_launches()
     assert set(ops.launches.values()) == {0}
     assert ("topk_list", "retrieval_topk_list") in ops._SIGNATURES
-    assert ("topk_wide", "retrieval_topk_wide") in ops._SIGNATURES
+    assert ("topk_select", "retrieval_topk_select") in ops._SIGNATURES
     assert ("topk_wide", "ivf_retrieval_topk_wide") in ops._SIGNATURES
     assert build.SOURCES["topk_list"] == "topk_list.cu"
     assert build.SOURCES["topk_wide"] == "topk_wide.cu"
@@ -259,16 +261,17 @@ def test_merge_emulation_matches_plain_ivf(tile):
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """csrc/topk_wide.cu compiled with g++ against tests/cuda_emu.h."""
+    """csrc/topk_wide.cu (the IVF probe) compiled with g++ against
+    tests/cuda_emu.h."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the CUDA source cannot be "
                     "emulated on the CPU")
     src = (build.CSRC / "topk_wide.cu").read_text()
     src = src.replace('#include "common.cuh"', '#include "cuda_emu.h"')
-    src, n = re.subn(r"(topk_wide_kernel<\w+>)<<<([^,]+),\s*([^,]+),.*?>>>\(",
+    src, n = re.subn(r"(topk_wide_kernel)<<<([^,]+),\s*([^,]+),.*?>>>\(",
                      r"emu_launch(\2, \3, \1, ", src)
-    assert n == 2
+    assert n == 1
     tmp = tmp_path_factory.mktemp("topk_wide_emu")
     (tmp / "emu.cpp").write_text(src)
     lib = tmp / "libemu.so"
@@ -277,21 +280,10 @@ def emulated(tmp_path_factory):
                     f"-I{here}", "-o", str(lib), str(tmp / "emu.cpp")],
                    check=True, capture_output=True, timeout=300)
     so = ctypes.CDLL(str(lib))
-    for name in ("retrieval_topk_wide", "ivf_retrieval_topk_wide"):
-        fn = getattr(so, name)
-        fn.argtypes = ops._SIGNATURES[("topk_wide", name)]
-        fn.restype = ctypes.c_int
+    so.ivf_retrieval_topk_wide.argtypes = ops._SIGNATURES[
+        ("topk_wide", "ivf_retrieval_topk_wide")]
+    so.ivf_retrieval_topk_wide.restype = ctypes.c_int
     return so
-
-
-def _run_exact(so, q, d, k):
-    q, d = torch.from_numpy(q), torch.from_numpy(d)
-    out_s, out_i, buf_s, buf_i = ops._wide_buffers(q.shape[0], k, "cpu")
-    rc = so.retrieval_topk_wide(*map(ops._ptr, (q, d, buf_s, buf_i, out_s,
-                                                out_i)),
-                                q.shape[0], d.shape[0], q.shape[1], k, None)
-    assert rc == 0
-    return out_s.numpy(), out_i.numpy()
 
 
 def _run_ivf(so, q, emb, ids, probe, k):
@@ -302,27 +294,6 @@ def _run_ivf(so, q, emb, ids, probe, k):
         emb.shape[0], emb.shape[1], q.shape[1], probe.shape[1], k, None)
     assert rc == 0
     return out_s.numpy(), out_i.numpy()
-
-
-@pytest.mark.parametrize("Nq,Nd,D,k", [
-    (3, 50, 16, 40), (2, 2500, 8, 64), (2, 2300, 4, 1500), (1, 700, 4, 1000),
-    (1, 0, 4, 35),
-], ids=["k>Nd", "3 tiles k64", "k>tile", "k>Nd>tile", "Nd 0"])
-def test_cuda_source_emulated_matches_plain_exact(emulated, Nq, Nd, D, k):
-    rng = np.random.default_rng(Nd)
-    q, d = _unit(rng, Nq, D), _unit(rng, max(Nd, 1), D)[:Nd]
-    if Nd > 1100:
-        for j in (1023, 1024, Nd - 1):       # ties across tiles
-            d[j] = d[3]
-        q[0] = 2.0 * d[3]
-    s, i = _run_exact(emulated, q, d, k)
-    s_r, i_r = (t.numpy() for t in ref.topk_ref(torch.from_numpy(q),
-                                                torch.from_numpy(d), k))
-    np.testing.assert_allclose(s, s_r, rtol=0, atol=TOL)
-    assert _ids_agree(s_r, i, i_r)
-    if Nd > 1100:
-        assert list(i[0, :4]) == [3, 1023, 1024, Nd - 1]
-    assert (i[:, Nd:] == -1).all()
 
 
 @pytest.mark.parametrize("k", [33, 300, 2100])

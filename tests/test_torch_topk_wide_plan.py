@@ -140,13 +140,13 @@ def test_wide_plan_main_path_is_one_block_and_1m_docs_fill_the_card():
 
 def test_route_boundaries():
     """k 32 is the narrow kernel's, 33 .. TOPK_LIST_MAX the list kernel's
-    and above it csrc/topk_wide.cu's; the limit is the widest list whose
+    and above it csrc/topk_select.cu's; the limit is the widest list whose
     block fits shared memory at the smallest group, 4."""
     assert [ops.topk_route(k) for k in (1, 31, 32)] == ["retrieval_topk"] * 3
     assert [ops.topk_route(k) for k in (33, 64, 256, 1024, LIMIT)] == \
         ["retrieval_topk_list"] * 5
     assert [ops.topk_route(k) for k in (LIMIT + 1, 10 ** 6)] == \
-        ["retrieval_topk_wide"] * 2
+        ["retrieval_topk_select"] * 2
     assert ops.topk_list_smem(4, LIMIT) <= ops.SMEM_BLOCK
     assert ops.topk_list_smem(4, LIMIT + 1) > ops.SMEM_BLOCK
     assert LIMIT >= 1024
@@ -154,7 +154,7 @@ def test_route_boundaries():
     assert 2 * (ops.SMEM_TWO_BLOCKS + 1024) <= 228 * 1024
     assert ops.topk_list_smem(32, 64) == 65_536
     for route in ("retrieval_topk", "retrieval_topk_list",
-                  "retrieval_topk_wide"):
+                  "retrieval_topk_select"):
         assert route in ops.launches
 
 
