@@ -73,26 +73,35 @@ Phases, in order:
            pointer) and on a trained 1M-doc shard (Nq 32 at k 5 and 32,
            Nq 1; forced split counts; a gathering and a dense masked
            yardstick), with two calls bitwise equal and the scan and
-           merge kernels of one main-path call counted, and the k > 32
-           IVF route (csrc/topk_wide.cu) timed on the same shard at Nq 32,
-           k 64; the exact top-k above k 32 (csrc/topk_list.cu up to
-           ops.TOPK_LIST_MAX, csrc/topk_select.cu above): the route of
-           each k by launch counts, k 33, 64, 256, 1024, the limit and
-           one above it, ties across tiles and splits (at forced split
-           counts, group sizes and merge depths) and, above the limit, at
-           the k-th score (integer data), D 30, Nq 1, an unaligned
-           pointer and the 1M-doc shard (Nq 32 at k 64 and 256, Nq 1 at
-           k 64; other group sizes timed beside; csrc/topk_select.cu at
-           k 6177, 16384 and 65536, Nq 1, and forced at k 256 .. the
-           limit beside the list kernel), the limit + 1's first 6176
-           bitwise equal to the list kernel's k 6176 and first 32 to the
-           narrow k 32, and its device kernels split by torch.profiler
-           (with k 65536); the IVF k > 32
-           route at k 33, 64, 257 and above the candidates, with IVF
-           padding, a list probed twice and probe ids outside the
-           lists; k 64's first 32
-           bitwise equal to the narrow k 32; two calls bitwise equal;
-           times at k 64 on the main-path inputs
+           merge kernels of one main-path call counted; the exact top-k
+           above k 32 and its route on (Nq, Nd, k) (csrc/topk_list.cu for
+           small corpora and single queries at small k,
+           csrc/topk_select.cu the rest): the route of each shape by launch
+           counts; the list kernel forced at k 33, 64, 256, 1024, above Nd
+           and the limit, ties across tiles and splits (at forced split
+           counts, groups 4 and 8 and merge depths), D 30, Nq 1, an
+           unaligned pointer, the 1M-doc shard at Nq 1 (its route) and
+           Nq 32 (forced, groups 8 and 4, beside the route's kernel);
+           csrc/topk_select.cu at k 6177 over 8192 docs, at the k-th
+           score (integer data), D 30, an unaligned pointer and the 1M-doc
+           shard (Nq 32 at k 6177, 16384 and 65536, Nq 1), the limit + 1's
+           first 6176 bitwise equal to the list kernel's k 6176 and first
+           32 to the narrow k 32; the grid of both kernels forced at k 64
+           .. 6176, Nq 1 / 8 / 32 and Nd 240 / 8192 / 1M beside the routed
+           call and topk(q @ d.T) (kernels_topk_grid, also written to
+           build/topk_grid.json); the IVF probe's route from k 16
+           (csrc/ivf_select.cu) at k 33, 64, 257 and above the candidates
+           on the main-path inputs and at k 33 .. 5000 over 4500
+           candidates a query, with IVF padding, -1 slots inside a list, a
+           list probed twice, one doc in two lists (tied by probe rank)
+           and probe ids outside the lists, and on the 1M-doc IVF shard
+           (Nq 32 and 1, k 64 and 6177); k 64's first 32 bitwise equal to
+           the narrow k 32; two calls bitwise equal; times at k 64 on the
+           main-path inputs and the shard beside the dense masked call,
+           the grid of the route at k 33 .. 6177 beside it and the select
+           route forced at k 3 .. 32 beside csrc/ivf_topk.cu
+           (kernels_ivf_grid); the device kernels of the select routes
+           under torch.profiler
   parity   the same slice at the olmo-1b smoke config (f32), and the
            two-node cluster with two olmo-1b nodes and with olmo-1b +
            xlstm-350m, on the card and on the CPU from the same weights:
@@ -153,8 +162,8 @@ KERNEL_META = {
     "retrieval_topk_select": (
         "src/repro_torch/kernels/csrc/topk_select.cu",
         "src/repro/kernels/topk_retrieval.py:72"),
-    "ivf_retrieval_topk_wide": (
-        "src/repro_torch/kernels/csrc/topk_wide.cu",
+    "ivf_retrieval_topk_select": (
+        "src/repro_torch/kernels/csrc/ivf_select.cu",
         "src/repro/kernels/topk_retrieval.py:143"),
 }
 TOPK_KERNEL = re.compile(r"\btopk_(scan|merge)_kernel\b")
@@ -428,7 +437,8 @@ def phase_build() -> None:
     for lib, scan in (("topk", "topk_scan_kernel"),
                       ("ivf_topk", "ivf_scan_kernel"),
                       ("topk_list", "topk_list_scan_kernel"),
-                      ("topk_select", "select_scan_kernel")):
+                      ("topk_select", "select_scan_kernel"),
+                      ("ivf_select", "ivf_write_kernel")):
         ops_of, fn = {}, None
         for line in build.sass(lib).splitlines():
             if "Function :" in line:
@@ -1589,8 +1599,10 @@ def kernels_flash(torch, F, ops, ref, gen, main, rec, card) -> None:
     _flash_times(torch, F, ops, ref, big, {}, "Sq256 after 1792 keys", card)
 
 
-def _topk_check(torch, ops, ref, q, d, k, name, tol=1e-5):
-    s, i = ops.retrieval_topk(q, d, k)
+def _topk_check(torch, ops, ref, q, d, k, name, tol=1e-5, fn=None):
+    """``fn`` (q, d, k) in place of the routed ops.retrieval_topk: a
+    kernel forced at its plan."""
+    s, i = (fn or ops.retrieval_topk)(q, d, k)
     s2, i2 = ref.topk_ref(q, d, k)
     torch.cuda.synchronize()
     err = max_err(s, s2)
@@ -1616,9 +1628,9 @@ def _topk_times(torch, ops, ref, q, d, k, label, card):
     return t_k, t_p, t_l, bnd, by
 
 
-def _topk_same_twice(torch, ops, q, d, k, label) -> None:
-    (s1, i1), (s2, i2) = ops.retrieval_topk(q, d, k), \
-        ops.retrieval_topk(q, d, k)
+def _topk_same_twice(torch, ops, q, d, k, label, fn=None) -> None:
+    fn = fn or ops.retrieval_topk
+    (s1, i1), (s2, i2) = fn(q, d, k), fn(q, d, k)
     torch.cuda.synchronize()
     check(torch.equal(s1, s2) and torch.equal(i1, i2),
           f"retrieval_topk {label}: two calls on the same inputs differ")
@@ -1881,6 +1893,33 @@ def _ivf_check(torch, ops, ref, q, emb, ids, probe, k, name, tol=1e-5,
     return s, i, err
 
 
+def _ivf_narrow_plan(q, ids, probe):
+    """csrc/ivf_topk.cu's plan (ops.ivf_retrieval_topk_plan) for these
+    inputs."""
+    import torch
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ops.ivf_retrieval_topk_plan(q.shape[0], probe.shape[1],
+                                       *ids.shape, sms)
+
+
+def _ivf_narrow(q, emb, ids, probe, k):
+    """csrc/ivf_topk.cu at its plan, whatever the route (k <= 32)."""
+    from repro_torch.kernels import ops
+    return ops._ivf_launch(q, emb, ids, probe, k,
+                           *_ivf_narrow_plan(q, ids, probe))
+
+
+def _ivf_select_forced(q, emb, ids, probe, k):
+    """csrc/ivf_select.cu at its plan, whatever the route."""
+    import torch
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk_q, _, *cut = ops.ivf_retrieval_topk_select_plan(
+        q.shape[0], probe.shape[1], *ids.shape, k, sms)
+    return ops._ivf_select_launch(q, emb, ids, probe, k, chunk_q, *cut)
+
+
 def _ivf_lists(torch, gen, sizes, L, D):
     """Unit rows, list l live in its first sizes[l] slots, unique ids."""
     n_lists = len(sizes)
@@ -2005,9 +2044,10 @@ def _ivf_cases(torch, ops, ref, gen) -> None:
     emb, ids = _ivf_lists(torch, gen, [1013, 700, 1013, 5], 1013, 64)
     _ivf_check(torch, ops, ref, unit(5, 64), emb, ids,
                probes([[0], [2], [1], [3], [0]]), 4, "nprobe 1, L 1013")
-    _ivf_check(torch, ops, ref, unit(5, 64), emb, ids,
-               probes([[3, 2, 1, 0], [0, 1, 2, 3]] * 2 + [[1, 3, 0, 2]]), 32,
-               "k 32")
+    pk = probes([[3, 2, 1, 0], [0, 1, 2, 3]] * 2 + [[1, 3, 0, 2]])
+    q5 = unit(5, 64)
+    _ivf_check(torch, ops, ref, q5, emb, ids, pk, 32, "k 32",
+               plan=_ivf_narrow_plan(q5, ids, pk))
 
     # one list twice in a query's probes: its documents count twice
     emb, ids = _ivf_lists(torch, gen, [7, 5, 6], 8, 16)
@@ -2062,9 +2102,10 @@ def _ivf_cases(torch, ops, ref, gen) -> None:
           "ivf duplicates: 1 and 4 splits differ")
 
     emb, ids = _ivf_lists(torch, gen, [5, 3, 0], 8, 30)
-    s, i, _ = _ivf_check(torch, ops, ref, unit(2, 30), emb, ids,
-                         probes([[0, 1], [1, 2]]), 32,
-                         "k 32 over 8 live rows, D 30")
+    q2, p2 = unit(2, 30), probes([[0, 1], [1, 2]])
+    s, i, _ = _ivf_check(torch, ops, ref, q2, emb, ids, p2, 32,
+                         "k 32 over 8 live rows, D 30",
+                         plan=_ivf_narrow_plan(q2, ids, p2))
     check(i[0, 8:].eq(-1).all().item() and i[1, 3:].eq(-1).all().item(),
           "ivf k 32: past the live rows must be the fill")
     emb, ids = _ivf_lists(torch, gen, [6, 4, 0], 6, 16)
@@ -2109,10 +2150,12 @@ def _ivf_times(torch, ops, ref, args, plain, label, card, chunks=None):
     return t_k, t_p, t_d, bnd, by
 
 
-def _ivf_shard(torch, ops, ref, card) -> dict:
+def _ivf_shard(torch, ops, ref, card):
     """A realistic shard: 1M docs x 256 f32, an IVFIndex trained on the
     card with the defaults (256 lists, nprobe 51); Nq 32 at k 5 and 32,
-    Nq 1 at k 5.  Returns the k 5 cases' kernel inputs by label."""
+    Nq 1 at k 5; the route from k 16 (csrc/ivf_select.cu) at Nq 32 and 1, k
+    64 and 6177.  Returns the k 5 cases' kernel inputs by label, and the
+    shard's (queries, list_emb, list_ids, probe_ids)."""
     import numpy as np
     from repro_torch.retrieval.ivf import IVFIndex
     docs, qs = _synth_shard(torch, SHARD_DOCS, 256, 32)
@@ -2152,7 +2195,7 @@ def _ivf_shard(torch, ops, ref, card) -> dict:
     cases = {"Nq32 k5": (qs, probe, 5), "Nq32 k32": (qs, probe, 32),
              "Nq1 k5": (qs[:1], probe[:1], 5)}
     for label, (q, pr, k) in cases.items():
-        s, i = ops.ivf_retrieval_topk(q, el, il, pr, k)
+        s, i = _ivf_narrow(q, el, il, pr, k)
         s2, i2 = plain_of(q, pr, k)()
         torch.cuda.synchronize()
         err = max_err(s, s2)
@@ -2205,27 +2248,51 @@ def _ivf_shard(torch, ops, ref, card) -> dict:
         log(f"  ivf_retrieval_topk 1M-doc shard {label} forced splits "
             f"(bitwise equal to the rule's {n_rule}) ms {'; '.join(times)} "
             f"{tag}")
-    # the k > 32 route (csrc/topk_wide.cu) on the same shard
-    s, i = ops.ivf_retrieval_topk(qs, el, il, probe, 64)
-    s2, i2 = plain_of(qs, probe, 64)()
+    # the route from k 16 (csrc/ivf_select.cu) on the same shard: against the
+    # plain version, two calls bitwise equal, k 64's first 32 bitwise the
+    # narrow kernel's k 32
+    before = ops.launches["ivf_retrieval_topk_select"]
+    for label, (q, pr) in (("Nq32", (qs, probe)),
+                           ("Nq1", (qs[:1], probe[:1]))):
+        for k in (64, 6177):
+            s, i = ops.ivf_retrieval_topk(q, el, il, pr, k)
+            s2, i2 = plain_of(q, pr, k)()
+            torch.cuda.synchronize()
+            err = max_err(s, s2)
+            log(f"  ivf_retrieval_topk_select [1M-doc shard {label} k{k}] "
+                f"scores max|err| {err:.3e} (tol 1e-05), ids equal "
+                f"{int((i == i2).sum())}/{i.numel()}")
+            check(err <= 1e-5 and _ids_agree(torch, s2, i, i2, 1e-5),
+                  f"ivf 1M shard {label} k {k}: the select route and the "
+                  f"plain version differ ({err})")
+    check(ops.launches["ivf_retrieval_topk_select"] == before + 4,
+          "IVF k 64 on the 1M shard did not run csrc/ivf_select.cu")
+    s64, i64 = ops.ivf_retrieval_topk(qs, el, il, probe, 64)
+    s32, i32 = _ivf_narrow(qs, el, il, probe, 32)
     torch.cuda.synchronize()
-    err = max_err(s, s2)
-    log(f"  ivf_retrieval_topk_wide [1M-doc shard Nq32 k64] scores max|err| "
-        f"{err:.3e} (tol 1e-05), ids equal {int((i == i2).sum())}/"
-        f"{i.numel()}")
-    check(err <= 1e-5 and _ids_agree(torch, s2, i, i2, 1e-5),
-          f"ivf 1M shard k 64: wide kernel and plain version differ ({err})")
-    _ivf_times(torch, ops, ref, (qs, el, il, probe, 64),
-               plain_of(qs, probe, 64),
-               "1M-doc shard Nq32 k64 (csrc/topk_wide.cu)", card,
-               chunks=chunked(qs, probe))
-    return {f"1M {label}": (q, el, il, pr, k)
-            for label, (q, pr, k) in cases.items() if k == 5}
+    check(torch.equal(i64[:, :32], i32) and torch.equal(s64[:, :32], s32),
+          "ivf 1M shard: k 64's first 32 differ from the narrow k 32")
+    log("  ivf_retrieval_topk_select [1M-doc shard] k 64's first 32 equal "
+        "the narrow kernel's k 32 (ids, scores bitwise)")
+    _ivf_same_twice(torch, ops, (qs, el, il, probe, 64), "1M-doc k 64")
+    nbytes, flops, _, _ = ivf_work(qs, el, il, probe, 64)
+    _wide_times(
+        torch, "ivf_retrieval_topk_select 1M-doc shard Nq32 k64 (kernel: "
+        "csrc/ivf_select.cu; library: dense masked topk)", card,
+        lambda: ops.ivf_retrieval_topk(qs, el, il, probe, 64),
+        plain_of(qs, probe, 64),
+        _ivf_library(torch, qs, el, il, probe, 64)[2], (nbytes, flops),
+        reps=10)
+    return ({f"1M {label}": (q, el, il, pr, k)
+             for label, (q, pr, k) in cases.items() if k == 5},
+            (qs, el, il, probe))
 
 
-def kernels_ivf(torch, ops, ref, gen, main, rec, card, traced) -> None:
+def kernels_ivf(torch, ops, ref, gen, main, rec, card, traced):
     """``traced``: names of the device kernels one main-path call ran
-    under torch.profiler, or None when no session could trace it."""
+    under torch.profiler, or None when no session could trace it.
+    Returns the 1M-doc IVF shard's (queries, list_emb, list_ids,
+    probe_ids)."""
     qm, em, im, pm, km = main
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = ops.ivf_retrieval_topk_plan(qm.shape[0], pm.shape[1],
@@ -2244,7 +2311,7 @@ def kernels_ivf(torch, ops, ref, gen, main, rec, card, traced) -> None:
             f"{len(names)} device kernel(s): {names}")
         check(len(names) == 2, f"ivf main path: {len(names)} device kernels")
     _ivf_cases(torch, ops, ref, gen)
-    shard = _ivf_shard(torch, ops, ref, card)
+    shard, ivf_shard = _ivf_shard(torch, ops, ref, card)
     if IVF_SWEEP:
         kernel_sweep(torch, ops, "ivf_topk", "ivf_retrieval_topk",
                      IVF_VARIANTS, ops.ivf_retrieval_topk,
@@ -2264,6 +2331,7 @@ def kernels_ivf(torch, ops, ref, gen, main, rec, card, traced) -> None:
     rec["ivf_retrieval_topk"] = dict(
         max_abs_err=err_main, ms=t_k, plain_ms=t_p, bound_ms=bnd,
         bound_by=by, library_ms=t_d)
+    return ivf_shard
 
 
 def _wide_times(torch, label, card, kernel, plain, library, work,
@@ -2279,6 +2347,26 @@ def _wide_times(torch, label, card, kernel, plain, library, work,
                 library_ms=t_l)
 
 
+def _list_forced(q, d, k):
+    """csrc/topk_list.cu at its plan, whatever the route."""
+    import torch
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ops._topk_list_launch(q, d, k, *ops.retrieval_topk_wide_plan(
+        q.shape[0], d.shape[0], k, sms))
+
+
+def _select_forced(q, d, k):
+    """csrc/topk_select.cu at its plan, whatever the route."""
+    import torch
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk_q, _, n_splits, per, n_sel, sel_per = \
+        ops.retrieval_topk_select_plan(q.shape[0], d.shape[0], k, sms)
+    return ops._topk_select_launch(q, d, k, chunk_q, n_splits, per, n_sel,
+                                   sel_per)
+
+
 def _topk_ties(i, s, ties, label) -> None:
     """Row 0's first ids are ``ties`` (equal rows), lowest first."""
     n = len(ties)
@@ -2288,18 +2376,19 @@ def _topk_ties(i, s, ties, label) -> None:
 
 def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
                       card) -> None:
-    """The exact top-k above k 32: csrc/topk_list.cu up to
-    ops.TOPK_LIST_MAX, csrc/topk_select.cu above.  Which kernel each k
-    launches (by the launch counts); both against the plain version at
-    k 33, 64, 256, 1024, the limit and one above it on the main-path
-    inputs and on 3000 docs (several splits and groups), and on D 30, Nq 1
-    (spread warps), an unaligned pointer; exact ties across tiles and
-    splits (at the rule's plan and at forced split counts, group sizes and
-    merge depths); the first 32 of k 64 against the narrow kernel's k 32
-    (ids equal, scores bitwise equal: one fmaf chain per pair in both);
-    two calls bitwise equal; times on the main-path inputs at k 64 (the
-    list kernel) and on a 1M-doc shard at Nq 32 (k 64, 256) and Nq 1
-    (k 64), beside other group sizes.  Then ``kernels_topk_select``."""
+    """The exact top-k above k 32 and its route (ops.topk_route): which
+    kernel each shape launches (by the launch counts), on the main-path
+    inputs, 3000 docs and the 1M-doc shard.  csrc/topk_list.cu, forced at
+    its plan, against the plain version at k 33, 64, 256, above Nd and
+    the limit on the main-path inputs and on 3000 docs (several splits and
+    groups), on D 30, Nq 1 (spread warps) and an unaligned pointer; exact
+    ties across tiles and splits (at the plan and at forced split counts,
+    groups 4 and 8 and merge depths); the first 32 of k 64 against the
+    narrow kernel's k 32 (ids equal, scores bitwise equal: one fmaf chain
+    per pair in both); two calls bitwise equal; times on the main-path
+    inputs at k 64 and on the 1M-doc shard at Nq 1 (the route's) and Nq
+    32 (forced, group 8 and 4, beside the route's select kernel).  Then
+    ``kernels_topk_select``."""
     def unit(n, d):
         x = torch.randn(n, d, generator=gen, device=DEV)
         return x / x.norm(dim=1, keepdim=True)
@@ -2308,32 +2397,36 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     qm, dm, _ = topk_main
     nd = dm.shape[0]
-    for k in (32, 33, 64, 256, limit, limit + 1):
-        before = dict(ops.launches)
-        ops.retrieval_topk(qm, dm, k)
-        ran = {n: c - before[n] for n, c in ops.launches.items()
-               if c != before[n]}
-        check(ran == {ops.topk_route(k): 1},
-              f"retrieval_topk k {k} launched {ran}, not "
-              f"{ops.topk_route(k)}")
-    log(f"  retrieval_topk launch counts: k 32 ran retrieval_topk, 33 .. "
-        f"{limit} retrieval_topk_list, {limit + 1} retrieval_topk_select")
+    qb, db = unit(33, 256), unit(3000, 256)
+    qs, ds = shard
+    routes = []
+    for q, d, ks in ((qm, dm, (32, 33, 64, 256, limit, limit + 1)),
+                     (qb, db, (64, 1024)), (qs, ds, (64,)),
+                     (qs[:1], ds, (64, 128, 129))):
+        for k in ks:
+            before = dict(ops.launches)
+            ops.retrieval_topk(q, d, k)
+            ran = {n: c - before[n] for n, c in ops.launches.items()
+                   if c != before[n]}
+            route = ops.topk_route(q.shape[0], d.shape[0], k)
+            check(ran == {route: 1}, f"retrieval_topk Nq {q.shape[0]} Nd "
+                  f"{d.shape[0]} k {k} launched {ran}, not {route}")
+            routes.append(f"Nq {q.shape[0]} Nd {d.shape[0]} k {k} {route}")
+    log(f"  retrieval_topk launch counts: {'; '.join(routes)}")
     plan = ops.retrieval_topk_wide_plan
     log(f"  retrieval_topk_list plan (group, groups, splits, docs per "
         f"split): main path k 64 {plan(qm.shape[0], nd, 64, sms)}, 3000 "
         f"docs Nq 33 k 64 {plan(33, 3000, 64, sms)}, 1M docs Nq 32 k 64 "
-        f"{plan(32, SHARD_DOCS, 64, sms)}, k 256 "
-        f"{plan(32, SHARD_DOCS, 256, sms)}, Nq 1 k 64 "
+        f"{plan(32, SHARD_DOCS, 64, sms)}, Nq 1 k 64 "
         f"{plan(1, SHARD_DOCS, 64, sms)}")
-    for k in (33, 64, 256, nd + 7, limit, limit + 1):
+    for k in (33, 64, 256, nd + 7, limit):
         _topk_check(torch, ops, ref, qm, dm, k,
-                    f"{ops.topk_route(k)}, main path")
-    qb, db = unit(33, 256), unit(3000, 256)
-    for k in (33, 64, 256, 1024, 3001, limit, limit + 1):
+                    "retrieval_topk_list forced, main path", fn=_list_forced)
+    for k in (33, 64, 256, 1024, 3001, limit):
         _topk_check(torch, ops, ref, qb, db, k,
-                    f"{ops.topk_route(k)}, 3000 docs")
+                    "retrieval_topk_list forced, 3000 docs", fn=_list_forced)
     _topk_check(torch, ops, ref, unit(5, 30), unit(2000, 30), 100,
-                "retrieval_topk_list, D 30")
+                "retrieval_topk_list forced, D 30", fn=_list_forced)
     _topk_check(torch, ops, ref, unit(1, 256), db, 64,
                 "retrieval_topk_list, Nq 1 (spread)")
     flat = unit(1, 12 * 256 + 1).view(-1)[1:]     # 4 bytes off 16
@@ -2348,20 +2441,25 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
         dup[j] = dup[3]
     q1 = 2.0 * dup[3:4]
     for k in (40, 2048, limit + 1):
-        s, i, _ = _topk_check(torch, ops, ref, q1, dup, k,
-                              f"{ops.topk_route(k)}, ties")
-        _topk_ties(i, s, ties, f"{ops.topk_route(k)} k {k}")
+        route = ops.topk_route(1, dup.shape[0], k)
+        s, i, _ = _topk_check(torch, ops, ref, q1, dup, k, f"{route}, ties")
+        _topk_ties(i, s, ties, f"{route} k {k}")
+        s, i, _ = _topk_check(torch, ops, ref, q1, dup, min(k, limit),
+                              "retrieval_topk_list forced, ties",
+                              fn=_list_forced)
+        _topk_ties(i, s, ties, f"retrieval_topk_list forced k {k}")
     # forced: 10 splits of 2 tiles (k 40: one merge level; k 2048, fan-in
-    # 2: four), at group 4 and at group 32 (one query: spread warps)
-    for k, group in ((40, 4), (2048, 4), (40, 32)):
+    # 2: four), at group 4 and at group 8 (one query: spread warps)
+    for k, group in ((40, 4), (2048, 4), (40, 8)):
         s, i = ops._topk_list_launch(q1, dup, k, group, 1, 10,
                                      2 * ops.TOPK_TILE)
         _topk_ties(i, s, ties,
                    f"retrieval_topk_list k {k} group {group}, 10 splits")
     log("  retrieval_topk_list [ties] ids lowest first across tiles, 10 "
-        "forced splits, 1 and 4 merge levels, groups 4 and 32")
-    for q, d, label in ((qm, dm, "main path"), (qb, db, "3000 docs")):
-        s64, i64 = ops.retrieval_topk(q, d, 64)
+        "forced splits, 1 and 4 merge levels, groups 4 and 8")
+    for q, d, label in ((qm, dm, "main path"), (qb, db, "3000 docs"),
+                        (qs[:1], ds, "1M-doc shard Nq 1")):
+        s64, i64 = _list_forced(q, d, 64)
         s32, i32 = ops.retrieval_topk(q, d, 32)
         torch.cuda.synchronize()
         check(torch.equal(i64[:, :32], i32)
@@ -2369,7 +2467,9 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
               f"list {label}: k 64's first 32 differ from the narrow k 32")
         log(f"  retrieval_topk_list [{label}] k 64's first 32 equal the "
             "narrow kernel's k 32 (ids, scores bitwise)")
-    _topk_same_twice(torch, ops, qb, db, 257, "3000-doc k 257")
+    _topk_same_twice(torch, ops, qb, db, 257, "3000-doc k 257 (list)",
+                     fn=_list_forced)
+    _topk_same_twice(torch, ops, qs[:1], ds, 64, "1M-doc Nq 1 k 64")
 
     _, _, err = _topk_check(torch, ops, ref, qm, dm, 64,
                             "retrieval_topk_list main path")
@@ -2378,41 +2478,35 @@ def kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec,
         card, lambda: ops.retrieval_topk(qm, dm, 64),
         lambda: ref.topk_ref(qm, dm, 64),
         lambda: torch.topk(qm @ dm.T, 64), topk_work(qm, dm, 64)))
-    qs, ds = shard
-    cases = ((qs, 64), (qs, 256), (qs[:1], 64))
-    for q, k in cases:
-        _topk_check(torch, ops, ref, q, ds, k,
-                    "retrieval_topk_list, 1M-doc shard")
-    s64, i64 = ops.retrieval_topk(qs, ds, 64)
-    s32, i32 = ops.retrieval_topk(qs, ds, 32)
-    torch.cuda.synchronize()
-    check(torch.equal(i64[:, :32], i32) and torch.equal(s64[:, :32], s32),
-          "list 1M-doc shard: k 64's first 32 differ from the narrow k 32")
-    _topk_same_twice(torch, ops, qs, ds, 64, "1M-doc k 64")
+    _topk_check(torch, ops, ref, qs[:1], ds, 64,
+                "retrieval_topk_list, 1M-doc shard Nq 1")
+    _topk_check(torch, ops, ref, qs, ds, 64,
+                "retrieval_topk_list forced, 1M-doc shard Nq 32",
+                fn=_list_forced)
     tag = f"[{card['smi']}]"
-    for q, k in cases:
-        _wide_times(torch, f"retrieval_topk_list 1M-doc shard Nq"
-                    f"{q.shape[0]} k{k}", card,
-                    lambda: ops.retrieval_topk(q, ds, k),
-                    lambda: ref.topk_ref(q, ds, k),
-                    lambda: torch.topk(q @ ds.T, k), topk_work(q, ds, k))
-    # the other group sizes, each bitwise equal to the rule's
-    for k, groups in ((64, (16, 8)), (256, (32, 8))):
-        s0, i0 = ops.retrieval_topk(qs, ds, k)
-        times = []
-        for g in groups:
-            groups = -(-32 // g)
-            forced = (g, groups,
-                      *ops.topk_list_splits(groups, SHARD_DOCS, k, sms))
-            s, i = ops._topk_list_launch(qs, ds, k, *forced)
-            torch.cuda.synchronize()
-            check(torch.equal(s, s0) and torch.equal(i, i0),
-                  f"list 1M k {k}: plan {forced} differs from the rule's")
-            t = bench_ms(lambda: ops._topk_list_launch(qs, ds, k, *forced))
-            times.append(f"group {g} {forced}: {t:.4f}")
-        log(f"  retrieval_topk_list 1M-doc shard Nq32 k{k} other groups "
-            f"(bitwise equal to the rule's {plan(32, SHARD_DOCS, k, sms)}) "
-            f"ms {'; '.join(times)} {tag}")
+    _wide_times(torch, "retrieval_topk_list 1M-doc shard Nq1 k64", card,
+                lambda: ops.retrieval_topk(qs[:1], ds, 64),
+                lambda: ref.topk_ref(qs[:1], ds, 64),
+                lambda: torch.topk(qs[:1] @ ds.T, 64),
+                topk_work(qs[:1], ds, 64))
+    # Nq 32 k 64: the list kernel at group 8 (its plan) and 4, bitwise
+    # equal, beside the route's kernel
+    s0, i0 = _list_forced(qs, ds, 64)
+    times = []
+    for g in (8, 4):
+        groups = -(-32 // g)
+        forced = (g, groups, *ops.topk_list_splits(groups, SHARD_DOCS, 64,
+                                                   sms))
+        s, i = ops._topk_list_launch(qs, ds, 64, *forced)
+        torch.cuda.synchronize()
+        check(torch.equal(s, s0) and torch.equal(i, i0),
+              f"list 1M k 64: plan {forced} differs from the rule's")
+        t = bench_ms(lambda: ops._topk_list_launch(qs, ds, 64, *forced))
+        times.append(f"group {g} {forced}: {t:.4f}")
+    t = bench_ms(lambda: ops.retrieval_topk(qs, ds, 64))
+    log(f"  retrieval_topk_list 1M-doc shard Nq32 k64 forced ms "
+        f"{'; '.join(times)}; the route's "
+        f"{ops.topk_route(32, SHARD_DOCS, 64)} {t:.4f} {tag}")
 
 
 def kernels_topk_select(torch, ops, ref, gen, topk_main, shard, rec,
@@ -2425,8 +2519,8 @@ def kernels_topk_select(torch, ops, ref, gen, topk_main, shard, rec,
     (k 6177, 16384, 65536) and Nq 1; k 6177's first 6176 bitwise equal to
     csrc/topk_list.cu's k 6176 and its first 32 to csrc/topk.cu's k 32;
     two calls bitwise equal; the launch counts.  Times of those cases
-    beside topk(q @ d.T, k), and of the kernel forced at k 256, 1024,
-    4096 and 6176 beside the list kernel's."""
+    beside topk(q @ d.T, k).  (Where it crosses the list kernel:
+    ``kernels_topk_grid``.)"""
     def unit(n, d):
         x = torch.randn(n, d, generator=gen, device=DEV)
         return x / x.norm(dim=1, keepdim=True)
@@ -2437,14 +2531,7 @@ def kernels_topk_select(torch, ops, ref, gen, topk_main, shard, rec,
     plan = ops.retrieval_topk_select_plan
     qm = topk_main[0]
     qs, ds = shard
-    tag = f"[{card['smi']}]"
     before = ops.launches["retrieval_topk_select"]
-
-    def forced(q, d, k):   # the select kernel at any k, at its plan
-        chunk_q, _, n_splits, per, n_sel, sel_per = plan(q.shape[0],
-                                                         d.shape[0], k, sms)
-        return ops._topk_select_launch(q, d, k, chunk_q, n_splits, per,
-                                       n_sel, sel_per)
 
     log(f"  retrieval_topk_select plan (queries a chunk, chunks, scan "
         f"splits, docs per split, select chunks, docs per chunk): 8192 docs"
@@ -2491,7 +2578,7 @@ def kernels_topk_select(torch, ops, ref, gen, topk_main, shard, rec,
                     "retrieval_topk_select, 1M-doc shard")
     for q, d, label in ((qm, dw, "8192 docs"), (qs, ds, "1M-doc shard")):
         sw, iw = ops.retrieval_topk(q, d, kw)
-        sl, il = ops.retrieval_topk(q, d, limit)
+        sl, il = _list_forced(q, d, limit)
         sn, i_n = ops.retrieval_topk(q, d, 32)
         torch.cuda.synchronize()
         check(torch.equal(sw[:, :limit], sl) and torch.equal(iw[:, :limit], il)
@@ -2517,72 +2604,174 @@ def kernels_topk_select(torch, ops, ref, gen, topk_main, shard, rec,
                     lambda: ops.retrieval_topk(q, ds, k),
                     lambda: ref.topk_ref(q, ds, k),
                     lambda: torch.topk(q @ ds.T, k), topk_work(q, ds, k))
-    # the select kernel forced at the list kernel's k, beside it: where
-    # the route boundary could go
-    times = []
-    for k in (256, 1024, 4096, limit):
-        s0, i0 = ops.retrieval_topk(qs, ds, k)
-        s1, i1 = forced(qs, ds, k)
-        torch.cuda.synchronize()
-        check(torch.equal(s0, s1) and torch.equal(i0, i1),
-              f"select forced at k {k} differs from the list kernel")
-        t = [bench_ms(f, reps=10) for f in (
-            lambda: ops.retrieval_topk(qs, ds, k), lambda: forced(qs, ds, k),
-            lambda: torch.topk(qs @ ds.T, k))]
-        times.append(f"k {k}: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f}")
-    log(f"  retrieval_topk 1M-doc shard Nq32, list kernel / select kernel "
-        f"forced (bitwise equal) / topk(q@d.T) ms: {'; '.join(times)} {tag}")
 
 
-def kernels_wide(torch, ops, ref, gen, ivf_main, rec, card) -> None:
-    """The IVF probe's k > 32 route (csrc/topk_wide.cu): against the plain
-    version at k 33, 64, 257 and a k above the candidates, on the
-    main-path inputs and on lists longer than one tile; IVF padding, a
-    list probed twice and probe ids outside the lists; the first 32 of
-    k 64 against the narrow kernel's k 32 (ids equal, scores bitwise
-    equal); two calls bitwise equal; times at k 64 on the main-path
-    inputs."""
+TOPK_GRID_K = (64, 128, 256, 512, 1024, 2048, 4096, 6176)
+TOPK_GRID_NQ = (1, 8, 32)
+
+
+def kernels_topk_grid(torch, ops, ref, gen, topk_main, shard, card) -> None:
+    """Where the exact top-k's two wide kernels cross: csrc/topk_list.cu
+    and csrc/topk_select.cu, each forced at its own plan, bitwise checked
+    against each other, at k TOPK_GRID_K, Nq TOPK_GRID_NQ and Nd 240 (the
+    main path's docs), 8192 and the 1M-doc shard; beside them the routed
+    call (ops.topk_route(Nq, Nd, k)) and topk(q @ d.T, min(k, Nd)).  The
+    routed call is checked to run the kernel the route names."""
+    qs, ds = shard
+
     def unit(n, d):
         x = torch.randn(n, d, generator=gen, device=DEV)
         return x / x.norm(dim=1, keepdim=True)
 
-    before = ops.launches["ivf_retrieval_topk_wide"]
+    listed, selected = _list_forced, _select_forced
+
+    tag = f"[{card['smi']}]"
+    rows, worst = [], 0.0
+    for d in (topk_main[1], unit(8192, ds.shape[1]), ds):
+        nd = d.shape[0]
+        for nq in TOPK_GRID_NQ:
+            q = qs[:nq]
+            for k in TOPK_GRID_K:
+                (s0, i0), (s1, i1) = listed(q, d, k), selected(q, d, k)
+                before = dict(ops.launches)
+                ops.retrieval_topk(q, d, k)
+                torch.cuda.synchronize()
+                route = ops.topk_route(nq, nd, k)
+                ran = {n for n, c in ops.launches.items() if c != before[n]}
+                check(torch.equal(s0, s1) and torch.equal(i0, i1),
+                      f"top-k grid Nq {nq} Nd {nd} k {k}: the list and the "
+                      "select kernel differ")
+                check(ran == {route}, f"top-k grid Nq {nq} Nd {nd} k {k}: "
+                      f"ran {ran}, the route names {route}")
+                kl = min(k, nd)
+                t = [bench_ms(f, reps=10) for f in (
+                    lambda: listed(q, d, k), lambda: selected(q, d, k),
+                    lambda: ops.retrieval_topk(q, d, k),
+                    lambda: torch.topk(q @ d.T, kl))]
+                ratio = t[2] / min(t[0], t[1])
+                worst = max(worst, ratio)
+                rows.append(dict(Nq=nq, Nd=nd, k=k, list_ms=t[0],
+                                 select_ms=t[1], routed_ms=t[2],
+                                 route=route, library_ms=t[3]))
+                log(f"  top-k grid Nq {nq} Nd {nd} k {k}: list {t[0]:.4f} "
+                    f"/ select {t[1]:.4f} (bitwise equal) / routed "
+                    f"{t[2]:.4f} ({route}, {ratio:.3f}x the faster) / "
+                    f"topk(q@d.T, {kl}) {t[3]:.4f} ms {tag}")
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "topk_grid.json").write_text(json.dumps(
+        {"card": card["smi"], "rows": rows}, indent=1))
+    log(f"  top-k grid: the routed call is at most {worst:.3f}x the faster "
+        f"kernel over {len(rows)} cells {tag}")
+
+
+def kernels_ivf_select(torch, ops, ref, gen, ivf_main, rec, card) -> None:
+    """The IVF probe's route from k 16 (csrc/ivf_select.cu): against the
+    plain version at k 33, 64, 257 and a k above the candidates on the
+    main-path inputs (at most 2048 candidates a query: one sort of each
+    row of S), and at k 33, 300, 2500 and 5000 on lists longer than one
+    tile (4500 candidates: the select rounds, gather, sort runs and merge
+    levels); IVF padding, -1 slots inside a list, a list probed twice, one
+    doc in two lists (tied by probe rank) and probe ids outside the lists;
+    the first 32 of k 64 against the narrow kernel's k 32 (ids equal,
+    scores bitwise equal); two calls bitwise equal; times at k 64 on the
+    main-path inputs."""
+    def unit(n, d):
+        x = torch.randn(n, d, generator=gen, device=DEV)
+        return x / x.norm(dim=1, keepdim=True)
+
+    before = ops.launches["ivf_retrieval_topk_select"]
     q, emb, ids, probe, _ = ivf_main
     cand = probe.shape[1] * ids.shape[1]
     for k in (33, 64, 257, cand + 5):
         _ivf_check(torch, ops, ref, q, emb, ids, probe, k,
-                   f"wide, main path, k {k}")
+                   f"select, main path, k {k}")
     emb2, ids2 = _ivf_lists(torch, gen, [900, 1100, 0, 1500], 1500, 32)
     ids2[1, [4, 600, 1099]] = -1           # -1 slots inside a list
+    emb2[3, 5] = emb2[0, 2]                # one doc's row in two lists
     pr = torch.tensor([[3, 1, 0], [0, 0, 2], [1, 3, 3]], dtype=torch.int32,
                       device=DEV)
+    q2 = unit(3, 32)
+    q2[0] = 2.0 * emb2[0, 2]
     for k in (33, 300, 2500, 5000):
-        _ivf_check(torch, ops, ref, unit(3, 32), emb2, ids2, pr, k,
-                   f"wide, 3 tiles a list, a list probed twice, k {k}")
+        s, i, _ = _ivf_check(torch, ops, ref, q2, emb2, ids2, pr, k,
+                             f"select, 3 tiles a list, a list probed "
+                             f"twice, k {k}")
+        check(i[0, :2].tolist() == [int(ids2[3, 5]), int(ids2[0, 2])]
+              and bool(s[0, 0] == s[0, 1]),
+              f"ivf select k {k}: the tie must go to the earlier probe: "
+              f"{i[0, :2].tolist()}")
     _ivf_check(torch, ops, ref, unit(2, 32), emb2, ids2,
                torch.tensor([[1, -1], [7, 3]], dtype=torch.int32, device=DEV),
-               64, "wide, probe ids outside the lists",
+               64, "select, probe ids outside the lists",
                plain_probe=torch.tensor([[1, 2], [2, 3]], dtype=torch.int32,
                                         device=DEV))
-    s64, i64 = ops.ivf_retrieval_topk(q, emb, ids, probe, 64)
-    s32, i32 = ops.ivf_retrieval_topk(q, emb, ids, probe, 32)
-    torch.cuda.synchronize()
-    check(torch.equal(i64[:, :32], i32) and torch.equal(s64[:, :32], s32),
-          "wide IVF main path: k 64's first 32 differ from the narrow k 32")
-    log("  ivf_retrieval_topk [wide main path] k 64's first 32 equal the "
-        "narrow kernel's k 32 (ids, scores bitwise)")
-    _ivf_same_twice(torch, ops, (q, emb, ids, probe, 64), "wide main-path")
-    check(ops.launches["ivf_retrieval_topk_wide"] > before,
-          "IVF k > 32 did not run the wide kernel")
+    for qa, ea, ia, pa, label in ((q, emb, ids, probe, "main path"),
+                                  (q2, emb2, ids2, pr, "4500 candidates")):
+        s64, i64 = ops.ivf_retrieval_topk(qa, ea, ia, pa, 64)
+        s32, i32 = _ivf_narrow(qa, ea, ia, pa, 32)
+        torch.cuda.synchronize()
+        check(torch.equal(i64[:, :32], i32) and torch.equal(s64[:, :32], s32),
+              f"ivf select {label}: k 64's first 32 differ from the narrow "
+              "k 32")
+        log(f"  ivf_retrieval_topk_select [{label}] k 64's first 32 equal "
+            "the narrow kernel's k 32 (ids, scores bitwise)")
+        _ivf_same_twice(torch, ops, (qa, ea, ia, pa, 300), f"{label} k 300")
+    check(ops.launches["ivf_retrieval_topk_select"] > before,
+          "IVF k >= 16 did not run csrc/ivf_select.cu")
     _, _, err_i = _ivf_check(torch, ops, ref, q, emb, ids, probe, 64,
-                             "wide main path")
+                             "select main path")
     dense = _ivf_library(torch, q, emb, ids, probe, 64)[2]
-    rec["ivf_retrieval_topk_wide"] = dict(max_abs_err=err_i, **_wide_times(
-        torch, f"ivf_retrieval_topk_wide main path Nq{q.shape[0]} lists "
+    rec["ivf_retrieval_topk_select"] = dict(max_abs_err=err_i, **_wide_times(
+        torch, f"ivf_retrieval_topk_select main path Nq{q.shape[0]} lists "
         f"{tuple(ids.shape)} nprobe{probe.shape[1]} k64", card,
         lambda: ops.ivf_retrieval_topk(q, emb, ids, probe, 64),
         lambda: ref.ivf_topk_ref(q, emb, ids, probe, 64), dense,
         ivf_work(q, emb, ids, probe, 64)[:2]))
+
+
+IVF_GRID_K = (33, 64, 256, 1024, 6177)
+IVF_NARROW_K = (3, 5, 16, 32)
+
+
+def kernels_ivf_grid(torch, ops, ivf_main, ivf_shard, card) -> None:
+    """Where the IVF probe's routes stand: the routed call
+    (csrc/ivf_select.cu) beside the dense masked topk(q @ lists.T) at k
+    IVF_GRID_K, on the main-path inputs and on the 1M-doc IVF shard at Nq
+    1 and 32; then csrc/ivf_select.cu forced at k IVF_NARROW_K on the same
+    inputs beside csrc/ivf_topk.cu, the narrow route (bitwise equal)."""
+    qs, el, il, probe = ivf_shard
+    tag = f"[{card['smi']}]"
+    cases = (("main path", ivf_main[:4]),
+             ("1M shard", (qs[:1], el, il, probe[:1])),
+             ("1M shard", (qs, el, il, probe)))
+    for label, (q, emb, ids, pr) in cases:
+        n_lists, L = ids.shape
+        for k in IVF_GRID_K:
+            dense = _ivf_library(torch, q, emb, ids, pr,
+                                 min(k, n_lists * L))[2]
+            t = [bench_ms(lambda: ops.ivf_retrieval_topk(q, emb, ids, pr, k),
+                          reps=10),
+                 bench_ms(dense, reps=10)]
+            log(f"  ivf grid {label} Nq {q.shape[0]} nprobe {pr.shape[1]} "
+                f"L {L} k {k}: {ops.ivf_route(k)} {t[0]:.4f} / dense masked "
+                f"topk {t[1]:.4f} ms "
+                f"({t[1] / t[0]:.2f}x) {tag}")
+    # at k <= 32: the narrow kernel (the route's) and the select route
+    # forced, bitwise equal
+    for label, (q, emb, ids, pr) in cases:
+        for k in IVF_NARROW_K:
+            s0, i0 = _ivf_narrow(q, emb, ids, pr, k)
+            s1, i1 = _ivf_select_forced(q, emb, ids, pr, k)
+            torch.cuda.synchronize()
+            check(torch.equal(s0, s1) and torch.equal(i0, i1),
+                  f"ivf {label} k {k}: the select route forced differs from "
+                  "csrc/ivf_topk.cu")
+            t = [bench_ms(lambda: _ivf_narrow(q, emb, ids, pr, k)),
+                 bench_ms(lambda: _ivf_select_forced(q, emb, ids, pr, k))]
+            log(f"  ivf {label} Nq {q.shape[0]} k {k}: csrc/ivf_topk.cu "
+                f"{t[0]:.4f} / csrc/ivf_select.cu {t[1]:.4f} ms (bitwise "
+                f"equal; the route: {ops.ivf_route(k)}) {tag}")
 
 
 def phase_kernels(torch, card, captured: dict, rec: dict,
@@ -2612,28 +2801,42 @@ def phase_kernels(torch, card, captured: dict, rec: dict,
     # second session traced no kernels on the card, so the top-k count
     # then comes from that pass, whose one FlatIndex search is a main-path
     # call, and the IVF probe (not on the slice path) goes uncounted.
-    # Without it the session also traces csrc/topk_list.cu on the shard
-    # at k 64 and 256 (its sample scan, scan and merge levels, in order)
-    # and csrc/topk_select.cu at the limit + 1 and at 65536 (its scan,
-    # three histogram and pick rounds, gather, sort and merge levels).
+    # Without it the session also traces csrc/topk_list.cu forced on the
+    # shard at k 64 (its scan and merge levels), the route's kernel there
+    # (csrc/topk_select.cu) and csrc/topk_select.cu at the limit + 1 and
+    # at 65536 (its scan, three histogram and pick rounds, gather, sort
+    # and merge levels), and the IVF probe's route from k 16
+    # (csrc/ivf_select.cu: fill, scan, the select's passes) at k 64 over
+    # the shard's docs cut into 256 lists, 51 probed a query.
+    n_l = 256
+    lists = shard[1][:SHARD_DOCS // n_l * n_l].view(n_l, -1, 256)
+    list_ids = torch.arange(lists.shape[0] * lists.shape[1],
+                            dtype=torch.int32, device=DEV).view(n_l, -1)
+    probe51 = torch.stack([torch.randperm(n_l, generator=gen, device=DEV)
+                           [:51] for _ in range(32)]).to(torch.int32)
     if traced:
         profiled = ("the profiled slice pass's main-path call", traced)
     else:
         profiled = ("one main-path call", _device_kernels(
             torch, lambda: (ops.retrieval_topk(*topk_main),
                             ops.ivf_retrieval_topk(*ivf_main),
+                            _list_forced(*shard, 64),
                             ops.retrieval_topk(*shard, 64),
-                            ops.retrieval_topk(*shard, 256),
                             ops.retrieval_topk(*shard,
                                                ops.TOPK_LIST_MAX + 1),
-                            ops.retrieval_topk(*shard, 65536))))
+                            ops.retrieval_topk(*shard, 65536),
+                            ops.ivf_retrieval_topk(shard[0], lists, list_ids,
+                                                   probe51, 64))))
+    del lists, list_ids
     kernels_topk(torch, ops, ref, gen, topk_main, shard, rec, card,
                  profiled)
-    kernels_ivf(torch, ops, ref, gen, ivf_main, rec, card,
-                None if traced else profiled[1])
+    ivf_shard = kernels_ivf(torch, ops, ref, gen, ivf_main, rec, card,
+                            None if traced else profiled[1])
     kernels_topk_list(torch, ops, ref, gen, topk_main, shard, rec, card)
     kernels_topk_select(torch, ops, ref, gen, topk_main, shard, rec, card)
-    kernels_wide(torch, ops, ref, gen, ivf_main, rec, card)
+    kernels_topk_grid(torch, ops, ref, gen, topk_main, shard, card)
+    kernels_ivf_select(torch, ops, ref, gen, ivf_main, rec, card)
+    kernels_ivf_grid(torch, ops, ivf_main, ivf_shard, card)
 
 
 def _to_device(tree, dev):

@@ -30,7 +30,7 @@ SOURCES: Dict[str, str] = {
     "topk_list": "topk_list.cu",
     "topk_select": "topk_select.cu",
     "ivf_topk": "ivf_topk.cu",
-    "topk_wide": "topk_wide.cu",
+    "ivf_select": "ivf_select.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -23,9 +23,11 @@
 // on a 1M-doc shard; what holds the rest back is not measured.
 //
 // Design: two launches, a scan over (list, split, group block) blocks and
-// a merge per query.  The grid is sized from shapes alone (split rule and
-// group blocks in ops.ivf_retrieval_topk_plan); a block with no work
-// exits.
+// a merge per query.  The scan up to its scored tiles (pairs, live span,
+// ring, FFMA tile) is csrc/ivf_core.cuh's, shared with csrc/ivf_select.cu;
+// the selection below is this file's sink.  The grid is sized from
+// shapes alone (split rule and group blocks in
+// ops.ivf_retrieval_topk_plan); a block with no work exits.
 //  - Block (l, s, z) scans probe_ids itself, in table order, for the
 //    (query, probe) pairs that name list l (a ballot and a block prefix
 //    sum, 1024 entries a step), and takes the pairs of rank [32 g, 32 g +
@@ -64,60 +66,13 @@
 // The TPU kernel runs one grid step per (query, probe) and DMAs the whole
 // padded list; here one block reads a list for all the pairs of a group.
 
-#include "common.cuh"
+#include "ivf_core.cuh"
 
 namespace {
 
 constexpr int kMaxK = 32;
-constexpr int kG = 32;            // (query, probe) pairs per group
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kQW = kG / kWarps;  // pairs per warp slice
-constexpr int kTD = 128;          // rows per tile
-constexpr int kDL = kTD / 32;     // rows per lane, at most
-// chunk width and ring depth; chip_smoke.py --ivf-sweep rebuilds with
-// other values
-#ifndef IVF_KC
-#define IVF_KC 32
-#endif
-#ifndef IVF_STAGES
-#define IVF_STAGES 4
-#endif
-constexpr int kKC = IVF_KC;       // dims per chunk: a 128-byte row piece
-constexpr int kStages = IVF_STAGES;
 constexpr int kCB = 64;           // candidate buffer per pair
-constexpr int kScanPer = 8;       // probe-table entries per thread a step
 constexpr int kMergeThreads = 32;  // one warp per query
-
-// Shared-memory offset of float c of row r in a [rows][kKC] tile whose
-// 16-byte units are XOR-swizzled by the row (see csrc/topk.cu).
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kKC + (((c >> 2) ^ (r & 7)) << 2) + (c & 3);
-}
-
-#ifndef IVF_L2_256B
-#define IVF_L2_256B 1
-#endif
-
-// 16-byte global -> shared copy that also asks L2 for the 256-byte block
-// around the source (a row's next 128-byte piece).  Zero-fills like
-// rt::cp_async16.
-__device__ __forceinline__ void cp_async16_l2(void* dst, const void* src,
-                                              int src_bytes) {
-#if IVF_L2_256B
-  asm volatile(
-      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
-          rt::smem_addr(dst)),
-      "l"(src), "r"(src_bytes)
-      : "memory");
-#else
-  rt::cp_async16(dst, src, src_bytes);
-#endif
-}
-
-__device__ __forceinline__ float part(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
 
 // (s1, r1) ranks before (s2, r2): higher score, then lower rank (slot, or
 // partial index in the merge); the -1 fill compares as the largest
@@ -209,93 +164,109 @@ __device__ __forceinline__ void sort_first(float* bs, int* bi, int (&cnt)[N],
   for (int r = 0; r < R; ++r) cnt[r] = c[r];
 }
 
-// acc[r][j] += pair row r . tile row j (r < kQ pair rows, rows j * 32
-// apart from ds, j < kNJ) over one kKC-dim chunk, dims in order; the next
-// 4 dims' reads are issued before the current FFMA (as in csrc/topk.cu).
-// A warp whose slice holds fewer than 8 pairs reads only kQ query rows.
-template <int kQ, int kNJ>
-__device__ __forceinline__ void score_chunk(float (&acc)[kQW][kDL],
-                                            const float* ds, const float* qs,
-                                            int lane) {
-  auto read = [&](float4 (&qv)[kQ], float4 (&dv)[kNJ], int kk) {
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j)
-      dv[j] = *reinterpret_cast<const float4*>(
-          ds + j * 32 * kKC + (((kk >> 2) ^ (lane & 7)) << 2));
-#pragma unroll
-    for (int r = 0; r < kQ; ++r)
-      qv[r] = *reinterpret_cast<const float4*>(qs + r * kKC + kk);
-  };
-  auto fma4 = [&](const float4 (&qv)[kQ], const float4 (&dv)[kNJ]) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int r = 0; r < kQ; ++r)
-#pragma unroll
-        for (int j = 0; j < kNJ; ++j)
-          acc[r][j] = fmaf(part(qv[r], c), part(dv[j], c), acc[r][j]);
-  };
-  float4 qa[kQ], da[kNJ], qb[kQ], db[kNJ];
-  read(qa, da, 0);
-#pragma unroll 1
-  for (int kk = 0; kk < kKC; kk += 8) {
-    read(qb, db, kk + 4);
-    fma4(qa, da);
-    if (kk + 8 < kKC) read(qa, da, kk + 8);
-    fma4(qb, db);
-  }
-}
+// The scan's sink: per (warp, pair) a running threshold and a kCB-entry
+// candidate buffer in shared memory, offered each scored tile's live
+// rows; at the group's end each warp sorts its lists and the block writes
+// one sorted partial top-k per (query, probe, split).
+struct TopkSink {
+  float* cand_s;   // [kG][kCB], buffer warp * kQW + r
+  int* cand_i;
+  int* cnt_s;      // [kWarps][kQW], over the drained ring
+  float* part_s;
+  int* part_r;
+  int k, split, n_splits, warp;
+  float ts[kQW];
+  int ti[kQW], cnt[kQW];
 
-// Block-wide, uniform: the pairs (flat index q * nprobe + p into the
-// probe table of `total` entries) that name list l, of rank [g * kG, g *
-// kG + kG) in table order, into pair_s; returns how many.  The scan goes
-// from (pos, seen) -- table position and matches before it -- and leaves
-// them at the step that held the group's end, where the block's next
-// group resumes.
-__device__ int find_pairs(const int* __restrict__ probe, int total, int l,
-                          int g, int& pos, int& seen, int* pair_s,
-                          int* warp_cnt, int tid) {
-  const int lo = g * kG, hi = lo + kG;
-  const int lane = tid & 31, warp = tid >> 5;
-  int step_pos = pos, step_seen = seen;
-  while (pos < total && seen < hi) {
-    const int base = pos + tid * kScanPer;
-    unsigned mask = 0;
+  __device__ __forceinline__ void begin(const ScanGroup&) {
 #pragma unroll
-    for (int i = 0; i < kScanPer; ++i)
-      if (base + i < total && probe[base + i] == l) mask |= 1u << i;
-    const int c = __popc(mask);
-    int inc = c;   // inclusive prefix over the warp's lanes
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, inc, o);
-      if (lane >= o) inc += t;
+    for (int r = 0; r < kQW; ++r) {
+      ts[r] = rt::kNegInf;
+      ti[r] = -1;
+      cnt[r] = 0;
     }
-    if (lane == 31) warp_cnt[warp] = inc;
-    __syncthreads();
-    int r = seen + inc - c, step_total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) r += warp_cnt[w];
-      step_total += warp_cnt[w];
-    }
-    while (mask) {
-      const int i = __ffs(mask) - 1;
-      mask &= mask - 1;
-      if (r >= lo && r < hi) pair_s[r - lo] = base + i;
-      ++r;
-    }
-    __syncthreads();
-    step_pos = pos;
-    step_seen = seen;
-    pos += kThreads * kScanPer;
-    seen += step_total;
   }
-  const int n = min(seen, hi) - lo;
-  pos = step_pos;
-  seen = step_seen;
-  return max(0, n);
-}
+
+  // the tile is scored: offer its live rows to the warp's pairs
+  __device__ __forceinline__ void tile(const ScanGroup& g,
+                                       const float (&acc)[kQW][kDL],
+                                       int base, const int (&live)[kDL],
+                                       int lane) {
+#pragma unroll
+    for (int r = 0; r < kQW; ++r) {
+      if (r >= g.nqw) break;
+      float* bs = cand_s + (warp * kQW + r) * kCB;
+      int* bi = cand_i + (warp * kQW + r) * kCB;
+#pragma unroll
+      for (int j = 0; j < kDL; ++j) {
+        if (j >= g.nj) break;
+        if (cnt[r] > kCB - 32) {
+          cnt[r] = reselect(bs, bi, cnt[r], k, lane);
+          if (cnt[r] == k) {
+            ts[r] = bs[k - 1];
+            ti[r] = bi[k - 1];
+          }
+        }
+        const int slot = base + j * 32;
+        const bool pass = live[j] && better(acc[r][j], slot, ts[r], ti[r]);
+        const unsigned m = __ballot_sync(0xffffffffu, pass);
+        if (pass) {
+          const int at = cnt[r] + __popc(m & ((1u << lane) - 1u));
+          bs[at] = acc[r][j];
+          bi[at] = slot;
+        }
+        cnt[r] += __popc(m);
+      }
+    }
+  }
+
+  // Each warp sorts its live lists.  Then warp w writes the partials of
+  // pairs w, w + kWarps, ...: pair i's list is row i % 8 of its slice's
+  // part-0 warp, which first takes in the slice's other warps' lists
+  // (all at once when they fit one buffer, else one at a time).
+  __device__ __forceinline__ void end(const ScanGroup& g, int tid) {
+    const int lane = tid & 31;
+    {
+      int c[kQW];
+#pragma unroll
+      for (int r = 0; r < kQW; ++r) c[r] = r < g.nqw ? cnt[r] : 0;
+      float* bs = cand_s + warp * kQW * kCB;
+      int* bi = cand_i + warp * kQW * kCB;
+      if (g.nqw > kQW / 2)
+        sort_lists<kQW>(bs, bi, kCB, c, k, lane);
+      else if (g.nqw > kQW / 4)
+        sort_first<kQW / 2>(bs, bi, c, k, lane);
+      else if (g.nqw > 1)
+        sort_first<2>(bs, bi, c, k, lane);
+      else if (g.nqw == 1)
+        sort_first<1>(bs, bi, c, k, lane);
+      if (lane == 0)
+        for (int r = 0; r < kQW; ++r) cnt_s[warp * kQW + r] = c[r];
+    }
+    __syncthreads();
+    for (int i = warp; i < g.n; i += kWarps) {
+      const int own = (i / kQW) * g.nwp * kQW + i % kQW;
+      float* bs = cand_s + own * kCB;
+      int* bi = cand_i + own * kCB;
+      int m = cnt_s[own];
+      for (int w = 1; w < g.nwp; ++w) {
+        const int src = own + w * kQW, add = cnt_s[src];
+        if (lane < add) {
+          bs[m + lane] = cand_s[src * kCB + lane];
+          bi[m + lane] = cand_i[src * kCB + lane];
+        }
+        m += add;
+        if (g.nwp * k > kCB || w == g.nwp - 1)
+          m = reselect(bs, bi, m, k, lane);
+      }
+      if (lane < k) {
+        const size_t o = ((size_t)g.pair_s[i] * n_splits + split) * k + lane;
+        part_s[o] = lane < m ? bs[lane] : rt::kNegInf;
+        part_r[o] = lane < m ? bi[lane] : -1;
+      }
+    }
+  }
+};
 
 // The explicit 1 block per SM keeps ptxas from aiming at 3 (168
 // registers, spilling in the scan loop); shared memory allows 2.
@@ -308,257 +279,21 @@ ivf_scan_kernel(const float* __restrict__ q,
                 float* __restrict__ part_s, int* __restrict__ part_r, int Nq,
                 int L, int D, int nprobe, int k, int rows_per_split,
                 int n_splits, int group_blocks) {
-  const int l = blockIdx.x;
-  const int split = blockIdx.y;
-  const int total = Nq * nprobe;
-  const int nk = (D + kKC - 1) / kKC;
-
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ring = smem;                          // [S][kTD][kKC], swizzled
-  float* q_s = ring + kStages * kTD * kKC;     // [S][kG][kKC]
-  float* cand_s = q_s + kStages * kG * kKC;    // [kG][kCB]
-  int* cand_i = reinterpret_cast<int*>(cand_s + kG * kCB);
-  __shared__ int pair_s[kG];    // the group's pairs, flat probe index
-  __shared__ int grp_q[kG];     // and their queries
-  __shared__ int warp_cnt[kWarps];
-  __shared__ int span_w[2][kWarps];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int* ids = list_ids + (size_t)l * L;
-  const float* emb = list_emb + (size_t)l * L * D;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(L, r_begin + rows_per_split);
-
-  int pos = 0, seen = 0;
-  int lo = -1, hi = -1;   // the split's live span, once the block has work
-  for (int g = blockIdx.z;; g += group_blocks) {
-    const int n = find_pairs(probe_ids, total, l, g, pos, seen, pair_s,
-                             warp_cnt, tid);
-    if (n == 0) return;
-    if (tid < n) grp_q[tid] = pair_s[tid] / nprobe;
-    if (lo < 0) {
-      // first and last live slot of the split: only that span is read
-      int a = r_end, b = r_begin - 1;
-#pragma unroll 8
-      for (int r = r_begin + tid; r < r_end; r += kThreads)
-        if (ids[r] >= 0) {
-          a = min(a, r);
-          b = max(b, r);
-        }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        a = min(a, __shfl_xor_sync(0xffffffffu, a, o));
-        b = max(b, __shfl_xor_sync(0xffffffffu, b, o));
-      }
-      if (lane == 0) {
-        span_w[0][warp] = a;
-        span_w[1][warp] = b;
-      }
-      __syncthreads();
-      a = span_w[0][0];
-      b = span_w[1][0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) {
-        a = min(a, span_w[0][w]);
-        b = max(b, span_w[1][w]);
-      }
-      lo = b >= a ? a : r_begin;
-      hi = b >= a ? b + 1 : r_begin;
-    }
-    __syncthreads();   // grp_q
-
-    const int n_tiles = (hi - lo + kTD - 1) / kTD;
-    const int steps = n_tiles * nk;
-    auto load = [&](int s) {
-      const int st = s % kStages;
-      const int row0 = lo + (s / nk) * kTD;
-      const int col0 = (s % nk) * kKC;
-      float* ds = ring + st * kTD * kKC;
-      float* qs = q_s + st * kG * kKC;
-      if (kVec) {
-#pragma unroll
-        for (int i = 0; i < kTD * kKC / 4 / kThreads; ++i) {
-          const int idx = tid + i * kThreads;
-          const int r = idx / (kKC / 4), c = (idx % (kKC / 4)) * 4;
-          const bool ok = row0 + r < hi && col0 + c < D;
-          cp_async16_l2(ds + swz(r, c),
-                        ok ? emb + (size_t)(row0 + r) * D + col0 + c : emb,
-                        ok ? 16 : 0);
-        }
-#pragma unroll
-        for (int i = 0; i < kG * kKC / 4 / kThreads; ++i) {
-          const int idx = tid + i * kThreads;
-          const int r = idx / (kKC / 4), c = (idx % (kKC / 4)) * 4;
-          const bool ok = r < n && col0 + c < D;
-          rt::cp_async16(qs + r * kKC + c,
-                         ok ? q + (size_t)grp_q[r] * D + col0 + c : q,
-                         ok ? 16 : 0);
-        }
-      } else {
-#pragma unroll 4
-        for (int i = 0; i < kTD * kKC / kThreads; ++i) {
-          const int idx = tid + i * kThreads;
-          const int r = idx / kKC, c = idx % kKC;
-          const bool ok = row0 + r < hi && col0 + c < D;
-          rt::cp_async4(ds + swz(r, c),
-                        ok ? emb + (size_t)(row0 + r) * D + col0 + c : emb,
-                        ok ? 4 : 0);
-        }
-#pragma unroll 4
-        for (int i = 0; i < kG * kKC / kThreads; ++i) {
-          const int idx = tid + i * kThreads;
-          const int r = idx / kKC, c = idx % kKC;
-          const bool ok = r < n && col0 + c < D;
-          rt::cp_async4(qs + r * kKC + c,
-                        ok ? q + (size_t)grp_q[r] * D + col0 + c : q,
-                        ok ? 4 : 0);
-        }
-      }
-    };
-
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < steps) load(s);
-      rt::cp_async_commit();
-    }
-
-    // Warp roles by the group's size: qsl slices of 8 pairs, nwp = 4 / qsl
-    // warps per slice.  Warp w takes slice w / nwp and, of each tile, the
-    // rows lane + 32 (part * nj + j), j < nj = qsl, part = w % nwp: every
-    // warp scores, so a ring step's FFMA are spread over the 4 warps (one
-    // warp scoring a whole tile for 8 pairs measured slower on the card).
-    const int qsl = n <= kQW ? 1 : n <= 2 * kQW ? 2 : 4;
-    const int nwp = kWarps / qsl;
-    const int slice = warp / nwp;
-    const int nqw = max(0, min(kQW, n - slice * kQW));
-    const int nj = qsl;
-    const int row = lane + 32 * (warp % nwp) * nj;
-    float ts[kQW];
-    int ti[kQW], cnt[kQW];
-#pragma unroll
-    for (int r = 0; r < kQW; ++r) {
-      ts[r] = rt::kNegInf;
-      ti[r] = -1;
-      cnt[r] = 0;
-    }
-    float acc[kQW][kDL];
-#pragma unroll
-    for (int r = 0; r < kQW; ++r)
-#pragma unroll
-      for (int j = 0; j < kDL; ++j) acc[r][j] = 0.f;
-    int live[kDL];   // the tile's ids are live: read at its first step
-
-    for (int s = 0; s < steps; ++s) {
-      rt::cp_async_wait<kStages - 2>();
-      __syncthreads();
-      if (s + kStages - 1 < steps) load(s + kStages - 1);
-      rt::cp_async_commit();
-      if (nqw == 0) continue;
-
-      const int base = lo + (s / nk) * kTD + row;
-      if (s % nk == 0) {
-#pragma unroll
-        for (int j = 0; j < kDL; ++j)
-          live[j] = j < nj && base + j * 32 < hi && ids[base + j * 32] >= 0;
-      }
-      const int st = s % kStages;
-      const float* ds = ring + st * kTD * kKC + row * kKC;
-      const float* qs = q_s + (st * kG + slice * kQW) * kKC;
-      if (nj == 2)
-        score_chunk<kQW, 2>(acc, ds, qs, lane);
-      else if (nj == kDL)
-        score_chunk<kQW, kDL>(acc, ds, qs, lane);
-      else if (nqw > kQW / 2)
-        score_chunk<kQW, 1>(acc, ds, qs, lane);
-      else if (nqw > kQW / 4)
-        score_chunk<kQW / 2, 1>(acc, ds, qs, lane);
-      else if (nqw > 1)
-        score_chunk<2, 1>(acc, ds, qs, lane);
-      else
-        score_chunk<1, 1>(acc, ds, qs, lane);
-      if (s % nk != nk - 1) continue;
-
-      // the tile is scored: offer its live rows to the warp's pairs
-#pragma unroll
-      for (int r = 0; r < kQW; ++r) {
-        if (r >= nqw) break;
-        float* bs = cand_s + (warp * kQW + r) * kCB;
-        int* bi = cand_i + (warp * kQW + r) * kCB;
-#pragma unroll
-        for (int j = 0; j < kDL; ++j) {
-          if (j >= nj) break;
-          if (cnt[r] > kCB - 32) {
-            cnt[r] = reselect(bs, bi, cnt[r], k, lane);
-            if (cnt[r] == k) {
-              ts[r] = bs[k - 1];
-              ti[r] = bi[k - 1];
-            }
-          }
-          const int slot = base + j * 32;
-          const bool pass = live[j] && better(acc[r][j], slot, ts[r], ti[r]);
-          const unsigned m = __ballot_sync(0xffffffffu, pass);
-          if (pass) {
-            const int at = cnt[r] + __popc(m & ((1u << lane) - 1u));
-            bs[at] = acc[r][j];
-            bi[at] = slot;
-          }
-          cnt[r] += __popc(m);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kQW; ++r)
-#pragma unroll
-        for (int j = 0; j < kDL; ++j) acc[r][j] = 0.f;
-    }
-    rt::cp_async_wait<0>();
-    __syncthreads();   // the ring is free: it holds the lists' counts now
-
-    // Each warp sorts its live lists.  Then warp w writes the partials of
-    // pairs w, w + kWarps, ...: pair i's list is row i % 8 of its slice's
-    // part-0 warp, which first takes in the slice's other warps' lists
-    // (all at once when they fit one buffer, else one at a time).
-    int* cnt_s = reinterpret_cast<int*>(ring);   // [kWarps][kQW]
-    {
-      int c[kQW];
-#pragma unroll
-      for (int r = 0; r < kQW; ++r) c[r] = r < nqw ? cnt[r] : 0;
-      float* bs = cand_s + warp * kQW * kCB;
-      int* bi = cand_i + warp * kQW * kCB;
-      if (nqw > kQW / 2)
-        sort_lists<kQW>(bs, bi, kCB, c, k, lane);
-      else if (nqw > kQW / 4)
-        sort_first<kQW / 2>(bs, bi, c, k, lane);
-      else if (nqw > 1)
-        sort_first<2>(bs, bi, c, k, lane);
-      else if (nqw == 1)
-        sort_first<1>(bs, bi, c, k, lane);
-      if (lane == 0)
-        for (int r = 0; r < kQW; ++r) cnt_s[warp * kQW + r] = c[r];
-    }
-    __syncthreads();
-    for (int i = warp; i < n; i += kWarps) {
-      const int own = (i / kQW) * nwp * kQW + i % kQW;
-      float* bs = cand_s + own * kCB;
-      int* bi = cand_i + own * kCB;
-      int m = cnt_s[own];
-      for (int w = 1; w < nwp; ++w) {
-        const int src = own + w * kQW, add = cnt_s[src];
-        if (lane < add) {
-          bs[m + lane] = cand_s[src * kCB + lane];
-          bi[m + lane] = cand_i[src * kCB + lane];
-        }
-        m += add;
-        if (nwp * k > kCB || w == nwp - 1) m = reselect(bs, bi, m, k, lane);
-      }
-      if (lane < k) {
-        const size_t o = ((size_t)pair_s[i] * n_splits + split) * k + lane;
-        part_s[o] = lane < m ? bs[lane] : rt::kNegInf;
-        part_r[o] = lane < m ? bi[lane] : -1;
-      }
-    }
-    __syncthreads();   // pair_s, grp_q and the ring are reused
-  }
+  float* cand_s = smem + kRingSmem / sizeof(float);   // [kG][kCB]
+  TopkSink sink;
+  sink.cand_s = cand_s;
+  sink.cand_i = reinterpret_cast<int*>(cand_s + kG * kCB);
+  sink.cnt_s = reinterpret_cast<int*>(smem);
+  sink.part_s = part_s;
+  sink.part_r = part_r;
+  sink.k = k;
+  sink.split = blockIdx.y;
+  sink.n_splits = n_splits;
+  sink.warp = threadIdx.x >> 5;
+  ivf_scan<kVec>(q, list_emb, list_ids, probe_ids, Nq, L, D, nprobe,
+                 rows_per_split, group_blocks, smem, sink);
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -626,8 +361,7 @@ ivf_merge_kernel(const float* __restrict__ part_s,
 // Shared memory of a scan block: the ring of row and query chunks and
 // the candidate buffers, whatever D is.
 constexpr size_t kScanSmem =
-    sizeof(float) * kStages * (kTD + kG) * kKC +
-    (sizeof(float) + sizeof(int)) * kG * kCB;
+    kRingSmem + (sizeof(float) + sizeof(int)) * kG * kCB;
 
 template <bool kVec>
 cudaError_t launch_scan(dim3 grid, cudaStream_t st, const float* q,
@@ -635,23 +369,11 @@ cudaError_t launch_scan(dim3 grid, cudaStream_t st, const float* q,
                         float* part_s, int* part_r, int Nq, int L, int D,
                         int nprobe, int k, int rows_per_split, int n_splits,
                         int group_blocks) {
-  auto kernel = ivf_scan_kernel<kVec>;
-  static bool ready[64] = {};   // once per device, as in csrc/topk.cu
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = prepare_scan<ivf_scan_kernel<kVec>>(kScanSmem);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !ready[dev]) {
-    err = rt::allow_smem(kernel, kScanSmem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) ready[dev] = true;
-  }
-  kernel<<<grid, kThreads, kScanSmem, st>>>(q, emb, ids, probe, part_s,
-                                            part_r, Nq, L, D, nprobe, k,
-                                            rows_per_split, n_splits,
-                                            group_blocks);
+  ivf_scan_kernel<kVec><<<grid, kThreads, kScanSmem, st>>>(
+      q, emb, ids, probe, part_s, part_r, Nq, L, D, nprobe, k,
+      rows_per_split, n_splits, group_blocks);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 // Exact inner-product top-k retrieval for 32 < k <= 6176, for sm_90a: a
 // list of width k per query in shared memory.  (csrc/topk.cu keeps
-// k <= 32, csrc/topk_select.cu a wider k.)
+// k <= 32; ops.topk_route sends this kernel a small corpus, a single
+// query at k <= 128, or several query groups at k <= 64 over at most
+// 8192 docs, and csrc/topk_select.cu the rest.)
 //
 // Replaces, for those k: src/repro/kernels/topk_retrieval.py, topk_pallas
 //   (kernel body _topk_kernel), whose lax.top_k over [carried best +
@@ -14,14 +16,15 @@
 // 2*Nq flops per 4 bytes; at Nq 32 the f32 FFMA rate is about as tight as
 // the memory rate.
 //
-// Design: one scan launch when the docs form one split; else a sample
-// pass (a scan and its merge levels; from a group of kSampleGroup
-// queries), the scan, and its merge levels.
+// Design: one scan launch when the docs form one split; else the scan
+// and its merge levels.
 //  - Grid (query group, doc split) and the group's size from
 //    ops.retrieval_topk_wide_plan.  A block of 4 warps takes a group of
-//    kG = 4 * kQW queries (kQW = 8, 4, 2 or 1: the plan shrinks the group
-//    as k grows, so the lists fit), and each doc row is read from device
-//    memory once per group.
+//    kG = 4 * kQW queries (kQW = 2 or 1: the plan shrinks the group from
+//    8 to 4 as k grows, so the lists fit), and each doc row is read from
+//    device memory once per group.  (Larger groups would read the docs
+//    fewer times, but at the shapes where that counts csrc/topk_select.cu
+//    is as fast or faster, and ops.topk_route sends them there.)
 //  - Scoring is topk.cu's core (csrc/topk_core.cuh): the cp.async ring
 //    and the f32 FFMA register tile, warp w on the group's queries
 //    kQW w ... kQW w + kQW - 1, lane l on tile rows l + 32 j.  When the
@@ -43,17 +46,8 @@
 //    ranked before any is written, from the top down, so nothing is
 //    overwritten before it is read).  The threshold is then the better of
 //    itself and the list's k-th.  A block takes 4 * (kStages * (kTD + kG)
-//    * kKC + 2 * kG * (kLB + k)) bytes of shared memory: 65,536 at kG 32
-//    and k 64, so two blocks share an SM up to k 260 at kG 32.
-//  - The sample pass.  A split's list would fill from nothing, taking k
-//    (1 + ln(docs / k)) entries, and while a warp merges, the block's
-//    other warps wait at the next ring step's barrier.  So when the docs
-//    are split and a group holds at least kSampleGroup queries,
-//    the first tile of every split is scanned and merged first; per query
-//    that list's k-th entry ranks at or after the result's k-th (the k-th
-//    of a subset), so a doc that ranks after it is not in the result.
-//    Every split's scan starts from it as the threshold (made inclusive:
-//    (score, id + 1)), and takes about docs * k / sample entries.
+//    * kKC + 2 * kG * (kLB + k)) bytes of shared memory: 40,960 at kG 8
+//    and k 64, so two blocks share an SM up to k 1232 at kG 8.
 //  - One split: the block writes the outputs (spread warps' lists of a
 //    query merge on the way out, block-wide, by ranks).  Several: each
 //    block writes a sorted partial list, and list_merge_kernel merges the
@@ -73,10 +67,6 @@ constexpr int kSmemMax = 232448;   // a block's shared memory on sm_90
 
 constexpr int kLB = 32;   // candidate buffer per (warp, query): one a lane
 constexpr int kListChunks = 2;   // list chunks of 32 a merge ranks at once
-// The smallest group that gets the sample pass when the docs are split:
-// with fewer queries a warp has little to merge without it, and at Nq 1
-// the pass cost more than it saved.
-constexpr int kSampleGroup = 16;
 
 // For N keys at once: the entries of the sorted list (xs, xi) + off[j],
 // [0, n), that rank before (s[j], id[j]) or, with or_equal[j], that do
@@ -191,19 +181,13 @@ __device__ __noinline__ int flush(float* ls, int* li, float* bs, int* bi,
   return min(k, nr + cnt);
 }
 
-// A scan launch's arguments.  th_s/th_i: null, or per query a sorted
-// list [Nq, k] whose k-th entry ranks at or after the result's k-th (the
-// best k of a sample of the docs); a doc that ranks after it cannot be in
-// the result and is rejected from the start.  sample: the sample pass,
-// each split's first tile only.
+// A scan launch's arguments.
 struct ScanArgs {
   const float* q;
   const float* docs;
-  const float* th_s;
-  const int* th_i;
   float* dst_s;
   int* dst_i;
-  int Nq, Nd, D, k, docs_per_split, n_splits, sample;
+  int Nq, Nd, D, k, docs_per_split, n_splits;
 };
 
 template <bool kVec, int kQW>
@@ -220,9 +204,7 @@ topk_list_scan_kernel(const ScanArgs a) {
   const int d_end = min(a.Nd, d_begin + a.docs_per_split);
   const int nk = (D + kKC - 1) / kKC;
   const int n_tiles =
-      d_end <= d_begin ? 0
-      : a.sample     ? 1
-                     : (d_end - d_begin + kTD - 1) / kTD;
+      d_end <= d_begin ? 0 : (d_end - d_begin + kTD - 1) / kTD;
   const int steps = n_tiles * nk;
 
   extern __shared__ float4 smem4[];
@@ -265,15 +247,6 @@ topk_list_scan_kernel(const ScanArgs a) {
     ti[r] = -1;
     cnt[r] = 0;
     nr[r] = 0;
-    // the sample's k-th, made inclusive: (s, id + 1) lets that doc pass
-    const int qi = spread ? r : slice * kQW + r;
-    if (a.th_s != nullptr && r < nqw) {
-      const size_t o = (size_t)(q0 + qi) * k + k - 1;
-      if (a.th_i[o] >= 0) {
-        ts[r] = a.th_s[o];
-        ti[r] = a.th_i[o] + 1;
-      }
-    }
   }
   float acc[kQW][kDL];
 #pragma unroll
@@ -526,24 +499,16 @@ cudaError_t launch_scan(cudaStream_t st, const ScanArgs& a) {
 
 template <bool kVec>
 cudaError_t launch_scan_group(int group, cudaStream_t st, const ScanArgs& a) {
-  switch (group) {
-    case 32:
-      return launch_scan<kVec, 8>(st, a);
-    case 16:
-      return launch_scan<kVec, 4>(st, a);
-    case 8:
-      return launch_scan<kVec, 2>(st, a);
-    default:
-      return launch_scan<kVec, 1>(st, a);
-  }
+  return group == 8 ? launch_scan<kVec, 2>(st, a)
+                    : launch_scan<kVec, 1>(st, a);
 }
 
 // Merge the n_splits sorted lists of each query in `src` (part) into the
-// list [Nq, k] in dst, fan_in lists a block a level: part -> tmp -> part
-// -> ... -> dst (fill as (-1e30, -1) when `last`).
+// outputs [Nq, k] in dst (fill as (-1e30, -1)), fan_in lists a block a
+// level: part -> tmp -> part -> ... -> dst.
 cudaError_t merge_levels(cudaStream_t st, float* part_s, int* part_i,
                          float* tmp_s, int* tmp_i, float* dst_s, int* dst_i,
-                         int Nq, int k, int n_splits, int fan_in, bool last) {
+                         int Nq, int k, int n_splits, int fan_in) {
   cudaError_t err = prepare<list_merge_kernel>();
   if (err != cudaSuccess) return err;
   const float* src_s = part_s;
@@ -555,8 +520,7 @@ cudaError_t merge_levels(cudaStream_t st, float* part_s, int* part_i,
     int* o_i = n_out == 1 ? dst_i : into_tmp ? tmp_i : part_i;
     list_merge_kernel<<<dim3(Nq, n_out), kMergeThreads,
                         merge_smem(fan_in, k), st>>>(
-        src_s, src_i, o_s, o_i, n, n_out, k, fan_in,
-        n_out == 1 && last ? 1 : 0);
+        src_s, src_i, o_s, o_i, n, n_out, k, fan_in, n_out == 1 ? 1 : 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     src_s = o_s;
@@ -571,7 +535,7 @@ cudaError_t merge_levels(cudaStream_t st, float* part_s, int* part_i,
 
 // Docs [d*docs_per_split, (d+1)*docs_per_split) form split d, queries
 // [g*group, (g+1)*group) group g (the rule is
-// ops.retrieval_topk_wide_plan; group is 4, 8, 16 or 32).  When n_splits
+// ops.retrieval_topk_wide_plan; group is 4 or 8).  When n_splits
 // > 1: part_s/part_i scratch of Nq * n_splits * k entries, tmp_s/tmp_i of
 // Nq * ceil(n_splits / fan_in) * k, and fan_in (>= 2) lists merge in one
 // block; unused (may be null / 0) when n_splits == 1.  Returns a
@@ -584,18 +548,16 @@ extern "C" int retrieval_topk_list(const void* queries, const void* docs,
                                    int fan_in, void* stream) {
   if (Nq < 1 || Nd < 0 || k < 1 || D < 1 || n_splits < 1 ||
       docs_per_split < 1 ||
-      (group != 4 && group != 8 && group != 16 && group != 32) ||
+      (group != 4 && group != 8) ||
       scan_smem(group, k) > kSmemMax ||
       (n_splits > 1 && (fan_in < 2 || merge_smem(fan_in, k) > kSmemMax)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ScanArgs a{static_cast<const float*>(queries),
              static_cast<const float*>(docs),
-             nullptr,
-             nullptr,
              static_cast<float*>(out_s),
              static_cast<int*>(out_i),
-             Nq, Nd, D, k, docs_per_split, n_splits, 0};
+             Nq, Nd, D, k, docs_per_split, n_splits};
   const bool vec = D % 4 == 0 && rt::aligned16(a.q) && rt::aligned16(a.docs);
   auto scan = [&]() {
     return vec ? launch_scan_group<true>(group, st, a)
@@ -608,27 +570,9 @@ extern "C" int retrieval_topk_list(const void* queries, const void* docs,
   int* ti = static_cast<int*>(tmp_i);
   a.dst_s = ps;
   a.dst_i = pi;
-  cudaError_t err = cudaSuccess;
-  if (group >= kSampleGroup) {
-    // The sample: the first tile of every split, scanned and merged into
-    // the outputs; per query its k-th then bounds the result's k-th from
-    // below, and the full scan (which reads it there before the last
-    // merge overwrites it) rejects nearly every doc at once.
-    a.sample = 1;
-    err = scan();
-    if (err == cudaSuccess)
-      err = merge_levels(st, ps, pi, ts, ti, static_cast<float*>(out_s),
-                         static_cast<int*>(out_i), Nq, k, n_splits, fan_in,
-                         false);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    a.th_s = static_cast<const float*>(out_s);
-    a.th_i = static_cast<const int*>(out_i);
-    a.sample = 0;
-  }
-  err = scan();
+  cudaError_t err = scan();
   if (err == cudaSuccess)
     err = merge_levels(st, ps, pi, ts, ti, static_cast<float*>(out_s),
-                       static_cast<int*>(out_i), Nq, k, n_splits, fan_in,
-                       true);
+                       static_cast<int*>(out_i), Nq, k, n_splits, fan_in);
   return static_cast<int>(err);
 }

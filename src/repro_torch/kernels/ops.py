@@ -7,7 +7,7 @@ or raises: there is no fallback from a CUDA tensor to the plain version.
 Each wrapper adds one to ``launches[<name>]`` where it launches its
 kernel, and nowhere else, so a run can show which kernels it went
 through; each route of the two top-k functions counts under its entry
-point's name (``topk_route``, ``wide_route``).
+point's name, the name ``topk_route`` and ``ivf_route`` return.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ launches: Dict[str, int] = {"paged_decode_attention": 0,
                             "ivf_retrieval_topk": 0,
                             "retrieval_topk_list": 0,
                             "retrieval_topk_select": 0,
-                            "ivf_retrieval_topk_wide": 0}
+                            "ivf_retrieval_topk_select": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,7 +37,7 @@ _SIGNATURES = {
     ("ivf_topk", "ivf_retrieval_topk"): [_VP] * 8 + [_I] * 9 + [_VP],
     ("topk_list", "retrieval_topk_list"): [_VP] * 8 + [_I] * 8 + [_VP],
     ("topk_select", "retrieval_topk_select"): [_VP] * 7 + [_I] * 9 + [_VP],
-    ("topk_wide", "ivf_retrieval_topk_wide"): [_VP] * 8 + [_I] * 6 + [_VP],
+    ("ivf_select", "ivf_retrieval_topk_select"): [_VP] * 9 + [_I] * 12 + [_VP],
 }
 _FNS: Dict[str, object] = {}   # entry point name -> ctypes function
 
@@ -233,10 +233,10 @@ def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner-product search, [Nq,D] x [Nd,D] (f32) ->
     (scores [Nq,k] f32, ids [Nq,k] int32) for any k >= 1; ties go to the
-    lower id, and slots beyond Nd are (-1e30, -1).  On CUDA the width
+    lower id, and slots beyond Nd are (-1e30, -1).  On CUDA the shape
     picks the kernel (``topk_route``): ``csrc/topk.cu`` up to
-    ``TOPK_NARROW_MAX``, ``csrc/topk_list.cu`` up to ``TOPK_LIST_MAX``,
-    ``csrc/topk_select.cu`` above."""
+    ``TOPK_NARROW_MAX``; above, ``csrc/topk_list.cu`` for a small corpus
+    or a single query at small k, ``csrc/topk_select.cu`` the rest."""
     _require(k >= 1, f"k={k} must be at least 1")
     if _on_cpu(queries, docs):
         return ref.topk_ref(queries, docs, k)
@@ -244,7 +244,7 @@ def retrieval_topk(queries: torch.Tensor, docs: torch.Tensor, k: int
     Nq, Nd = queries.shape[0], docs.shape[0]
     if Nq == 0:
         return _fill(0, k, queries.device)
-    route = topk_route(k)
+    route = topk_route(Nq, Nd, k)
     sms = torch.cuda.get_device_properties(queries.device
                                            ).multi_processor_count
     if route == "retrieval_topk_select":
@@ -267,7 +267,7 @@ def _check_exact(queries: torch.Tensor, docs: torch.Tensor) -> None:
              "queries and docs must be float32")
     _require(docs.shape == (Nd, D), f"docs {tuple(docs.shape)} vs D={D}")
     _require(D >= 1, "embedding width D must be at least 1")
-    _require(Nd < 2 ** 31 - WIDE_TILE, "doc count must fit int32")
+    _require(Nd < INT32_ROOM, "doc count must fit int32")
     _contiguous(queries=queries, docs=docs)
 
 
@@ -334,24 +334,30 @@ def ivf_retrieval_topk(queries: torch.Tensor, list_emb: torch.Tensor,
     list named twice is seen twice, and slots past the probed documents
     are (-1e30, -1).
 
-    On CUDA, for k up to ``TOPK_NARROW_MAX``, one launch scores each
+    On CUDA k picks the kernel (``ivf_route``).  Below ``IVF_SELECT_K``,
+    ``csrc/ivf_topk.cu``: one launch scores each
     probed list's live rows once per group of the (query, probe) pairs
     that name it (the cut is ``ivf_retrieval_topk_plan``), one sorted
     partial per (query, probe, split), and a second merges each query's
-    partials; a wider k runs ``csrc/topk_wide.cu``."""
+    partials.  From it, ``csrc/ivf_select.cu``: the same scan writes every
+    probed slot's score to a matrix, then an exact radix select, gather
+    and sort (the cut is ``ivf_retrieval_topk_select_plan``)."""
     _require(k >= 1, f"k={k} must be at least 1")
     if _on_cpu(queries, list_emb, list_ids, probe_ids):
         return ref.ivf_topk_ref(queries, list_emb, list_ids, probe_ids, k)
     if not _check_ivf(queries, list_emb, list_ids, probe_ids):
         return _fill(queries.shape[0], k, queries.device)
-    if wide_route(k):
-        return _ivf_wide_launch(queries, list_emb, list_ids, probe_ids, k)
     Nq, nprobe = probe_ids.shape
     n_lists, L, _ = list_emb.shape
-    _require(nprobe <= IVF_MAX_PARTIALS,
-             f"nprobe={nprobe} above {IVF_MAX_PARTIALS}")
     sms = torch.cuda.get_device_properties(queries.device
                                            ).multi_processor_count
+    if ivf_route(k) == "ivf_retrieval_topk_select":
+        chunk_q, _, *cut = ivf_retrieval_topk_select_plan(Nq, nprobe,
+                                                          n_lists, L, k, sms)
+        return _ivf_select_launch(queries, list_emb, list_ids, probe_ids, k,
+                                  chunk_q, *cut)
+    _require(nprobe <= IVF_MAX_PARTIALS,
+             f"nprobe={nprobe} above {IVF_MAX_PARTIALS}")
     return _ivf_launch(queries, list_emb, list_ids, probe_ids, k,
                        *ivf_retrieval_topk_plan(Nq, nprobe, n_lists, L, sms))
 
@@ -373,7 +379,7 @@ def _check_ivf(queries, list_emb, list_ids, probe_ids) -> bool:
              f"{tuple(list_ids.shape)}, probe_ids {tuple(probe_ids.shape)} "
              f"do not match queries {tuple(queries.shape)}")
     _require(Nq * nprobe < 2 ** 31 and n_lists < 2 ** 31
-             and nprobe * L < 2 ** 31 - WIDE_TILE,
+             and nprobe * L < INT32_ROOM,
              "probe table, list count and probed slots must fit int32")
     _contiguous(queries=queries, list_emb=list_emb, list_ids=list_ids,
                 probe_ids=probe_ids)
@@ -443,25 +449,61 @@ def ivf_retrieval_topk_plan(Nq: int, nprobe: int, n_lists: int, L: int,
 
 TOPK_NARROW_MAX = 32   # widest k of csrc/topk.cu and csrc/ivf_topk.cu
 TOPK_LIST_MAX = 6176   # widest k of csrc/topk_list.cu (its group of 4)
-WIDE_TILE = 1024       # candidates per tile of csrc/topk_wide.cu (kT)
+# doc and candidate counts the kernels index with int32, with room for
+# a chunk past the end
+INT32_ROOM = 2 ** 31 - 1024
 
 
-def wide_route(k: int) -> bool:
-    """True when a CUDA IVF top-k of width ``k`` runs
-    ``csrc/topk_wide.cu`` (k above ``TOPK_NARROW_MAX``), False when it runs
-    the narrow kernel."""
-    return k > TOPK_NARROW_MAX
+# From this k csrc/ivf_select.cu is as fast as csrc/ivf_topk.cu or faster
+# at every shape chip_smoke.py's kernels_ivf_grid times (PERF.md); below
+# it the narrow kernel keeps the queries of one or a few (its selection
+# costs less than the select route's passes over the score matrix).
+IVF_SELECT_K = 16
 
 
-def topk_route(k: int) -> str:
+def ivf_route(k: int) -> str:
+    """The entry point, and ``launches`` name, a CUDA IVF probe of width
+    ``k`` runs: ``ivf_retrieval_topk`` (``csrc/ivf_topk.cu``) below
+    ``IVF_SELECT_K``, ``ivf_retrieval_topk_select``
+    (``csrc/ivf_select.cu``) from it.  The crossing measured on the card
+    depends on k alone at the shapes timed."""
+    return ("ivf_retrieval_topk" if k < IVF_SELECT_K
+            else "ivf_retrieval_topk_select")
+
+
+# Where csrc/topk_list.cu beats csrc/topk_select.cu (chip_smoke.py's
+# kernels_topk_grid, PERF.md): a corpus of at most TOPK_LIST_DOCS docs,
+# which the list kernel scans in one block per query group, unless a
+# single query (whose warps then each keep a list of k) asks for
+# TOPK_LIST_SPREAD_K or more; over more docs, a single query up to
+# TOPK_LIST_ONE_K, and several query groups up to TOPK_LIST_GROUPS_K over
+# at most TOPK_LIST_GROUPS_DOCS docs (the list kernel's time stays flat
+# as groups are added, the select kernel's score matrix grows with Nq).
+# Elsewhere the select kernel's passes over the score matrix cost less
+# than the list kernel's merges into lists of k and its reads of the
+# docs once per group of 8.
+TOPK_LIST_DOCS = 4 * TOPK_TILE
+TOPK_LIST_SPREAD_K = 1024
+TOPK_LIST_ONE_K = 128
+TOPK_LIST_GROUPS_DOCS = 8192
+TOPK_LIST_GROUPS_K = 64
+
+
+def topk_route(Nq: int, Nd: int, k: int) -> str:
     """The entry point, and ``launches`` name, a CUDA exact top-k of
-    width ``k`` runs: ``retrieval_topk`` (``csrc/topk.cu``) up to
-    ``TOPK_NARROW_MAX``, ``retrieval_topk_list`` (``csrc/topk_list.cu``)
-    up to ``TOPK_LIST_MAX``, ``retrieval_topk_select``
-    (``csrc/topk_select.cu``) above."""
+    ``Nq`` queries over ``Nd`` docs at width ``k`` runs:
+    ``retrieval_topk`` (``csrc/topk.cu``) up to ``TOPK_NARROW_MAX``;
+    above, up to ``TOPK_LIST_MAX``, ``retrieval_topk_list``
+    (``csrc/topk_list.cu``) where the measured grid has it faster (see
+    ``TOPK_LIST_DOCS``); else ``retrieval_topk_select``
+    (``csrc/topk_select.cu``)."""
     if k <= TOPK_NARROW_MAX:
         return "retrieval_topk"
-    if k <= TOPK_LIST_MAX:
+    if k <= TOPK_LIST_MAX and (
+            (Nd <= TOPK_LIST_DOCS and (Nq > 1 or k < TOPK_LIST_SPREAD_K))
+            or (Nq == 1 and k <= TOPK_LIST_ONE_K)
+            or (Nq > TOPK_LIST_GROUPS[-1] and Nd <= TOPK_LIST_GROUPS_DOCS
+                and k <= TOPK_LIST_GROUPS_K)):
         return "retrieval_topk_list"
     return "retrieval_topk_select"
 
@@ -469,15 +511,12 @@ def topk_route(k: int) -> str:
 TOPK_CHUNK = 32       # dims per ring chunk (csrc/topk_core.cuh kKC)
 TOPK_STAGES = 2       # ring depth (kStages)
 TOPK_BUFFER = 32      # candidate buffer per (warp, query) (topk_list.cu kLB)
-TOPK_LIST_GROUPS = (4, 8, 16, 32)   # queries per block of topk_list.cu
+TOPK_LIST_GROUPS = (4, 8)   # queries per block of topk_list.cu
 SMEM_BLOCK = 232_448  # shared memory one block may take on sm_90 (kSmemMax)
 # ... and at most what two blocks may take each on one SM (228 KB, 1 KB
 # of it reserved per block)
 SMEM_TWO_BLOCKS = (233_472 - 2 * 1024) // 2
 TOPK_MERGE_ENTRIES = 4096   # lists x k one merge block holds at most
-# a split corpus gets the sample pass from this group size up
-# (topk_list.cu kSampleGroup)
-TOPK_LIST_SAMPLE_GROUP = 16
 # tests/test_torch_topk_wide_plan.py holds these and topk_list_smem to
 # csrc/topk_list.cu's own constants and scan_smem.
 
@@ -500,7 +539,8 @@ def retrieval_topk_wide_plan(Nq: int, Nd: int, k: int, sms: int
     ``TOPK_LIST_GROUPS`` that holds all Nq queries, among those whose
     block (``topk_list_smem``, which grows with k) lets two blocks share
     an SM; at a k where none does, 4.  So a wider k shrinks the group and
-    the docs are read ceil(Nq / group) times.  The splits follow
+    the docs are read ceil(Nq / group) times.  (``topk_route`` sends this
+    kernel few docs or a single query.)  The splits follow
     ``topk_list_splits``."""
     fits = [g for g in TOPK_LIST_GROUPS
             if topk_list_smem(g, k) <= SMEM_TWO_BLOCKS] or [
@@ -566,31 +606,6 @@ def _topk_list_launch(queries, docs, k: int, group: int, groups: int,
     return out_s, out_i
 
 
-def _ivf_wide_launch(queries, list_emb, list_ids, probe_ids, k: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/topk_wide.cu``'s IVF probe on checked CUDA inputs:
-    one block per query walks its probed lists' slots in tiles of
-    ``WIDE_TILE``."""
-    Nq, D = queries.shape
-    n_lists, L, _ = list_emb.shape
-    out_s, out_i, buf_s, buf_i = _wide_buffers(Nq, k, queries.device)
-    rc = _fn("topk_wide", "ivf_retrieval_topk_wide")(
-        _ptr(queries), _ptr(list_emb), _ptr(list_ids), _ptr(probe_ids),
-        _ptr(buf_s), _ptr(buf_i), _ptr(out_s), _ptr(out_i), Nq, n_lists, L,
-        D, probe_ids.shape[1], k, _stream(queries))
-    _check_rc(rc, "ivf_retrieval_topk_wide")
-    launches["ivf_retrieval_topk_wide"] += 1
-    return out_s, out_i
-
-
-def _wide_buffers(Nq: int, k: int, dev):
-    """Outputs [Nq, k] and the carried lists' double buffer [2, Nq, k]."""
-    return (torch.empty((Nq, k), dtype=torch.float32, device=dev),
-            torch.empty((Nq, k), dtype=torch.int32, device=dev),
-            torch.empty((2, Nq, k), dtype=torch.float32, device=dev),
-            torch.empty((2, Nq, k), dtype=torch.int32, device=dev))
-
-
 SELECT_BYTES = 1 << 30   # scratch of one csrc/topk_select.cu call, at most
 SELECT_BINS = 2048       # the widest radix digit's bins (topk_select.cu kBins)
 SELECT_STATE = 4         # ints of per-query state (kState)
@@ -619,35 +634,59 @@ def topk_select_bytes(chunk_q: int, Nd: int, k: int, n_sel: int) -> int:
     return 4 * n_s + 4 * n_w + 8 * n_c
 
 
+def _select_queries(Nq: int, n_cand: int, k: int) -> int:
+    """Queries a chunk of the select kernels holds: all Nq when their
+    scratch (``topk_select_scratch`` over ``n_cand`` candidates each)
+    fits ``SELECT_BYTES``, else as many as fit, at least one (a single
+    query over more candidates than the limit holds takes what it needs)
+    and at most 65535 (a grid dimension)."""
+    per_q = topk_select_bytes(1, n_cand, k, SELECT_MAX_CHUNKS)
+    return max(1, min(Nq, 65535, SELECT_BYTES // per_q))
+
+
+def _select_chunks(chunk_q: int, n_cand: int, sms: int) -> Tuple[int, int]:
+    """(select chunks, candidates a chunk) of the select passes over a
+    chunk of ``chunk_q`` queries: each query's ``n_cand`` candidates cut
+    into chunks of a multiple of 4, enough for about four blocks per SM
+    over the ``sms`` SMs, but at most ``SELECT_MAX_CHUNKS`` (one block a
+    query sums their histograms) and each at least ``SELECT_MIN_CHUNK``
+    candidates; the chunks cover [0, n_cand) without overlap."""
+    n_sel = max(1, min(SELECT_MAX_CHUNKS, -(-4 * sms // chunk_q),
+                       n_cand // SELECT_MIN_CHUNK))
+    sel_per = max(4, -(-(-(-n_cand // n_sel)) // 4) * 4)
+    return max(1, -(-n_cand // sel_per)), sel_per
+
+
+def _select_buffers(Nq: int, chunk_q: int, n_cand: int, k: int, n_sel: int,
+                    dev) -> Tuple[torch.Tensor, ...]:
+    """The select kernels' scratch (``topk_select_scratch``: scores, work
+    ints, candidate entries) and outputs [Nq, k]."""
+    n_s, n_w, n_c = topk_select_scratch(chunk_q, n_cand, k, n_sel)
+    return (torch.empty(n_s, dtype=torch.float32, device=dev),
+            torch.empty(n_w, dtype=torch.int32, device=dev),
+            torch.empty(n_c, dtype=torch.int64, device=dev),
+            torch.empty((Nq, k), dtype=torch.float32, device=dev),
+            torch.empty((Nq, k), dtype=torch.int32, device=dev))
+
+
 def retrieval_topk_select_plan(Nq: int, Nd: int, k: int, sms: int
                                ) -> Tuple[int, int, int, int, int, int]:
-    """How ``csrc/topk_select.cu`` cuts a top-k of width ``k`` (above
-    ``TOPK_LIST_MAX``): (queries per chunk, query chunks, doc splits of
-    the scan, docs per split, select chunks, docs per select chunk).
+    """How ``csrc/topk_select.cu`` cuts a top-k of width ``k``: (queries
+    per chunk, query chunks, doc splits of the scan, docs per split,
+    select chunks, docs per select chunk).
 
-    The queries run in chunks whose scratch (``topk_select_scratch``)
-    stays within ``SELECT_BYTES``: all Nq when they fit, else as many as
-    fit, a multiple of ``TOPK_GROUP`` when that is one or more (whole scan
-    groups), at least
-    one (a single query over more docs than the limit holds takes what it
-    needs) and at most 65535 (a grid dimension).  In a chunk the scan's
-    grid is (query group, doc split) of ``retrieval_topk_plan``, so each
-    doc row is read once per group.  The select passes cut each query's
-    docs into chunks of a multiple of 4 docs, enough for about four
-    blocks per SM over the ``sms`` SMs, but at most
-    ``SELECT_MAX_CHUNKS`` (one block a query sums their histograms) and
-    each at least ``SELECT_MIN_CHUNK`` docs.  Splits and select chunks
-    each cover [0, Nd) without overlap."""
-    per_q = topk_select_bytes(1, Nd, k, SELECT_MAX_CHUNKS)
-    chunk_q = max(1, min(Nq, 65535, SELECT_BYTES // per_q))
+    The queries run in chunks of ``_select_queries``, cut to a multiple of
+    ``TOPK_GROUP`` when that is one or more (whole scan groups).  In a
+    chunk the scan's grid is (query group, doc split) of
+    ``retrieval_topk_plan``, so each doc row is read once per group, and
+    the select passes cut each query's docs as ``_select_chunks`` says.
+    Splits and select chunks each cover [0, Nd) without overlap."""
+    chunk_q = _select_queries(Nq, Nd, k)
     if TOPK_GROUP <= chunk_q < Nq:
         chunk_q -= chunk_q % TOPK_GROUP
     _, n_splits, per = retrieval_topk_plan(chunk_q, Nd, sms)
-    n_sel = max(1, min(SELECT_MAX_CHUNKS, -(-4 * sms // chunk_q),
-                       Nd // SELECT_MIN_CHUNK))
-    sel_per = max(4, -(-(-(-Nd // n_sel)) // 4) * 4)
     return (chunk_q, -(-Nq // chunk_q), n_splits, per,
-            max(1, -(-Nd // sel_per)), sel_per)
+            *_select_chunks(chunk_q, Nd, sms))
 
 
 def _topk_select_launch(queries, docs, k: int, chunk_q: int, n_splits: int,
@@ -658,16 +697,53 @@ def _topk_select_launch(queries, docs, k: int, chunk_q: int, n_splits: int,
     levels) on checked CUDA inputs."""
     Nq, D = queries.shape
     Nd = docs.shape[0]
-    dev = queries.device
-    n_s, n_w, n_c = topk_select_scratch(chunk_q, Nd, k, n_sel)
-    scores = torch.empty(n_s, dtype=torch.float32, device=dev)
-    work = torch.empty(n_w, dtype=torch.int32, device=dev)
-    cand = torch.empty(n_c, dtype=torch.int64, device=dev)
-    out_s = torch.empty((Nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Nq, k), dtype=torch.int32, device=dev)
+    bufs = _select_buffers(Nq, chunk_q, Nd, k, n_sel, queries.device)
     rc = _fn("topk_select", "retrieval_topk_select")(
-        *map(_ptr, (queries, docs, scores, work, cand, out_s, out_i)), Nq,
-        Nd, D, k, chunk_q, per, n_splits, n_sel, sel_per, _stream(queries))
+        *map(_ptr, (queries, docs, *bufs)), Nq, Nd, D, k, chunk_q, per,
+        n_splits, n_sel, sel_per, _stream(queries))
     _check_rc(rc, "retrieval_topk_select")
     launches["retrieval_topk_select"] += 1
-    return out_s, out_i
+    return bufs[3], bufs[4]
+
+
+def ivf_retrieval_topk_select_plan(Nq: int, nprobe: int, n_lists: int,
+                                   L: int, k: int, sms: int
+                                   ) -> Tuple[int, int, int, int, int, int,
+                                              int]:
+    """How ``csrc/ivf_select.cu`` cuts an IVF probe of width ``k``: (queries
+    per chunk, query chunks, group blocks, splits per list, rows per split,
+    select chunks, columns per select chunk).
+
+    The queries run in chunks of ``_select_queries`` over the nprobe * L
+    candidate columns.  In a chunk the scan's grid is
+    ``ivf_retrieval_topk_plan``'s (list, split, group block), so each
+    probed list's live rows are read once per group of ``IVF_GROUP``
+    pairs, and the select passes cut each query's columns as
+    ``_select_chunks`` says.  Splits cover [0, L) and select chunks [0,
+    nprobe * L) without overlap."""
+    n_cand = nprobe * L
+    chunk_q = _select_queries(Nq, n_cand, k)
+    return (chunk_q, -(-Nq // chunk_q),
+            *ivf_retrieval_topk_plan(chunk_q, nprobe, n_lists, L, sms),
+            *_select_chunks(chunk_q, n_cand, sms))
+
+
+def _ivf_select_launch(queries, list_emb, list_ids, probe_ids, k: int,
+                       chunk_q: int, group_blocks: int, n_splits: int,
+                       per: int, n_sel: int, sel_per: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/ivf_select.cu`` (per chunk of ``chunk_q`` queries: the
+    fill, the scan, then the sort of each row of S or the three select
+    rounds, the gather, the sort and its merge levels) on checked CUDA
+    inputs."""
+    Nq, D = queries.shape
+    n_lists, L, _ = list_emb.shape
+    nprobe = probe_ids.shape[1]
+    bufs = _select_buffers(Nq, chunk_q, nprobe * L, k, n_sel, queries.device)
+    rc = _fn("ivf_select", "ivf_retrieval_topk_select")(
+        *map(_ptr, (queries, list_emb, list_ids, probe_ids, *bufs)), Nq,
+        n_lists, L, D, nprobe, k, chunk_q, per, n_splits, group_blocks,
+        n_sel, sel_per, _stream(queries))
+    _check_rc(rc, "ivf_retrieval_topk_select")
+    launches["ivf_retrieval_topk_select"] += 1
+    return bufs[3], bufs[4]

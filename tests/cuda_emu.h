@@ -6,11 +6,13 @@
 // dynamic shared memory is one buffer, filled with 0x7f bytes (a score
 // that beats every real one) before each block, so a read of a slot the
 // kernel never wrote shows up in its results.  Used by
-// tests/test_torch_topk_wide.py and tests/test_torch_topk_wide_plan.py
-// to run csrc/topk_wide.cu and csrc/topk_list.cu as written; it checks a
-// kernel's logic (ranks, merges, barriers, warp exchanges), not its speed
-// or what nvcc makes of it.  Also used by tests/test_torch_topk_select.py
-// (csrc/topk_select.cu: shared-memory atomics, block-wide votes, scans).
+// tests/test_torch_topk_wide_plan.py to run csrc/topk_list.cu and
+// csrc/topk.cu as written; it checks a kernel's logic (ranks, merges,
+// barriers, warp exchanges), not its speed or what nvcc makes of it.
+// Also used by tests/test_torch_topk_select.py (csrc/topk_select.cu:
+// shared-memory atomics, block-wide votes, scans) and
+// tests/test_torch_ivf_select.py (csrc/ivf_select.cu and csrc/ivf_topk.cu:
+// three-dimensional grids, __ffs).
 #pragma once
 #include <algorithm>
 #include <array>
@@ -30,7 +32,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __noinline__ __attribute__((noinline))
 #define __align__(n) alignas(n)
@@ -115,6 +117,7 @@ inline int __any_sync(unsigned mask, int pred) {
   return __ballot_sync(mask, pred) != 0;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline int __clz(int x) {
   return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x));
 }
@@ -190,26 +193,18 @@ void emu_block(int block, K kernel, A... args) {
 
 // kernel<<<grid, block, smem, stream>>>(args...) becomes
 // emu_launch_dyn(grid, block, smem, kernel, args...): blocks one after
-// another in x-fastest order, each with fresh dynamic shared memory.
+// another in x-fastest, then y, then z order, each with fresh dynamic
+// shared memory.
 template <typename K, typename... A>
 void emu_launch_dyn(dim3 grid, int block, size_t smem, K kernel, A... args) {
   gridDim = grid;
-  for (unsigned y = 0; y < grid.y; ++y)
-    for (unsigned x = 0; x < grid.x; ++x) {
-      blockIdx = dim3(x, y, 0);
-      emu_smem.assign((smem + 15) / 16, float4{});
-      std::memset(emu_smem.data(), 0x7f, emu_smem.size() * sizeof(float4));
-      emu_block(block, kernel, args...);
-    }
-}
-
-// kernel<<<grid, block>>>(args...) becomes emu_launch(grid, block, kernel,
-// args...): blocks one after another, each with `block` threads.
-template <typename K, typename... A>
-void emu_launch(int grid, int block, K kernel, A... args) {
-  gridDim.x = grid;
-  for (int b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    emu_block(block, kernel, args...);
-  }
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = dim3(x, y, z);
+        emu_smem.assign((smem + 15) / 16, float4{});
+        std::memset(emu_smem.data(), 0x7f,
+                    emu_smem.size() * sizeof(float4));
+        emu_block(block, kernel, args...);
+      }
 }

@@ -189,7 +189,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
                             "ivf_retrieval_topk": 0,
                             "retrieval_topk_list": 0,
                             "retrieval_topk_select": 0,
-                            "ivf_retrieval_topk_wide": 0}
+                            "ivf_retrieval_topk_select": 0}
 
 
 def test_wrappers_reject_other_devices():

@@ -132,13 +132,25 @@ def test_select_plan_1m_docs_is_one_chunk_and_fills_the_card():
     assert n_splits >= 132 and n_sel == ops.SELECT_MAX_CHUNKS
 
 
-def test_route_boundaries_6176_6177():
+@pytest.mark.parametrize("shape,route", [
+    ((8, 240, LIMIT), "retrieval_topk_list"),
+    ((8, 240, LIMIT + 1), "retrieval_topk_select"),
+    ((1, 240, LIMIT), "retrieval_topk_select"),
+    ((8, 8192, LIMIT), "retrieval_topk_select"),
+    ((32, 1_000_000, LIMIT), "retrieval_topk_select"),
+    ((32, 1_000_000, 16384), "retrieval_topk_select"),
+    ((1, 1_000_000, 65536), "retrieval_topk_select"),
+    ((3, 100, 10 ** 7), "retrieval_topk_select"),
+], ids=lambda x: str(x))
+def test_route_boundaries_6176_6177(shape, route):
+    """Above the limit every shape is the select kernel's; at it, the list
+    kernel keeps only a small corpus with more than one query (the
+    measured grid, PERF.md)."""
     assert LIMIT == 6176
-    assert ops.topk_route(LIMIT) == "retrieval_topk_list"
-    assert [ops.topk_route(k) for k in (LIMIT + 1, 16384, 65536, 10 ** 7)] \
-        == ["retrieval_topk_select"] * 4
+    assert ops.topk_route(*shape) == route
     assert "retrieval_topk_select" in ops.launches
     assert "retrieval_topk_wide" not in ops.launches
+    assert "ivf_retrieval_topk_wide" not in ops.launches
     assert ("topk_select", "retrieval_topk_select") in ops._SIGNATURES
     assert build.SOURCES["topk_select"] == "topk_select.cu"
 
@@ -336,7 +348,9 @@ def emulated(tmp_path_factory):
                     "emulated on the CPU")
     tmp = tmp_path_factory.mktemp("topk_select_emu")
     (tmp / "common.cuh").write_text('#include "cuda_emu.h"\n')
-    shutil.copy(build.CSRC / "topk_core.cuh", tmp / "topk_core.cuh")
+    for header in ("topk_core.cuh", "select_core.cuh"):
+        (tmp / header).write_text(_emulated_source(
+            (build.CSRC / header).read_text()))
     here = build.CSRC.parents[3] / "tests"
     libs, procs = {}, []
     for lib in ("topk_select", "topk_list", "topk"):
@@ -375,13 +389,13 @@ def emulated(tmp_path_factory):
 # its work_ints, which ops.topk_select_scratch must agree with.
 _LAYOUT_SHIM = """
 extern "C" void emu_select_layout(long long* out) {
-  out[0] = kBins;
-  out[1] = kState;
+  out[0] = sel::kBins;
+  out[1] = sel::kState;
   out[2] = kG;
-  out[3] = kRun;
+  out[3] = sel::kRun;
 }
 extern "C" long long emu_work_ints(int chunk_q, int n_sel) {
-  return static_cast<long long>(work_ints(chunk_q, n_sel));
+  return static_cast<long long>(sel::work_ints(chunk_q, n_sel));
 }
 """
 

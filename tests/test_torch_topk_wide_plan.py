@@ -3,14 +3,13 @@
 CUDA source, on the CPU.
 
 - ``ops.retrieval_topk_wide_plan``: every doc in exactly one split, the
-  query group shrinking with k so that the lists fit shared memory, the
-  route boundaries at k 32/33 and at the limit, the merge's fan-in.
+  query group (8 or 4) shrinking with k so that the lists fit shared
+  memory, the route (``ops.topk_route``) on the measured grid, the
+  merge's fan-in.
 - The design emulated with numpy at small buffers (so that they
-  overflow and merge many times): the sample pass (the first tile of
-  every split, whose merged k-th starts every split's threshold), per
-  (group, split) block a running threshold, a candidate buffer and a
-  sorted list of k merged by ranks; then the splits' lists merged by a
-  tree of pairwise rank merges.  Held
+  overflow and merge many times): per (group, split) block a running
+  threshold, a candidate buffer and a sorted list of k merged by ranks;
+  then the splits' lists merged by a tree of pairwise rank merges.  Held
   to the plain version ``ref.topk_ref`` and to the reference's Pallas
   kernel in interpret mode at k 33, 64, 256 and the limit, k above a
   split's docs and above Nd, Nq off a group, D 30, and duplicate rows
@@ -110,16 +109,15 @@ def test_wide_plan_group_shrinks_with_k_so_the_lists_fit():
             assert group == max(two) and smem <= ops.SMEM_TWO_BLOCKS, k
         else:
             assert group == 4, k
-    assert ops.retrieval_topk_wide_plan(32, 10 ** 6, 64, 132)[0] == 32
-    assert ops.retrieval_topk_wide_plan(32, 10 ** 6, 256, 132)[0] == 32
-    assert ops.retrieval_topk_wide_plan(32, 10 ** 6, 261, 132)[0] == 16
-    assert ops.retrieval_topk_wide_plan(32, 10 ** 6, 1024, 132)[0] == 8
+    assert ops.retrieval_topk_wide_plan(32, 10 ** 6, 64, 132)[0] == 8
+    assert ops.retrieval_topk_wide_plan(32, 10 ** 6, 1232, 132)[0] == 8
+    assert ops.retrieval_topk_wide_plan(32, 10 ** 6, 1233, 132)[0] == 4
     assert ops.retrieval_topk_wide_plan(32, 10 ** 6, LIMIT, 132)[0] == 4
 
 
 @pytest.mark.parametrize("Nq,group", [(1, 4), (4, 4), (5, 8), (8, 8),
-                                      (9, 16), (16, 16), (17, 32), (32, 32),
-                                      (33, 32), (1000, 32)])
+                                      (9, 8), (16, 8), (17, 8), (32, 8),
+                                      (33, 8), (1000, 8)])
 def test_wide_plan_group_is_the_smallest_holding_the_queries(Nq, group):
     got, groups, _, _ = ops.retrieval_topk_wide_plan(Nq, 10_000, 64, 132)
     assert got == group
@@ -138,24 +136,58 @@ def test_wide_plan_main_path_is_one_block_and_1m_docs_fill_the_card():
     assert groups * n_splits >= 132
 
 
-def test_route_boundaries():
-    """k 32 is the narrow kernel's, 33 .. TOPK_LIST_MAX the list kernel's
-    and above it csrc/topk_select.cu's; the limit is the widest list whose
-    block fits shared memory at the smallest group, 4."""
-    assert [ops.topk_route(k) for k in (1, 31, 32)] == ["retrieval_topk"] * 3
-    assert [ops.topk_route(k) for k in (33, 64, 256, 1024, LIMIT)] == \
-        ["retrieval_topk_list"] * 5
-    assert [ops.topk_route(k) for k in (LIMIT + 1, 10 ** 6)] == \
-        ["retrieval_topk_select"] * 2
+# (Nq, Nd, k) -> the route: the cells of chip_smoke.py's kernels_topk_grid
+# (Nd 240, 8192 and 1M; Nq 1, 8 and 32; k 64 .. 6176) by the kernel the
+# card found faster there, the boundaries of the rule between them, and
+# k 32/33 and the limit
+ROUTES = [
+    ((1, 240, 32), "retrieval_topk"), ((32, 10 ** 6, 32), "retrieval_topk"),
+    ((1, 240, 33), "retrieval_topk_list"),
+    ((1, 240, 512), "retrieval_topk_list"),
+    ((1, 240, 1023), "retrieval_topk_list"),
+    ((1, 240, 1024), "retrieval_topk_select"),
+    ((1, 240, 6176), "retrieval_topk_select"),
+    ((8, 240, 64), "retrieval_topk_list"),
+    ((8, 240, 6176), "retrieval_topk_list"),
+    ((32, 240, 64), "retrieval_topk_list"),
+    ((32, 240, 6176), "retrieval_topk_list"),
+    ((2, 512, LIMIT), "retrieval_topk_list"),
+    ((2, 513, 64), "retrieval_topk_select"),
+    ((1, 513, 128), "retrieval_topk_list"),
+    ((1, 8192, 64), "retrieval_topk_list"),
+    ((1, 8192, 128), "retrieval_topk_list"),
+    ((1, 8192, 129), "retrieval_topk_select"),
+    ((8, 8192, 64), "retrieval_topk_select"),
+    ((32, 8192, 64), "retrieval_topk_list"),
+    ((9, 8192, 64), "retrieval_topk_list"),
+    ((32, 8192, 65), "retrieval_topk_select"),
+    ((32, 8193, 64), "retrieval_topk_select"),
+    ((32, 8192, 128), "retrieval_topk_select"),
+    ((1, 10 ** 6, 64), "retrieval_topk_list"),
+    ((1, 10 ** 6, 256), "retrieval_topk_select"),
+    ((8, 10 ** 6, 64), "retrieval_topk_select"),
+    ((32, 10 ** 6, 1024), "retrieval_topk_select"),
+    ((8, 240, LIMIT + 1), "retrieval_topk_select"),
+    ((1, 10 ** 6, 10 ** 6), "retrieval_topk_select"),
+]
+
+
+@pytest.mark.parametrize("shape,route", ROUTES, ids=lambda x: str(x))
+def test_route_boundaries(shape, route):
+    """k 32 is the narrow kernel's.  Above it, up to the limit (the widest
+    list whose block fits shared memory at the smallest group, 4), the
+    list kernel takes a corpus of at most ops.TOPK_LIST_DOCS docs unless
+    one query asks for ops.TOPK_LIST_SPREAD_K or more, over more docs one
+    query up to ops.TOPK_LIST_ONE_K, and more than one group of 8 queries
+    up to ops.TOPK_LIST_GROUPS_K over at most ops.TOPK_LIST_GROUPS_DOCS
+    docs; csrc/topk_select.cu the rest."""
+    assert ops.topk_route(*shape) == route
+    assert route in ops.launches
     assert ops.topk_list_smem(4, LIMIT) <= ops.SMEM_BLOCK
     assert ops.topk_list_smem(4, LIMIT + 1) > ops.SMEM_BLOCK
-    assert LIMIT >= 1024
     assert ops.SMEM_BLOCK == 227 * 1024
     assert 2 * (ops.SMEM_TWO_BLOCKS + 1024) <= 228 * 1024
-    assert ops.topk_list_smem(32, 64) == 65_536
-    for route in ("retrieval_topk", "retrieval_topk_list",
-                  "retrieval_topk_select"):
-        assert route in ops.launches
+    assert ops.topk_list_smem(8, 64) == 40_960
 
 
 @pytest.mark.parametrize("k", [33, 64, 65, 128, 256, 257, 1024, 2048, 2049,
@@ -256,29 +288,16 @@ def _merge_tree(lists, k, fan_in):
 
 
 def _emulate(scores, k, plan, buffer, batch, fan_in):
-    """The design on precomputed scores [Nq, Nd].  One split: its block's
-    list.  Several: at a group of ``ops.TOPK_LIST_SAMPLE_GROUP`` or more,
-    first the sample, the first tile of every split, scanned and merged;
-    its k-th, made inclusive (id + 1), is the threshold every split's
-    scan starts from; then the full scan and the merge of the splits'
-    lists."""
-    group, _, n_splits, per = plan
+    """The design on precomputed scores [Nq, Nd]: each split's block's
+    list, then the merge of the splits' lists."""
+    _, _, n_splits, per = plan
     Nq, Nd = scores.shape
     spans = _splits(Nd, n_splits, per)
-    sample = n_splits > 1 and group >= ops.TOPK_LIST_SAMPLE_GROUP
     out_s = np.empty((Nq, k), np.float32)
     out_i = np.empty((Nq, k), np.int64)
     flushes = 0
     for q in range(Nq):
         start = np.uint64(2 ** 64 - 1)
-        if sample:
-            sample, n = _scan(scores[q], [(a, min(b, a + TILE))
-                                          for a, b in spans], k, buffer,
-                              batch, start)
-            ts, ti = _merge_tree(sample, k, fan_in)
-            if ti[-1] >= 0:
-                start = _keys([ts[-1]], [ti[-1]])[0] + np.uint64(1)
-            flushes += n
         lists, n = _scan(scores[q], spans, k, buffer, batch, start)
         flushes += n
         ls, li = _merge_tree(lists, k, fan_in)
@@ -358,27 +377,6 @@ def test_design_duplicates_across_tile_and_split_boundaries():
     for row, g in enumerate(dups):
         assert list(i[row, :len(g)]) == list(g)
         assert (s[row, :len(g)] == s[row, 0]).all()
-
-
-def _sample_holds_top(rng, D=8, k=40, Nq=6, group=16):
-    """4 splits of 2 tiles, and queries whose best docs all lie in the
-    first tile of a split (the sample): the sample's k-th is the result's
-    k-th, and has to pass the threshold it sets."""
-    Nd, per = 8 * TILE, 2 * TILE
-    d = _unit(rng, Nd, D)
-    d[:, 0] = np.where(np.arange(Nd) % per < TILE,
-                       rng.uniform(0.5, 1.0, Nd), rng.uniform(-1.0, 0.0, Nd))
-    q = np.zeros((Nq, D), np.float32)
-    q[:, 0] = 1.0
-    q[:, 1] = 1e-3 * np.arange(Nq)
-    return q, d.astype(np.float32), k, (group, -(-Nq // group), Nd // per,
-                                        per)
-
-
-def test_design_sample_holding_the_top_k():
-    q, d, k, plan = _sample_holds_top(np.random.default_rng(23))
-    _, i, _ = _check(q, d, k, plan)
-    assert ((i % (2 * TILE)) < TILE).all()
 
 
 # --------------------------------------- the CUDA source, emulated on CPU
@@ -465,7 +463,6 @@ extern "C" void emu_layout(long long* out) {
   out[2] = kStages;
   out[3] = kLB;
   out[4] = kSmemMax;
-  out[5] = kSampleGroup;
 }
 extern "C" long long emu_scan_smem(int group, int k) {
   return static_cast<long long>(scan_smem(group, k));
@@ -474,15 +471,14 @@ extern "C" long long emu_scan_smem(int group, int k) {
 
 
 def test_cuda_source_layout_matches_the_plan(emulated):
-    """ops.topk_list_smem, the constants it is made of, the limit and the
-    sample pass's group are csrc/topk_list.cu's own: a change to the
-    kernel's layout that the plan does not follow fails here, not as an
-    invalid-value return on the card."""
-    out = (ctypes.c_longlong * 6)()
+    """ops.topk_list_smem, the constants it is made of and the limit are
+    csrc/topk_list.cu's own: a change to the kernel's layout that the plan
+    does not follow fails here, not as an invalid-value return on the
+    card."""
+    out = (ctypes.c_longlong * 5)()
     emulated["layout"](out)
     assert list(out) == [TILE, ops.TOPK_CHUNK, ops.TOPK_STAGES,
-                         ops.TOPK_BUFFER, ops.SMEM_BLOCK,
-                         ops.TOPK_LIST_SAMPLE_GROUP]
+                         ops.TOPK_BUFFER, ops.SMEM_BLOCK]
     for group in ops.TOPK_LIST_GROUPS:
         for k in (33, 64, 256, 261, 1000, 2529, LIMIT, LIMIT + 1):
             assert emulated["scan_smem"](group, k) == ops.topk_list_smem(
@@ -528,8 +524,8 @@ def _plain(q, d, k):
 # (Nq, Nd, D, k, (group, docs per split) forced or None, fan-in or None)
 SOURCE_CASES = {
     "main path, group 8": (8, 240, 32, 64, None, None),
-    "group 32, Nq 33, 3 splits": (33, 900, 16, 50, (32, 3 * TILE), None),
-    "group 16, k 256 > split": (12, 700, 8, 256, (16, 2 * TILE), 2),
+    "group 8, Nq 33, 3 splits": (33, 900, 16, 50, (8, 3 * TILE), None),
+    "group 8, k 256 > split": (12, 700, 8, 256, (8, 2 * TILE), 2),
     "group 4, 3 merge levels": (3, 2000, 8, 40, (4, TILE), 2),
     "spread, Nq 1": (1, 2000, 8, 70, None, None),
     "spread, Nq 2 of group 8": (2, 900, 8, 40, (8, 2 * TILE), None),
@@ -571,12 +567,12 @@ def test_cuda_source_emulated_unaligned_pointer(emulated):
     assert _ids_agree(s_r, i, i_r)
 
 
-@pytest.mark.parametrize("group,Nq", [(4, 3), (4, 1), (32, 3)])
+@pytest.mark.parametrize("group,Nq", [(4, 3), (4, 1), (8, 2)])
 def test_cuda_source_emulated_ties_across_tiles_and_splits(emulated, group,
                                                            Nq):
     """Equal doc rows across a tile boundary and a split boundary, and far
     apart: ids lowest first, with one list per query and with spread
-    warps' lists (Nq 1 at group 4; Nq 3 at group 32)."""
+    warps' lists (Nq 1 at group 4; Nq 2 at group 8)."""
     rng = np.random.default_rng(group + Nq)
     d = _unit(rng, 2000, 16)
     dups = [(127, 128), (255, 256, 1000), (5, 1999)]
@@ -614,18 +610,3 @@ def test_cuda_source_emulated_k64_first_32_equal_narrow_k32(emulated, Nq,
     s32, i32 = _run_narrow(emulated, q, d, 32)
     np.testing.assert_array_equal(s64[:, :32], s32)
     np.testing.assert_array_equal(i64[:, :32], i32)
-
-
-@pytest.mark.parametrize("Nq,group", [(6, 16), (2, 16), (20, 32)],
-                         ids=["group 16", "spread", "group 32"])
-def test_cuda_source_emulated_sample_holding_the_top_k(emulated, Nq, group):
-    """Through the sample pass, with one list per (warp, query) and with
-    spread warps' lists, and the inclusive threshold it hands the scan."""
-    q, d, k, plan = _sample_holds_top(np.random.default_rng(23), Nq=Nq,
-                                      group=group)
-    s, i = _run_list(emulated, torch.from_numpy(q), torch.from_numpy(d), k,
-                     plan)
-    s_r, i_r = _plain(torch.from_numpy(q), torch.from_numpy(d), k)
-    np.testing.assert_allclose(s, s_r, rtol=0, atol=TOL)
-    assert _ids_agree(s_r, i, i_r)
-    assert ((i % (2 * TILE)) < TILE).all()
