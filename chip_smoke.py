@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases card,build,kernels
     python3 chip_smoke.py --phases card,build,cluster
     python3 chip_smoke.py --phases card,build,cluster,runtime
+    python3 chip_smoke.py --phases card,build,launcher
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
                                           # + topk.cu rebuilt with other knobs
@@ -38,8 +39,9 @@ Phases, in order:
            pass of node 1's slots, synchronised around every prefill
            chunk, decode step and recurrent cell, splits its time
            between mLSTM and sLSTM layers
-  runtime  the launcher's path (cluster_serve.py) over fresh nodes of
-           the same cluster (the cluster phase's weights): the PPO
+  runtime  the scheduler's path (ClusterRuntime and replay_trace, as
+           cluster_serve drives them) over fresh per-slot nodes of the
+           same cluster (the cluster phase's weights): the PPO
            identifier on the card, ClusterRuntime with metrics and SLO
            feedback, profiled capacities, then replay_trace of 3 uniform
            slots of 12 queries at SLO 1.5 s (every launch count at 0
@@ -52,6 +54,27 @@ Phases, in order:
            the CPU, capacities pinned: assignments, answers and
            ppo_updates equal, the policies after the update within the
            CPU tests' tolerance
+  launcher the port's launcher (src/repro_torch/launch/cluster_serve.py).
+           (a) build_cluster over the cluster phase's weights with
+           standing paged queues (one session per node for the whole
+           run), SJF admission, federated IVF retrieval and semantic
+           caches; span tracing on (obs.enable, which also feeds the SLO
+           monitors); ClusterRuntime with SLO feedback, profiled; a spike
+           replay of 4 slots of base 12 at SLO 1.5 s (every launch count
+           at 0 just before, read just after: the IVF probe on both
+           nodes, attention on node 0 only); runtime.close() drains the
+           standing sessions.  Checks nothing is unfinished after it,
+           every query has a result, one paged frame per node, and that
+           the exported trace (build/trace_launcher.jsonl) passes
+           tools/trace_report.py --check; prints per-slot drop rate, p50
+           and p95, TTFT per node, span counts and total ms by span name,
+           the trace's size and peak device memory, and whether a request
+           straddled a slot.  (b) The README's cluster_serve command and
+           CI's saturation smoke through the port's main on the card
+           (traces under build/, each through trace_report --check, the
+           metrics self-probe printing OK, a non-zero exit failing the
+           phase), each with its own launch counts (flat top-k and
+           attention launched)
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -120,6 +143,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import re
 import statistics
@@ -131,8 +155,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "kernels",
-              "parity")
+ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
+              "kernels", "parity")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -1224,6 +1248,179 @@ def runtime_parity(torch) -> None:
     check(worst <= 2 * id_c.lr * steps and stats_ok and train_err <= 1e-4
           and eval_err <= 1e-4,
           "runtime parity: the policies after the update differ")
+
+
+LAUNCHER_SLOTS = 4       # the CI saturation smoke's --slots
+LAUNCHER_VOLUME = 12     # its --per-slot (spike: 4x in slots 2 and 3)
+# the README quickstart's cluster command (README.md), and the CI
+# saturation smoke (.github/workflows/ci.yml), through the port's CLI
+README_ARGS = ["--smoke", "--nodes", "2", "--slots", "2", "--standing",
+               "--paged", "--admission", "sjf", "--federated",
+               "--metrics-every", "1", "--metrics-port", "0"]
+CI_ARGS = ["--smoke", "--nodes", "2", "--slots", "4", "--per-slot", "12",
+           "--standing", "--paged", "--trace", "spike", "--metrics-port",
+           "0", "--require-healthy-exit"]
+
+
+def _trace_check(path: Path) -> str:
+    """``tools/trace_report.py <path> --check``, run as CI runs it."""
+    out = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "trace_report.py"),
+                          str(path), "--check"], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"trace_report --check failed on {path}:\n"
+          f"{out.stdout}{out.stderr}")
+    return out.stdout.strip()
+
+
+def phase_launcher(torch, card) -> dict:
+    """(a) The slice's path at published width: ``build_cluster`` over
+    the cluster phase's bf16 weights with standing paged queues, SJF,
+    federated IVF retrieval and semantic caches; tracing on (which also
+    feeds the SLO monitors); ``ClusterRuntime`` with SLO feedback,
+    profiled; a spike replay with every launch count at 0 just before and
+    read just after; ``runtime.close()`` drains the standing sessions.
+    (b) The README's and CI's cluster_serve commands through the port's
+    ``main`` on the card, each with its own launch counts.  Returns the
+    launches of (a) and (b) together."""
+    from repro_torch import obs
+    from repro_torch.cluster import ClusterRuntime, LiveWorkload, \
+        replay_trace
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cluster_serve
+    cfgs, params = _cluster_models(torch)
+    tag = f"[{card['smi']}]"
+    nodes, qas, _, enc, ident, _ = cluster_serve.build_cluster(
+        2, archs=CLUSTER_ARCHS, models=list(zip(cfgs, params)),
+        entities=40, index_kind="ivf", federated=True, cache=True,
+        queue="standing", paged=True, admission="sjf", batch=4, max_len=512,
+        prefill_chunk=16, block_size=16, top_k=3, new_tokens=16, device=DEV)
+    check([n.queue_kind for n in nodes] == ["standing"] * 2,
+          "build_cluster did not build standing nodes")
+    obs.registry().reset()
+    rec = obs.enable()
+    events, slots, straddled = [], [], []
+    per_node = [dict.fromkeys(ops.launches, 0) for _ in nodes]
+    try:
+        runtime = ClusterRuntime(nodes, ident, seed=0, slo_feedback=True)
+        t0 = time.perf_counter()
+        runtime.initialize()
+        torch.cuda.synchronize()
+        log(f"launcher: built and profiled in {time.perf_counter() - t0:.3f}"
+            f" s; capacities "
+            f"{[round(n.capacity.k, 3) for n in nodes]} q/s {tag}")
+        _watch_runtime(runtime, events)
+        for n, node in enumerate(nodes):
+            serve = node.process_slot
+
+            def counted(queries, slo_s, scheduler=None, n=n, node=node,
+                        serve=serve):
+                before = dict(ops.launches)
+                out = serve(queries, slo_s, scheduler=scheduler)
+                torch.cuda.synchronize()
+                for name, c in ops.launches.items():
+                    per_node[n][name] += c - before[name]
+                if node.unfinished():
+                    straddled.append((n, node.unfinished()))
+                return out
+            node.process_slot = counted
+
+        def on_slot(t, m):
+            slots.append(m)
+            log(f"launcher: slot {t} n {m.n_queries} drop rate "
+                f"{m.drop_rate:.3f} p50 {m.latency_p50:.3f} s p95 "
+                f"{m.latency_p95:.3f} s load "
+                f"[{'/'.join(f'{p:.3f}' for p in m.per_node_load)}] "
+                f"firing {m.slo_firing} {tag}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        replay_trace(runtime, LiveWorkload(qas, enc, seed=2),
+                     n_slots=LAUNCHER_SLOTS, slo_s=RUNTIME_SLO,
+                     base_volume=LAUNCHER_VOLUME, trace="spike", seed=3,
+                     on_slot=on_slot)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runtime.close()
+        rec.record_metrics(obs.registry().snapshot(),
+                           obs.get_tracer().now())
+    finally:
+        obs.disable()
+    unfinished = [n.unfinished() for n in nodes]
+    sent = sum(m.n_queries for m in slots)
+    qids = [r[0] for e in events if e[0] == "results" for r in e[1]]
+    check(unfinished == [0, 0], f"unfinished after close(): {unfinished}")
+    check(len(qids) == sent == len(set(qids)), f"{sent} queries sent, "
+          f"{len(qids)} results for {len(set(qids))} distinct queries")
+    frames = [n.stats.waves for n in nodes]
+    check(frames == [1, 1], f"paged frames per node {frames}, want 1 each")
+    for n in range(len(nodes)):
+        check(per_node[n]["ivf_retrieval_topk"] > 0,
+              f"node {n} did not launch ivf_retrieval_topk")
+    for name in ("flash_attention", "paged_decode_attention"):
+        check(per_node[0][name] > 0, f"node 0 did not launch {name}")
+        check(per_node[1][name] == 0, f"node 1 launched {name}")
+    path = ROOT / "build" / "trace_launcher.jsonl"
+    rec.export_jsonl(str(path))
+    verdict = _trace_check(path)
+    spans = [e for e in rec.events() if e.get("kind") == "span"]
+    by_name = {}
+    for e in spans:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) \
+            + 1e3 * (e["t1"] - e["t0"])
+    log(f"launcher: {sent} queries in {LAUNCHER_SLOTS} spike slots in "
+        f"{wall:.3f} s wall; requests straddling a slot "
+        f"{straddled or 'none (each slot waits for all of its rids)'}; "
+        f"frames {frames}, unfinished after close {unfinished} {tag}")
+    for n, node in enumerate(nodes):
+        st = node.stats
+        log(f"launcher: node {n} ({node.arch}) {st.queries} queries, "
+            f"{st.drops} dropped, {st.shed} shed, {st.refills} refills, "
+            f"mean TTFT {st.ttft_mean * 1e3:.2f} ms, launches "
+            f"{json.dumps(per_node[n])} {tag}")
+    log(f"launcher: {len(spans)} spans ({len(rec)} events, {rec.dropped} "
+        f"dropped), total ms by name "
+        f"{json.dumps({k: round(v, 3) for k, v in sorted(by_name.items())})}")
+    log(f"launcher: trace {path.relative_to(ROOT)} "
+        f"{path.stat().st_size} bytes; {verdict}")
+    log(f"launcher: peak memory in the replay {peak:.2f} GiB {tag}")
+    health = runtime.health()
+    log(f"launcher: health {health['status']}, firing nodes "
+        f"{health['firing_nodes']}")
+    log(f"launcher: launches in the replay {json.dumps(launches)}")
+    total = dict(launches)
+    for label, argv in (("readme", README_ARGS), ("ci", CI_ARGS)):
+        path = ROOT / "build" / f"trace_{label}.jsonl"
+        buf = io.StringIO()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cluster_serve.main(argv + ["--trace-out", str(path)])
+        except SystemExit as e:
+            check(e.code in (None, 0), f"cluster_serve {label} exited "
+                  f"with {e.code!r}")
+        finally:
+            sys.stdout.write(buf.getvalue())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(ops.launches)
+        out = buf.getvalue()
+        check("metrics probe: OK" in out,
+              f"cluster_serve {label}: the metrics probe did not print OK")
+        for name in SLICE_KERNELS:
+            check(got.get(name, 0) > 0, f"cluster_serve {label} did not "
+                  f"launch {name}")
+        log(f"launcher[{label}]: cluster_serve {' '.join(argv)} in "
+            f"{wall:.3f} s; {_trace_check(path)}; launches "
+            f"{json.dumps(got)} {tag}")
+        for name, c in got.items():
+            total[name] = total.get(name, 0) + c
+    return total
 
 
 def profile_slice(torch, rag, qs, tag) -> list:
@@ -3021,6 +3218,9 @@ def main(argv=None) -> int:
                 launches[name] = launches.get(name, 0) + n
         if "runtime" in phases:
             for name, n in phase_runtime(torch, card).items():
+                launches[name] = launches.get(name, 0) + n
+        if "launcher" in phases:
+            for name, n in phase_launcher(torch, card).items():
                 launches[name] = launches.get(name, 0) + n
         if "kernels" in phases:
             phase_kernels(torch, card, captured, rec, traced)

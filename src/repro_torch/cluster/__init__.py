@@ -1,7 +1,7 @@
 """Live edge nodes of the port, sketch-routed federated retrieval between
 them, and the cluster runtime that schedules queries onto them (PPO
-identification, Algorithm 1, SLO feedback) with trace replay.  The
-standing engines of ``repro.cluster`` are not ported yet."""
+identification, Algorithm 1, SLO feedback) with trace replay, over
+per-slot or standing queues."""
 from repro_torch.cluster.federation import (CentroidSketch,  # noqa: F401
                                             FederatedRetriever,
                                             FederationStats,

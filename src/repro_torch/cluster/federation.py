@@ -7,8 +7,8 @@ query embedding against every sketch (best-centroid similarity), probes
 the query's origin shard plus the ``fanout - 1`` most promising remote
 shards, and merges their partial top-k into one global context set,
 deduplicated by text.  Documents leave a node only as retrieved context
-for a specific query.  The reference's ``federate`` trace span is left
-out with the rest of its tracing.
+for a specific query.  With tracing on, the cross-shard probe is one
+``federate`` span shared by the queries' traces.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Dict, List, Protocol, Sequence, Tuple, runtime_checkable
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.retrieval.index import VectorIndex
 
 
@@ -89,12 +90,22 @@ class FederatedRetriever:
 
     # --------------------------------------------------------------- merge
 
-    def retrieve(self, origin_id: int, embs: np.ndarray, k: int
-                 ) -> Tuple[List[List[str]], List[List[int]]]:
+    def retrieve(self, origin_id: int, embs: np.ndarray, k: int,
+                 traces=None) -> Tuple[List[List[str]], List[List[int]]]:
         """-> (contexts [Nq][<=k] chunk texts, sources [Nq][<=k] node
-        ids), globally score-ordered across the probed shards."""
+        ids), globally score-ordered across the probed shards.
+        ``traces`` (optional, [Nq]) attaches the cross-shard probe to
+        each query's trace as one shared ``federate`` span."""
         embs = np.asarray(embs, np.float32)
         nq = len(embs)
+        sp = obs_trace.get_tracer().span(
+            "federate", traces=traces, origin=origin_id,
+            fanout=self.fanout, queries=nq)
+        with sp:
+            return self._retrieve(origin_id, embs, nq, k, sp)
+
+    def _retrieve(self, origin_id: int, embs: np.ndarray, nq: int, k: int,
+                  sp) -> Tuple[List[List[str]], List[List[int]]]:
         probe_sets = self.route(origin_id, embs)
         partials: List[List[Tuple[float, str, int]]] = [[] for _ in
                                                         range(nq)]
@@ -134,6 +145,7 @@ class FederatedRetriever:
             sources.append([nid for _, _, nid in best])
             self.stats.remote_contexts += sum(
                 1 for _, _, nid in best if nid != origin_id)
+        sp.set(shards=len(by_node))
         return contexts, sources
 
 

@@ -1,6 +1,6 @@
 """A live edge node: real retrieval and real decoding, measured.
 
-Counterpart of ``repro/cluster/node.py`` for the paged continuous path.
+Counterpart of ``repro/cluster/node.py`` for the paged queues.
 A ``LiveEdgeNode`` owns
 
   * a paged, chunk-prefilling ``ServeEngine`` on its device, for any
@@ -11,9 +11,18 @@ A ``LiveEdgeNode`` owns
   * optionally a ``SemanticQueryCache`` (repeat queries skip the probe)
     and a ``FederatedRetriever`` handle (sketch-routed cross-node
     retrieval, ``cluster.federation``),
-  * a fresh ``ContinuousQueue`` per scheduler slot (``queue=
-    "continuous"``): per-slot refill the moment a row finishes, and
-    retrieved-context prefixes forked out of the session's prefix cache.
+  * a request scheduler: a fresh ``ContinuousQueue`` per scheduler slot
+    (``queue="continuous"``), or ONE standing queue for the node's
+    lifetime whose frame stays warm across slots (``queue="standing"``);
+    either refills a row the moment it finishes and forks
+    retrieved-context prefixes out of the session's prefix cache.
+
+With a standing queue the node is a *standing engine*: each slot's
+queries stream into the live session (refills instead of a cold frame),
+per-slot stats are deltas of the queue's monotone counters, and SLO shed
+hints act at the next refill.  ``close()`` drains and releases the
+session; ``reconfigure`` rebuilds the engine with new batch and chunk
+knobs (``cluster.replay.autoscale_knobs``).
 
 ``process_slot`` measures the wall-clock path per query (retrieval, then
 generation until that query's completion, queue wait included), scores
@@ -22,15 +31,16 @@ and drops queries whose latency exceeds the SLO (quality 0, the paper's
 invalid-query rule).  Per-slot queue stats are ``delta``s of a snapshot.
 ``profile`` measures throughput into a linear ``CapacityFunction``.
 
-When metrics are enabled (``obs.enable_metrics``) each slot pushes its
-rollup into the metrics registry: the ``node_*`` series the SLO
-objectives read (``obs/slo.py``).
+When metrics are enabled (``obs.enable_metrics`` or live tracing) each
+slot pushes its rollup into the metrics registry: the ``node_*`` series
+the SLO objectives read (``obs/slo.py``).  With tracing on, each query's
+trace gets a ``retrieve`` span (and ``semantic_cache`` events) and a
+``detokenize`` span.
 
 Sampling is greedy; the reference's PRNG key becomes an explicit integer
-seed.  Not ported yet (they raise ``NotImplementedError``): the standing
-queue (``queue="standing"``), the wave scheduler (``queue="wave"``), a
-non-paged engine (``paged=False``) and ``reconfigure``; nor are the
-reference's trace spans, nor the standing queue's gauges.
+seed.  Not ported yet (they raise ``NotImplementedError``, ROADMAP A4):
+the wave scheduler (``queue="wave"``) and a non-paged engine
+(``paged=False``).
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from repro_torch.data.tokenizer import EOS, Tokenizer
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.metrics.text import composite_quality
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.rag.pipeline import build_prompt, split_prompt
 from repro_torch.retrieval.cache import SemanticQueryCache
 from repro_torch.retrieval.encoder import TextEncoder
@@ -103,10 +114,11 @@ class LiveEdgeNode:
         self.device = resolve_device(device)
         if queue not in ("continuous", "standing", "wave"):
             raise ValueError(f"queue={queue!r} (continuous|standing|wave)")
-        if queue != "continuous" or not paged:
+        if queue == "wave" or not paged:
             raise NotImplementedError(
-                "the port's live node serves queue='continuous' over a "
-                "paged engine only so far (paged=True)")
+                "the port's live node serves the continuous and standing "
+                "queues over a paged engine (paged=True); the wave queue "
+                "and the non-paged engine are ROADMAP A4")
         self.node_id = node_id
         self.arch = arch
         self.docs = list(docs)
@@ -124,6 +136,7 @@ class LiveEdgeNode:
             device=self.device)
         self.gen = GenerationParams(max_new_tokens=max_new_tokens,
                                     eos_id=EOS)
+        self._standing_queue: Optional[ContinuousQueue] = None
         index_kw = {"nprobe": nprobe} if index_kind == "ivf" else {}
         self.index = build_index(encoder.dim, index_kind,
                                  device=self.device, **index_kw)
@@ -147,13 +160,19 @@ class LiveEdgeNode:
         spans the sketch-routed remote shards, otherwise it is the node's
         own index (queries arrive with coordinator-computed embeddings;
         doc and query embeddings share one seeded encoder)."""
+        tr = obs_trace.get_tracer()
         n = len(queries)
+        tids = [obs_trace.query_trace(q.qid) for q in queries] \
+            if tr.enabled else [None] * n
         contexts: List[Optional[List[str]]] = [None] * n
         sources: List[Optional[List[int]]] = [None] * n
         misses = []
         for t, q in enumerate(queries):
             if self.cache is not None:
                 hit = self.cache.lookup(q.embedding)
+                if tr.enabled:
+                    tr.event("semantic_cache", tids[t],
+                             hit=hit is not None)
                 if hit is not None:
                     contexts[t], sources[t] = hit
                     self.stats.cache_hits += 1
@@ -162,8 +181,9 @@ class LiveEdgeNode:
         if misses:
             embs = np.stack([queries[t].embedding for t in misses])
             if self.federation is not None:
-                ctxs, srcs = self.federation.retrieve(self.node_id, embs,
-                                                      self.top_k)
+                ctxs, srcs = self.federation.retrieve(
+                    self.node_id, embs, self.top_k,
+                    traces=[tids[t] for t in misses])
             elif len(self.index):
                 _, idx = self.index.search(embs, self.top_k)
                 ctxs = [[str(p) for p in self.index.payloads(row)]
@@ -201,26 +221,43 @@ class LiveEdgeNode:
         ignored."""
         if not queries:
             return []
+        tr = obs_trace.get_tracer()
+        tids = [obs_trace.query_trace(q.qid) for q in queries] \
+            if tr.enabled else [None] * len(queries)
         self.stats.slots += 1
         t0 = time.perf_counter()
-        contexts, sources = self._retrieve(queries)
+        with tr.span("retrieve", traces=tids, node=self.node_id,
+                     queries=len(queries),
+                     federated=self.federation is not None):
+            contexts, sources = self._retrieve(queries)
         t_retrieval = time.perf_counter() - t0
         self.stats.retrieval_s += t_retrieval
 
         # (tokens, prefix_len) submission: the paged engine forks the
         # shared retrieved-context prefix instead of re-prefilling it
-        queue = ContinuousQueue(self.engine, self.gen,
-                                seed=self._slot_seed(),
-                                policy=self.admission)
+        if self.queue_kind == "standing":
+            queue = self._ensure_standing_queue()
+        else:
+            queue = ContinuousQueue(self.engine, self.gen,
+                                    seed=self._slot_seed(),
+                                    policy=self.admission)
+        # per-slot stats are deltas of the queue's monotone counters (a
+        # fresh queue's delta equals its totals, so both kinds share it)
         base = queue.stats.snapshot()
         queue.set_shed(self.shed_fraction)
         cap = self.engine.cont_max_prompt_len(self.gen.max_new_tokens)
         rids = []
-        for q, c in zip(queries, contexts):
+        for q, c, tid in zip(queries, contexts, tids):
             toks, plen = split_prompt(q.question, c, self.tok, cap=cap)
-            rids.append(queue.submit(toks, prefix_len=plen))
+            rids.append(queue.submit(toks, prefix_len=plen, trace=tid))
         t0 = time.perf_counter()
-        queue.run()
+        if queue.standing:
+            # stream this slot into the live session and return the
+            # moment its requests finish: other rows may straddle into
+            # the next slot mid-decode
+            queue.run(wait_for=rids)
+        else:
+            queue.run()
         self.stats.generate_s += time.perf_counter() - t0
         delta = queue.stats.delta(base)
         self.stats.waves += delta.frames
@@ -237,10 +274,13 @@ class LiveEdgeNode:
         results: List[QueryResult] = []
         self.last_contexts = {}
         self.last_sources = {}
-        for q, rid, ctx, src in zip(queries, rids, contexts, sources):
+        for q, rid, ctx, src, tid in zip(queries, rids, contexts, sources,
+                                         tids):
             comp = comps[rid]
             latency = t_retrieval + comp.done_s
-            answer = self.tok.decode(comp.tokens)
+            with tr.span("detokenize", trace=tid,
+                         tokens=len(comp.tokens)):
+                answer = self.tok.decode(comp.tokens)
             # a shed request never ran: it is a drop by decision, not by
             # the SLO clock
             dropped = comp.shed or latency > slo_s
@@ -254,14 +294,15 @@ class LiveEdgeNode:
                                        quality, dropped,
                                        latency_s=latency, answer=answer))
         if obs_metrics.metrics_enabled():
-            self._push_metrics(delta, t_retrieval, results)
+            self._push_metrics(queue, delta, t_retrieval, results)
         return results
 
-    def _push_metrics(self, delta, t_retrieval: float,
+    def _push_metrics(self, queue, delta, t_retrieval: float,
                       results: List[QueryResult]) -> None:
         """Per-slot rollup into the global metrics registry (host-side,
-        after the slot's queue has drained).  ``delta`` is this slot's
-        ContinuousStats diff."""
+        after the slot's requests finished).  ``delta`` is this slot's
+        ContinuousStats diff: a standing queue's counters are monotone for
+        the node's lifetime, so the slot's share is a snapshot diff."""
         reg = obs_metrics.registry()
         node = str(self.node_id)
         reg.counter("node_queries", node=node).inc(len(results))
@@ -280,24 +321,57 @@ class LiveEdgeNode:
             # queue TTFT is arrival-anchored (submit -> first token);
             # the node's request clock starts at retrieval
             h.observe(t_retrieval + v)
+        if self.queue_kind == "standing":
+            reg.gauge("node_queue_depth", node=node).set(
+                float(queue.depth()))
+            reg.gauge("node_queue_oldest_wait_s", node=node).set(
+                queue.oldest_wait_s())
         if self.cache is not None:
             reg.gauge("semantic_cache_hit_rate", node=node).set(
                 self.cache.hit_rate)
 
     # ------------------------------------------------------------ lifecycle
 
+    def _ensure_standing_queue(self) -> ContinuousQueue:
+        if self._standing_queue is None:
+            self._standing_queue = ContinuousQueue(
+                self.engine, self.gen, seed=self.seed,
+                policy=self.admission, standing=True)
+        return self._standing_queue
+
     def unfinished(self) -> int:
-        """Requests admitted but not finished: always 0 here, since each
-        slot's queue drains before ``process_slot`` returns."""
-        return 0
+        """Requests admitted to the standing queue but not finished: the
+        zero-lost invariant checked at exit (0 for per-slot queues, which
+        drain before ``process_slot`` returns)."""
+        q = self._standing_queue
+        return len(q.unfinished()) if q is not None else 0
 
     def close(self) -> None:
-        """Nothing to drain: per-slot queues release their session."""
+        """Drain and release the standing session; no-op for per-slot
+        queues."""
+        if self._standing_queue is not None:
+            self._standing_queue.close()
+            self._standing_queue = None
 
     def reconfigure(self, *, batch_size: Optional[int] = None,
                     prefill_chunk: Optional[int] = None) -> None:
-        raise NotImplementedError("reconfigure (standing-engine autoscale) "
-                                  "is not ported yet")
+        """Rebuild the engine with new batch and chunk knobs (the
+        saturation harness autoscales both from the node's measured
+        capacity profile, ``cluster.replay.autoscale_knobs``).  Drains
+        the standing session first; the old engine's pool goes with it."""
+        if batch_size is None and prefill_chunk is None:
+            return
+        self.close()
+        eng = self.engine
+        chunk = eng.prefill_chunk
+        if prefill_chunk is not None:
+            chunk = min(prefill_chunk, max(
+                1, (eng.max_len - self.gen.max_new_tokens) // 2))
+        self.engine = ServeEngine(
+            eng.cfg, eng.params, max_len=eng.max_len,
+            batch_size=batch_size or eng.batch_size,
+            prefill_chunk=chunk, paged=True, block_size=eng.block_size,
+            device=self.device)
 
     # ------------------------------------------------------------ profiling
 
@@ -314,6 +388,8 @@ class LiveEdgeNode:
             n_ctx = max(1, 1 + i % max(self.top_k, 1))
             prompts.append(self.tok.encode(
                 build_prompt("what is this ?", [ctx] * n_ctx), bos=True))
+        # profiling always uses fresh per-run queues: it must not
+        # disturb (or be skewed by) the standing session's frame
         warm = ContinuousQueue(self.engine, self.gen, policy=self.admission)
         warm.submit_all(prompts[:self.engine.batch_size])
         warm.run()

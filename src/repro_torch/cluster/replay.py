@@ -93,10 +93,8 @@ def autoscale_knobs(measured_qps: float, batch_size: int,
     needs ``arrival_qps * batch_size / measured_qps`` rows in flight.
     The batch is the next power of two covering that concurrency; the
     prefill chunk targets ~2 chunks per typical prompt, balancing
-    admission granularity against per-chunk dispatch overhead.  The
-    reference feeds the result to ``LiveEdgeNode.reconfigure``, which
-    the port does not have yet (it raises NotImplementedError until the
-    standing engine is ported), so here nothing calls this function."""
+    admission granularity against per-chunk dispatch overhead.  Feed
+    the result to ``LiveEdgeNode.reconfigure``."""
     def pow2_clamp(x: float, lo: int, hi: int) -> int:
         p = 1 << max(0, int(np.ceil(np.log2(max(float(x), 1.0)))))
         return int(min(max(p, lo), hi))

@@ -1,7 +1,6 @@
 """Cluster slot loop over live nodes: the Coordinator with measurements.
 
-The port of ``repro/cluster/runtime.py``.  In the port metrics are
-enabled by ``obs.enable_metrics`` alone (span tracing is not ported).
+The port of ``repro/cluster/runtime.py``.
 
 ``ClusterRuntime`` adapts ``core.coordinator.Coordinator`` to measured
 execution: the routing layer (PPO identify -> Algorithm 1 with
@@ -12,7 +11,7 @@ quality (ROUGE-L + BERTScore against the reference answer) instead of
 oracle draws.  Works with any ``SchedulableNode`` (the reference also
 runs its simulated ``EdgeNode``, which is not ported).
 
-When metrics are enabled (``obs.enable_metrics``) the
+When metrics are enabled (``obs.enable_metrics`` or live tracing) the
 runtime also closes the telemetry loop the paper calls "synergizing
 historical performance analytics with real-time resource thresholds":
 after every slot it samples the registry into a ``TimeSeriesStore`` and
@@ -164,7 +163,8 @@ class ClusterRuntime(Coordinator):
         if telemetry:
             self._ensure_telemetry(slo_s)
             self._apply_shed_hints()
-        # measured-quality feedback closes the PPO loop (dropped -> 0)
+        # measured-quality feedback closes the PPO loop (dropped -> 0);
+        # the shared pipeline also carries the per-query request spans
         props, results, _ = self._slot_pipeline(queries, slo_s)
         slo_firing = self._evaluate_slos() if telemetry else 0
         lat = np.array([r.latency_s for r in results])

@@ -3,8 +3,9 @@
 The port of ``repro/core/coordinator.py``.  Per slot: encode queries ->
 online identifier -> probability vectors -> inter-node scheduling
 (Algorithm 1, capacity-aware) -> per-node execution -> quality feedback
--> PPO update.  The reference's per-query trace spans are not ported
-(span tracing is not); the slot-level metric pushes are.
+-> PPO update.  With tracing on, each query's trace is rooted in a
+``request`` span over the slot body, with ``identify`` and ``route``
+inside it.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.core.cluster import Query, QueryResult
 from repro_torch.core.inter_node import inter_node_schedule
 from repro_torch.core.protocols import QueryRouter, SchedulableNode
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclass
@@ -88,13 +90,22 @@ class Coordinator:
         return scores
 
     def _slot_pipeline(self, queries: Sequence[Query], slo_s: float):
-        """The slot body: encode -> identify -> route -> dispatch ->
-        feedback.  -> (props, results, scores)."""
+        """The slot body, instrumented: one ``request`` root span per
+        query wraps encode -> identify -> route -> dispatch -> feedback,
+        so every downstream stage (retrieve, prefill, decode, ...) nests
+        under each query's trace.  -> (props, results, scores)."""
+        tr = obs_trace.get_tracer()
+        traces = [obs_trace.query_trace(q.qid) for q in queries] \
+            if tr.enabled else None
         embs = np.stack([q.embedding for q in queries])
-        probs = self.identifier.identify(embs)
-        assign, props = self._route(probs, slo_s)
-        results = self._dispatch(queries, assign, slo_s)
-        scores = self._feedback(embs, assign, queries, results)
+        with tr.span("request", traces=traces, queries=len(queries),
+                     slo_s=slo_s):
+            with tr.span("identify", traces=traces):
+                probs = self.identifier.identify(embs)
+            with tr.span("route", traces=traces, nodes=len(self.nodes)):
+                assign, props = self._route(probs, slo_s)
+            results = self._dispatch(queries, assign, slo_s)
+            scores = self._feedback(embs, assign, queries, results)
         if obs_metrics.metrics_enabled():
             self._push_metrics(props, scores, slo_s)
         return props, results, scores

@@ -54,8 +54,8 @@ class BlockAllocator:
     Only decides which pool blocks are live; block contents live in the
     device pools.  ``fork`` adds an owner for prefix sharing; a block
     returns to the free list when its refcount reaches zero.
-    ``high_watermark``, ``forks`` and ``exhaustions`` (failed
-    ``can_alloc`` probes) are counters the schedulers report."""
+    ``utilization()``, ``high_watermark``, ``forks`` and ``exhaustions``
+    (failed ``can_alloc`` probes) are what the schedulers report."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 1:
@@ -75,6 +75,10 @@ class BlockAllocator:
     @property
     def in_use(self) -> int:
         return self.num_blocks - len(self._free)
+
+    def utilization(self) -> float:
+        """Live blocks / pool size, in [0, 1]."""
+        return self.in_use / self.num_blocks
 
     def can_alloc(self, n: int) -> bool:
         if n > len(self._free):

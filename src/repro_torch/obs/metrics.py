@@ -1,8 +1,7 @@
 """Labelled counters / gauges / histograms with snapshot + delta.
 
 A copy of ``repro/obs/metrics.py`` (the port imports nothing of the
-reference), with one difference: span tracing is not ported, so
-``metrics_enabled()`` reads only the ``enable_metrics`` switch.
+reference).
 
 The registry is always importable and cheap enough to leave on: every
 instrument is a host-side scalar update at per-request or per-slot
@@ -19,26 +18,29 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.obs.trace import get_tracer as _get_tracer
+
 # reservoir bound per histogram: plenty for smoke/bench scale, and a
 # hard cap on memory for million-query replays
 _RESERVOIR = 4096
 
-# metric pushes (SLO feedback, /metrics exposition) are off until
-# enable_metrics() turns them on
+# metric pushes can be wanted without full span tracing (SLO feedback,
+# /metrics exposition); either switch turns them on
 _METRICS_ON = False
 
 
 def enable_metrics(on: bool = True) -> None:
-    """Turn metric pushes on (the SLO/telemetry path needs the registry
-    fed)."""
+    """Turn metric pushes on without attaching a span recorder (the
+    SLO/telemetry path needs the registry fed even when tracing is
+    off)."""
     global _METRICS_ON
     _METRICS_ON = bool(on)
 
 
 def metrics_enabled() -> bool:
     """True when instrumented call sites should push into the registry:
-    ``enable_metrics(True)`` was called."""
-    return _METRICS_ON
+    either tracing is live or ``enable_metrics(True)`` was called."""
+    return _METRICS_ON or _get_tracer().enabled
 
 
 def percentile(xs: Sequence[float], q: float) -> float:
@@ -128,7 +130,7 @@ class Histogram:
 def escape_label(value: object) -> str:
     """Escape ``\\``/``=``/``,``/``}`` in a label value so registry keys
     stay unambiguous (and Prometheus exposition lines stay parseable
-    after the reference's `obs.export` unescapes them)."""
+    after `obs.export` unescapes them)."""
     s = str(value)
     if "\\" in s:
         s = s.replace("\\", "\\\\")

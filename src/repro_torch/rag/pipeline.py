@@ -4,8 +4,10 @@ Counterpart of ``repro/rag/pipeline.py`` for the continuous path: the
 prompt is ``context : <top-k chunks> <sep> question : <q> <sep> answer :``
 with its retrieved-context prefix marked, so a paged engine forks a
 repeated context out of its prefix cache instead of prefilling it again.
-The semantic query cache and the synchronous-wave path are not ported
-yet.
+An optional semantic query cache serves near-duplicate questions without
+touching the index.  With tracing on, each question gets a ``request``
+trace with ``retrieve`` and ``detokenize`` spans (and ``semantic_cache``
+events).  The synchronous-wave path is not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.data.tokenizer import EOS, Tokenizer
+from repro_torch.obs import trace as obs_trace
+from repro_torch.retrieval.cache import SemanticQueryCache
 from repro_torch.retrieval.encoder import TextEncoder
 from repro_torch.retrieval.index import VectorIndex
 from repro_torch.serving.engine import ServeEngine
@@ -56,6 +60,7 @@ class RAGPipeline:
     def __init__(self, encoder: TextEncoder, index: VectorIndex,
                  engine: ServeEngine, tokenizer: Tokenizer,
                  *, top_k: int = 5, max_new_tokens: int = 24,
+                 cache: Optional[SemanticQueryCache] = None,
                  admission: str = "fifo"):
         self.encoder = encoder
         self.index = index
@@ -63,32 +68,70 @@ class RAGPipeline:
         self.tok = tokenizer
         self.top_k = top_k
         self.max_new_tokens = max_new_tokens
+        self.cache = cache
         self.admission = admission
         self.last_stats = None      # scheduler stats from the last answer()
 
-    def retrieve(self, questions: Sequence[str]
+    def retrieve(self, questions: Sequence[str], traces=None
                  ) -> Tuple[List[List[str]], np.ndarray]:
-        """(contexts per question, index scores [Nq, top_k])."""
-        q_emb = self.encoder.encode(list(questions))
-        scores = np.full((len(questions), self.top_k), -1e30, np.float32)
-        s, idx = self.index.search(q_emb, self.top_k)
-        contexts = []
-        for row in range(len(questions)):
-            contexts.append([str(p) for p in self.index.payloads(idx[row])])
-            scores[row, :s.shape[1]] = s[row]
-        return contexts, scores
+        """(contexts per question, index scores [Nq, top_k]);
+        near-duplicate questions are served from the semantic cache
+        without touching the index.  ``traces`` (optional, [Nq])
+        attaches the probe to each question's trace."""
+        tr = obs_trace.get_tracer()
+        with tr.span("retrieve", traces=traces, queries=len(questions)):
+            q_emb = self.encoder.encode(list(questions))
+            contexts: List[Optional[List[str]]] = [None] * len(questions)
+            scores = np.full((len(questions), self.top_k), -1e30,
+                             np.float32)
+            misses = []
+            for t, emb in enumerate(q_emb):
+                hit = self.cache.lookup(emb) if self.cache is not None \
+                    else None
+                if tr.enabled and self.cache is not None and traces:
+                    tr.event("semantic_cache", traces[t],
+                             hit=hit is not None)
+                if hit is not None:
+                    contexts[t], scores[t, :len(hit[1])] = hit[0], hit[1]
+                else:
+                    misses.append(t)
+            if misses:
+                s, idx = self.index.search(q_emb[misses], self.top_k)
+                for row, t in enumerate(misses):
+                    contexts[t] = [str(p) for p in
+                                   self.index.payloads(idx[row])]
+                    scores[t, :s.shape[1]] = s[row]
+                    if self.cache is not None:
+                        self.cache.insert(q_emb[t], (contexts[t], s[row]))
+            return contexts, scores
 
     def answer(self, questions: Sequence[str]) -> List[RAGResult]:
-        contexts, scores = self.retrieve(questions)
-        gp = GenerationParams(max_new_tokens=self.max_new_tokens, eos_id=EOS)
-        queue = ContinuousQueue(self.engine, gp, policy=self.admission)
-        cap = self.engine.cont_max_prompt_len(gp.max_new_tokens)
-        rids = []
-        for q, c in zip(questions, contexts):
-            toks, plen = split_prompt(q, c, self.tok, cap=cap)
-            rids.append(queue.submit(toks, prefix_len=plen))
-        outs = queue.run()
-        self.last_stats = queue.stats
-        return [RAGResult(q, self.tok.decode(outs[rid]), contexts[i],
-                          scores[i])
-                for i, (q, rid) in enumerate(zip(questions, rids))]
+        tr = obs_trace.get_tracer()
+        traces = [tr.new_trace("rag") for _ in questions] \
+            if tr.enabled else None
+        with tr.span("request", traces=traces, queries=len(questions)):
+            contexts, scores = self.retrieve(questions, traces=traces)
+            gp = GenerationParams(max_new_tokens=self.max_new_tokens,
+                                  eos_id=EOS)
+            # submit (tokens, prefix_len) so the paged engine forks
+            # repeated retrieved-context prefixes out of the session's
+            # PrefixCache instead of re-prefilling them
+            queue = ContinuousQueue(self.engine, gp, policy=self.admission)
+            cap = self.engine.cont_max_prompt_len(gp.max_new_tokens)
+            rids = []
+            for i, (q, c) in enumerate(zip(questions, contexts)):
+                toks, plen = split_prompt(q, c, self.tok, cap=cap)
+                rids.append(queue.submit(
+                    toks, prefix_len=plen,
+                    trace=traces[i] if traces else None))
+            outs = queue.run()
+            self.last_stats = queue.stats
+            results = []
+            for i, (q, rid) in enumerate(zip(questions, rids)):
+                with tr.span("detokenize",
+                             trace=traces[i] if traces else None,
+                             tokens=len(outs[rid])):
+                    answer = self.tok.decode(outs[rid])
+                results.append(RAGResult(q, answer, contexts[i],
+                                         scores[i]))
+        return results

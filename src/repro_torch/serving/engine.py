@@ -17,13 +17,20 @@ segment is a host loop that reads the sampled tokens back once per step
 conditions, admission geometry and block accounting follow the reference
 step for step, so schedules (refills, forks, frames) come out the same.
 
+With tracing on (``repro_torch.obs.enable``), a decode segment is one
+batched ``decode_segment`` span over the live rows' traces
+(``ContinuousSession.traces``, set by the scheduler at admission) and a
+prefix fork marks a ``prefix_cache`` event; with it off neither reads
+the clock.  ``ServeEngine(profile=logdir)`` brackets each scheduler run
+with a ``torch.profiler`` trace into ``logdir``.
+
 Only the paged continuous path exists in this slice: a non-paged engine,
 ``generate``/``generate_reference`` and ``RequestQueue`` raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.model import Model
+from repro_torch.obs import recorder as obs_recorder
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixEntry
 from repro_torch.serving.sampling import GenerationParams, sample_token
 
@@ -46,7 +55,7 @@ class ServeEngine:
                  batch_size: int = 8, pad_id: int = 0,
                  prefill_chunk: Optional[int] = None, paged: bool = False,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 device: DeviceLike = "cuda"):
+                 profile: Optional[str] = None, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if not paged or prefill_chunk is None:
             raise NotImplementedError(
@@ -72,6 +81,24 @@ class ServeEngine:
         # default pool: every row can hold a full-length context
         self.num_blocks = int(num_blocks) if num_blocks is not None \
             else batch_size * self.nb_total
+        # torch.profiler hook: with profile=<logdir> set, the schedulers
+        # bracket their runs with start_profile()/stop_profile() so
+        # device traces align with host spans
+        self.profile_dir = profile
+
+    def start_profile(self) -> bool:
+        """Begin a ``torch.profiler`` trace into ``profile_dir`` (no-op
+        unless the engine was built with ``profile=...`` and no trace is
+        already live)."""
+        if not self.profile_dir:
+            return False
+        return obs_recorder.start_device_profile(self.profile_dir,
+                                                 self.device)
+
+    def stop_profile(self) -> bool:
+        if not self.profile_dir:
+            return False
+        return obs_recorder.stop_device_profile()
 
     def generate(self, *args, **kwargs):
         raise NotImplementedError("generate() is not ported yet; use "
@@ -190,9 +217,13 @@ class ContinuousSession:
         self.idx = np.zeros(self.B, np.int32)
         self._budget = np.zeros(self.B, np.int32)
         self._remaining = np.zeros(self.B, np.int32)
+        self.tstep = 0                # decode loop iterations this frame
         self.frames = 0
         self.segments = 0
         self.refills = 0
+        # slot -> request trace id (set by the scheduler at admission);
+        # decode-segment spans and prefix-cache events attribute to it
+        self.traces: Dict[int, Optional[str]] = {}
         # block bookkeeping: ``lengths`` mirrors cache.length, ``_tables``
         # the rows' block tables, so freed rows can return their blocks
         self.allocator = cache_lib.BlockAllocator(engine.num_blocks)
@@ -312,10 +343,21 @@ class ContinuousSession:
     def release(self) -> None:
         """Free every pool block held by rows and prefix entries; after
         this ``allocator.available == num_blocks`` (the leak check)."""
+        self.traces.clear()
         for i in range(self.B):
             self._release_slot(i)
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
+
+    def pool_fragmentation(self) -> float:
+        """Internal fragmentation of the live rows: the fraction of
+        allocated pool capacity (blocks x block_size tokens) not yet
+        holding live tokens."""
+        nblk = int((self._tables >= 0).sum())
+        if nblk == 0:
+            return 0.0
+        used = int(self.lengths[~self.done].sum())
+        return max(0.0, 1.0 - used / (nblk * self.eng.block_size))
 
     # ------------------------------------------------------------ admission
 
@@ -360,6 +402,7 @@ class ContinuousSession:
         self._remaining = np.zeros(self.B, np.int32)
         self._remaining[:len(prompts)] = budgets
         self._budget = self._remaining.copy()
+        self.tstep = 0
         self.frames += 1
         _sync(self.eng.device)      # the frame's first tokens exist now
 
@@ -424,6 +467,10 @@ class ContinuousSession:
                      prefix: tuple) -> None:
         bs = self.eng.block_size
         entry = self.prefix_cache.get(prefix)
+        tr = obs_trace.get_tracer()
+        if tr.enabled:
+            tr.event("prefix_cache", self.traces.get(slot),
+                     hit=entry is not None, prefix_len=len(prefix))
         if entry is None:
             entry = self._prefill_prefix(prefix)
             self.prefix_cache.put(prefix, entry)
@@ -480,13 +527,33 @@ class ContinuousSession:
         sampled tokens back to the host once."""
         if not self.active():
             raise ValueError("run_segment needs a live row")
-        eng, gen = self.eng, self.gen
         live = ~self.done
+        # batched multi-trace span: one wall-clock interval, one event
+        # per live request.  Guarded on tr.enabled so the disabled path
+        # makes zero clock reads (NULL_SPAN)
+        tr = obs_trace.get_tracer()
+        sp = obs_trace.NULL_SPAN
+        if tr.enabled:
+            sp = tr.span("decode_segment",
+                         traces=[self.traces.get(int(i))
+                                 for i in np.nonzero(live)[0]],
+                         rows=int(live.sum()),
+                         tokens_in_flight=int(self.lengths[live].sum()),
+                         drain=bool(drain))
+        with sp:
+            events = self._segment(live, drain)
+            sp.set(finished=len(events), tstep=self.tstep)
+        return events
+
+    def _segment(self, live: np.ndarray, drain: bool
+                 ) -> List[Tuple[int, List[int]]]:
+        eng, gen = self.eng, self.gen
         rem = self._budget[live] - self.idx[live]
         nb_cap = eng._cont_nb_cap(int((self.lengths[live] + rem).max()) + 2)
         done0 = self.done.copy()
         done = self.done.copy()
         while not done.all() and (drain or not (done & ~done0).any()):
+            self.tstep += 1
             act = ~done
             tok_h = self.tok[:, 0].cpu().numpy()
             rows = np.nonzero(act)[0]

@@ -3,11 +3,13 @@
 Counterpart of ``ContinuousQueue`` in ``repro/serving/scheduler.py``:
 FIFO-with-skip or shortest-prefill-first (SJF) admission, per-request
 ``max_new_tokens`` budgets, retrieved-context ``prefix_len`` marks that
-let paged sessions fork cached prefixes, and arrival-anchored TTFT and
-latency, the SLO shed hint (``set_shed``), and per-interval stats as
-``snapshot()`` / ``delta()`` of monotone counters.  The reference's
-tracing and metric pushes are left out, and so are ``standing=True``
-and the wave scheduler ``RequestQueue``.
+let paged sessions fork cached prefixes, arrival-anchored TTFT and
+latency, the SLO shed hint (``set_shed``), per-interval stats as
+``snapshot()`` / ``delta()`` of monotone counters, the standing mode
+(``standing=True``: one session across ``run(wait_for=...)`` rounds),
+the request spans (``shed``, ``queue_wait``, ``prefill``, ``decode``)
+and the ``queue_*`` / ``kv_pool_*`` / ``prefix_cache_*`` metric pushes.
+The wave scheduler ``RequestQueue`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.engine import ContinuousSession, ServeEngine
 from repro_torch.serving.sampling import GenerationParams
 
@@ -124,7 +128,9 @@ class _ContRequest:
     prompt: List[int]
     budget: int
     prefix_len: int = 0           # retrieved-context prefix (0 = none)
+    trace: Optional[str] = None   # obs trace id (None = untraced)
     t_submit: float = 0.0         # perf_counter at submit (TTFT anchor)
+    t_admit: float = 0.0          # perf_counter at admission
 
 
 class ContinuousQueue:
@@ -133,16 +139,21 @@ class ContinuousQueue:
     ``policy="fifo"`` admits the first pending request that fits a free
     row; ``policy="sjf"`` admits the fitting request with the fewest
     prefill chunks (a cached prefix makes a long prompt cheap).  Each
-    ``run()`` drains every submitted request through one session and
-    returns {rid: tokens}."""
+    ``run()`` returns {rid: tokens} for every completed request so far.
+
+    ``standing=True`` makes the queue a *standing engine*: one
+    long-lived session persists across ``run()`` calls, so a stream of
+    ``submit()`` + ``run(wait_for=...)`` rounds (one per scheduler
+    slot) admits into the live frame instead of opening a cold one,
+    requests may straddle a round mid-decode (their KV blocks, prefix
+    entries and recurrent state stay in the session), and ``set_shed``
+    hints take effect at the next refill.  ``close()`` drains and
+    releases the frame and KV pool."""
 
     def __init__(self, engine: ServeEngine,
                  gen: Optional[GenerationParams] = None, *, seed: int = 0,
                  policy: str = "fifo", prefix_capacity: int = 8,
                  standing: bool = False):
-        if standing:
-            raise NotImplementedError("standing queues are not ported yet "
-                                      "(ROADMAP queue A)")
         self.engine = engine
         self.gen = gen or GenerationParams()
         if policy not in ("fifo", "sjf"):
@@ -157,11 +168,15 @@ class ContinuousQueue:
                 f"engine cache (max_len={engine.max_len})")
         self.policy = policy
         self.prefix_capacity = prefix_capacity
+        self.standing = bool(standing)
         self.seed = seed
         self._pending: List[_ContRequest] = []
         self._done: Dict[int, ContinuousCompletion] = {}
         self._next_rid = 0
         self._shed_fraction = 0.0
+        self._session: Optional[ContinuousSession] = None
+        self._owner: Dict[int, _ContRequest] = {}   # slot -> live request
+        self._finished: set = set()                 # rids with final tokens
         self.stats = ContinuousStats()
 
     # -------------------------------------------------------------- intake
@@ -174,7 +189,8 @@ class ContinuousQueue:
 
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None,
-               prefix_len: Optional[int] = None) -> int:
+               prefix_len: Optional[int] = None,
+               trace: Optional[str] = None) -> int:
         rid = self._next_rid
         self._next_rid += 1
         budget = self.gen.max_new_tokens if max_new_tokens is None \
@@ -186,6 +202,7 @@ class ContinuousQueue:
             # an empty prompt conditions on nothing -> empty completion
             self._done[rid] = ContinuousCompletion(
                 rid, [], 0, budget, -1, -1, 0.0, 0.0)
+            self._finished.add(rid)
             return rid
         prefix_len = max(0, min(prefix_len or 0, len(prompt) - 1))
         cap = self.engine.cont_max_prompt_len(self.gen.max_new_tokens)
@@ -194,6 +211,7 @@ class ContinuousQueue:
             self.stats.shed += 1
         self._check_block_span(prompt, prefix_len, budget)
         self._pending.append(_ContRequest(rid, prompt, budget, prefix_len,
+                                          trace=trace,
                                           t_submit=time.perf_counter()))
         return rid
 
@@ -249,6 +267,23 @@ class ContinuousQueue:
     def pending(self) -> int:
         return len(self._pending)
 
+    def depth(self) -> int:
+        """Standing-queue depth: pending + live (admitted, still
+        decoding) requests."""
+        return len(self._pending) + len(self._owner)
+
+    def oldest_wait_s(self) -> float:
+        """Age of the oldest still-pending (not yet admitted) request;
+        0.0 when nothing waits."""
+        if not self._pending:
+            return 0.0
+        return time.perf_counter() - min(r.t_submit for r in self._pending)
+
+    def unfinished(self) -> List[int]:
+        """Rids submitted but not finished: pending plus mid-decode."""
+        return [r.rid for r in self._pending] \
+            + [r.rid for r in self._owner.values()]
+
     # ----------------------------------------------------------- scheduling
 
     def _admissible(self, session: ContinuousSession
@@ -275,10 +310,45 @@ class ContinuousQueue:
                     best = (cost, r)
         return best[1] if best else None
 
-    def run(self) -> Dict[int, List[int]]:
-        """Serve every pending request; returns {rid: generated tokens}
-        for every completed request so far.  TTFT and latency are
-        measured from each request's ``submit()``."""
+    def _ensure_session(self) -> ContinuousSession:
+        """The live session: standing queues keep one for their whole
+        lifetime; per-run queues get a fresh one each ``run()`` (the
+        previous was released at run exit)."""
+        if self._session is None:
+            self._session = ContinuousSession(
+                self.engine, self.gen, seed=self.seed,
+                prefix_cache=self.prefix_capacity)
+        return self._session
+
+    @staticmethod
+    def _session_base(session: ContinuousSession) -> Dict[str, int]:
+        """Snapshot of the session/allocator/prefix-cache counters at
+        run() entry: a standing session outlives the run, so only the
+        run's deltas roll into ``self.stats``."""
+        pc = session.prefix_cache
+        return {"frames": session.frames, "segments": session.segments,
+                "refills": session.refills,
+                "forks": session.allocator.forks,
+                "exhaustions": session.allocator.exhaustions,
+                "prefix_hits": pc.hits, "prefix_misses": pc.misses,
+                "prefix_evictions": pc.evictions}
+
+    def run(self, wait_for: Optional[Iterable[int]] = None
+            ) -> Dict[int, List[int]]:
+        """Pump the engine until the target requests finish; returns
+        {rid: generated tokens} for every completed request so far.
+
+        By default every submitted request is drained.  A standing
+        queue may pass ``wait_for=<rids>``: the call returns as soon as
+        those requests finish, leaving other live rows mid-decode for
+        the next ``run()``.  TTFT and latency are measured from each
+        request's ``submit()``, so they compose across runs."""
+        if wait_for is not None and not self.standing:
+            raise ValueError("run(wait_for=...) needs standing=True: a "
+                             "per-run queue releases its session at run "
+                             "exit and would drop mid-decode rows")
+        tr = obs_trace.get_tracer()
+        base = self.stats.snapshot()
         if self._shed_fraction > 0.0 and self._pending:
             # shed the tail (latest arrivals): the oldest requests have
             # waited longest and would be the first SLO misses
@@ -287,41 +357,85 @@ class ContinuousQueue:
                 self._done[r.rid] = ContinuousCompletion(
                     r.rid, [], len(r.prompt), r.budget, -1, -1, 0.0, 0.0,
                     shed=True)
+                self._finished.add(r.rid)
+                if tr.enabled and r.trace is not None:
+                    # terminal span: a shed trace never reaches decode,
+                    # so this is what makes its causal tree complete
+                    tr.emit("shed", r.trace, r.t_submit,
+                            time.perf_counter(), reason="slo_hint")
             if n_shed:
                 del self._pending[len(self._pending) - n_shed:]
                 self.stats.shed_hint_drops += n_shed
-        session = ContinuousSession(self.engine, self.gen, seed=self.seed,
-                                    prefix_cache=self.prefix_capacity)
-        owner: Dict[int, _ContRequest] = {}
+        session = self._ensure_session()
+        sbase = self._session_base(session)
+        owner = self._owner
+        targets = set(wait_for) if wait_for is not None else \
+            {r.rid for r in self._pending} | {r.rid for r in owner.values()}
 
         def admit(slot: int, r: _ContRequest) -> None:
             owner[slot] = r
-            ttft = time.perf_counter() - r.t_submit
+            abs_now = time.perf_counter()
+            if tr.enabled:
+                session.traces[slot] = r.trace
+                if r.trace is not None:
+                    # queue wait becomes a retroactive span: admission is
+                    # the only point where both endpoints are known
+                    tr.emit("queue_wait", r.trace, r.t_submit, abs_now,
+                            slot=slot)
+            r.t_admit = abs_now
+            ttft = abs_now - r.t_submit
             self.stats.ttft_s.append(ttft)
             self._done[r.rid] = ContinuousCompletion(
                 r.rid, [], len(r.prompt), r.budget, slot, session.frames,
                 ttft, ttft)
 
+        self.engine.start_profile()
         try:
-            while self._pending or session.active():
+            while not targets <= self._finished:
                 if session.active():
+                    # drain (run to the last row) only when every live
+                    # row is waited for: a straddling row keeps its slot
+                    # and resumes in the next run()
+                    live = {r.rid for r in owner.values()}
                     for slot, tokens in session.run_segment(
-                            drain=not self._pending):
+                            drain=not self._pending and live <= targets):
                         r = owner.pop(slot)
+                        abs_now = time.perf_counter()
                         c = self._done[r.rid]
                         c.tokens = tokens
-                        c.done_s = time.perf_counter() - r.t_submit
+                        c.done_s = abs_now - r.t_submit
+                        self._finished.add(r.rid)
                         self.stats.tokens_out += len(tokens)
                         self.stats.latency_s.append(c.done_s)
+                        if tr.enabled:
+                            session.traces.pop(slot, None)
+                            if r.trace is not None and r.t_admit:
+                                tr.emit("decode", r.trace, r.t_admit,
+                                        abs_now, tokens=len(tokens),
+                                        slot=slot)
+                    if obs_metrics.metrics_enabled():
+                        obs_metrics.registry().gauge(
+                            "kv_pool_fragmentation").set(
+                                session.pool_fragmentation())
+                    if targets <= self._finished:
+                        break
                 admitted = 0
                 if session.cache is not None:
+                    # refill first: the frame admits at its rows' own
+                    # positions instead of opening a new one
                     for slot in session.free_slots():
                         r = self._admissible(session)
                         if r is None:
                             break
                         self._pending.remove(r)
-                        session.refill(slot, r.prompt, r.budget,
-                                       prefix_len=r.prefix_len or None)
+                        if tr.enabled:
+                            session.traces[slot] = r.trace
+                        with tr.span("prefill", trace=r.trace,
+                                     mode="refill", slot=slot,
+                                     prompt_len=len(r.prompt),
+                                     prefix_len=r.prefix_len):
+                            session.refill(slot, r.prompt, r.budget,
+                                           prefix_len=r.prefix_len or None)
                         admitted += 1
                         admit(slot, r)
                 if self._pending and not admitted and not session.active():
@@ -335,32 +449,96 @@ class ContinuousQueue:
                         [(len(r.prompt), r.budget) for r in self._pending]))
                     if any(r.prefix_len for r in self._pending):
                         # frame rows are packed left-padded, not in the
-                        # canonical prefix layout: open with one row so the
-                        # rest admit through prefix-aware refill
+                        # canonical prefix layout: open with one row so
+                        # the rest admit through prefix-aware refill
                         n = 1
                     batch = self._pending[:n]
                     del self._pending[:len(batch)]
-                    session.begin_frame([r.prompt for r in batch],
-                                        [r.budget for r in batch])
+                    if tr.enabled:
+                        for slot, r in enumerate(batch):
+                            session.traces[slot] = r.trace
+                    with tr.span("prefill", traces=[r.trace for r in batch],
+                                 mode="frame", rows=len(batch)):
+                        session.begin_frame([r.prompt for r in batch],
+                                            [r.budget for r in batch])
                     for slot, r in enumerate(batch):
                         admit(slot, r)
+                if not self._pending and not session.active():
+                    break   # wait_for named rids this queue never saw
         finally:
-            st = self.stats
-            st.frames += session.frames
-            st.segments += session.segments
-            st.refills += session.refills
-            st.cow_forks += session.allocator.forks
-            st.kv_exhaustions += session.allocator.exhaustions
-            pc = session.prefix_cache
-            st.prefix_hits += pc.hits
-            st.prefix_misses += pc.misses
-            st.prefix_evictions += pc.evictions
+            self.engine.stop_profile()
+            if not self.standing and targets - self._finished:
+                # aborted mid-run (a paged stall): a per-run queue
+                # cannot resume a half-drained session on the next run
+                session.release()
+                self._session = None
+                self._owner.clear()
+        s, st = session, self.stats
+        st.frames += s.frames - sbase["frames"]
+        st.segments += s.segments - sbase["segments"]
+        st.refills += s.refills - sbase["refills"]
+        st.cow_forks += s.allocator.forks - sbase["forks"]
+        st.kv_exhaustions += s.allocator.exhaustions - sbase["exhaustions"]
+        pc = s.prefix_cache
+        st.prefix_hits += pc.hits - sbase["prefix_hits"]
+        st.prefix_misses += pc.misses - sbase["prefix_misses"]
+        st.prefix_evictions += pc.evictions - sbase["prefix_evictions"]
+        if obs_metrics.metrics_enabled():
+            self._push_metrics(session, base)
+        if not self.standing:
             session.release()
+            self._session = None
         return {rid: c.tokens for rid, c in self._done.items()}
+
+    def close(self, drain: bool = True) -> None:
+        """Retire a standing queue: finish every unfinished request
+        (``drain=True``) or abandon them, then release the session's
+        frame and KV pool.  Safe to call twice; the queue stays usable
+        (a later submit()+run() opens a fresh session)."""
+        if drain and self.unfinished():
+            self.run()
+        if self._session is not None:
+            self._session.release()
+            self._session = None
+        self._owner.clear()
+        self._pending.clear()
+
+    def _push_metrics(self, session: ContinuousSession,
+                      base: Dict[str, int]) -> None:
+        """Roll this run's deltas into the global metrics registry
+        (host-side, after the run's segments).  ``base`` is the stats
+        snapshot taken at run() entry; the counters are monotone, so the
+        diff is exactly this run's contribution."""
+        reg = obs_metrics.registry()
+        d = self.stats.delta(base)
+        reg.counter("queue_requests_admitted", policy=self.policy).inc(
+            len(d.ttft_s))
+        reg.counter("queue_admission_skips").inc(d.admission_skips)
+        reg.counter("queue_shed").inc(d.shed)
+        reg.counter("queue_shed_hint_drops").inc(d.shed_hint_drops)
+        reg.counter("queue_tokens_out").inc(d.tokens_out)
+        h = reg.histogram("queue_ttft_s")
+        for v in d.ttft_s:
+            h.observe(v)
+        h = reg.histogram("queue_latency_s")
+        for v in d.latency_s:
+            h.observe(v)
+        reg.gauge("queue_depth").set(float(self.depth()))
+        reg.gauge("queue_oldest_wait_s").set(self.oldest_wait_s())
+        alloc = session.allocator
+        reg.gauge("kv_pool_utilization").set(alloc.utilization())
+        reg.gauge("kv_pool_high_watermark").set(alloc.high_watermark)
+        reg.counter("kv_pool_cow_forks").inc(d.cow_forks)
+        reg.counter("kv_pool_exhaustion_waits").inc(d.kv_exhaustions)
+        reg.counter("prefix_cache_hits").inc(d.prefix_hits)
+        reg.counter("prefix_cache_misses").inc(d.prefix_misses)
+        reg.counter("prefix_cache_evictions").inc(d.prefix_evictions)
 
     def result(self, rid: int) -> ContinuousCompletion:
         return self._done[rid]
 
     def pop_result(self, rid: int) -> ContinuousCompletion:
-        """``result()`` that releases the stored completion."""
+        """``result()`` that releases the stored completion: standing
+        queues live for the node's lifetime, so per-slot consumers pop to
+        keep the done-map bounded."""
         return self._done.pop(rid)

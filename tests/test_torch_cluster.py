@@ -204,12 +204,12 @@ def test_queue_shed_hint_and_stats_deltas_match_reference(small_model):
 # ------------------------------------------------------------ live nodes
 
 
-def _nodes(world, port: bool, archs):
+def _nodes(world, port: bool, archs, queue: str = "continuous"):
     """Two federated IVF smoke nodes of ``archs`` with semantic caches
-    over the paged continuous queue (build_cluster's knobs, reduced)."""
+    over the paged ``queue`` (build_cluster's knobs, reduced)."""
     docs, qas, tok, prim, node_docs, j_node_docs = world
     kw = dict(batch_size=2, max_len=192, top_k=2, max_new_tokens=6,
-              index_kind="ivf", queue="continuous", prefill_chunk=8,
+              index_kind="ivf", queue=queue, prefill_chunk=8,
               paged=True, block_size=8)
     nodes = []
     for n, arch in enumerate(archs):
@@ -292,15 +292,15 @@ def test_live_node_paths_not_ported_raise(world):
     params = Model(cfg).init_params(seed=0, device="cpu")
     args = (0, "olmo-1b", cfg, params, node_docs[0], tok,
             TextEncoder(seed=0))
-    for kw in ({"queue": "standing", "paged": True},
-               {"queue": "wave", "paged": True}, {}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"queue": "wave", "paged": True}, {},
+               {"queue": "standing"}):
+        with pytest.raises(NotImplementedError, match="A4"):
             LiveEdgeNode(*args, device="cpu", **kw)
     with pytest.raises(ValueError):
         LiveEdgeNode(*args, device="cpu", queue="batch", paged=True)
     node = LiveEdgeNode(*args, device="cpu", paged=True, max_len=128)
-    with pytest.raises(NotImplementedError):
-        node.reconfigure(batch_size=2)
+    node.reconfigure(batch_size=2)
+    assert node.engine.batch_size == 2
     assert node.process_slot([], SLO) == []
     assert node.unfinished() == 0
     cap = node.profile(calib_queries=2)

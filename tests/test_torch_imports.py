@@ -33,7 +33,10 @@ def _port_modules():
 
 def test_import_leaves_jax_out():
     mods = _port_modules()
-    assert "repro_torch.serving.engine" in mods
+    for m in ("repro_torch.serving.engine", "repro_torch.launch",
+              "repro_torch.launch.cluster_serve", "repro_torch.obs.trace",
+              "repro_torch.obs.recorder", "repro_torch.obs.export"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -91,6 +94,9 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
                      TextEncoder(dim=16, hash_dim=64), paged=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(cfg).init_params(seed=0)
+    from repro_torch.launch.cluster_serve import build_cluster
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_cluster(2, paged=True, queue="standing")
     xcfg = port_configs.get_smoke_config("xlstm-350m", max_d_model=32)
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(xcfg).init_params(seed=0)

@@ -81,3 +81,60 @@ def test_rag_answers_match_reference(corpus):
     assert [r.contexts for r in got] == [r.contexts for r in want]
     assert ours.last_stats.prefix_hits == theirs.last_stats.prefix_hits >= 1
     assert all(r.answer for r in got)
+
+
+def _spans(rec):
+    """The recorder's spans and events with trace ids renamed by first
+    appearance, ids by record order, and times dropped."""
+    events = rec.events()
+    pos = {e["id"]: i for i, e in enumerate(events)}
+    names = {}
+    return [(e["kind"], names.setdefault(e["trace"], f"t{len(names)}"),
+             e["name"], None if e["parent"] is None else pos[e["parent"]],
+             e.get("attrs")) for e in events]
+
+
+def test_traced_rag_with_semantic_cache_matches_reference(corpus):
+    """RAGPipeline with a semantic query cache, traced in both packages:
+    the same answers, contexts, cache hits and scores (within 1e-5), and
+    the same request trees (``request`` > ``retrieve`` with its
+    ``semantic_cache`` events, ``queue_wait``, ``prefill``, decode spans,
+    ``detokenize``)."""
+    from repro import obs as j_obs
+    from repro.retrieval.cache import SemanticQueryCache as JCache
+
+    from repro_torch import obs
+    from repro_torch.retrieval.cache import SemanticQueryCache
+    tok, enc, index, jenc, jindex, qs = corpus
+    cfg = get_smoke_config("olmo-1b", max_d_model=32, vocab=len(tok))
+    jparams = JModel(cfg).init_params(jax.random.PRNGKey(0))
+    params = bridge.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
+    kw = dict(max_len=256, batch_size=2, prefill_chunk=8, paged=True,
+              block_size=8)
+    ours = RAGPipeline(enc, index, ServeEngine(cfg, params, device="cpu",
+                                               **kw),
+                       tok, top_k=2, max_new_tokens=4,
+                       cache=SemanticQueryCache())
+    theirs = JRAG(jenc, jindex, JEngine(cfg, jparams, **kw), tok, top_k=2,
+                  max_new_tokens=4, cache=JCache())
+    runs = []
+    for rag, o in ((ours, obs), (theirs, j_obs)):
+        rec = o.enable()
+        try:
+            # the repeats come in a second call: the first inserts
+            res = rag.answer(qs[:5]) + rag.answer(qs[5:])
+        finally:
+            o.disable()
+        runs.append((res, rag.cache.hits, _spans(rec)))
+    (got, hits, spans), (want, j_hits, j_spans) = runs
+    assert [r.answer for r in got] == [r.answer for r in want]
+    assert [r.contexts for r in got] == [r.contexts for r in want]
+    np.testing.assert_allclose(np.stack([r.scores for r in got]),
+                               np.stack([r.scores for r in want]),
+                               rtol=0, atol=1e-5)
+    assert hits == j_hits == 2
+    assert spans == j_spans
+    assert {s[2] for s in spans} >= {"request", "retrieve", "semantic_cache",
+                                     "queue_wait", "prefill", "decode",
+                                     "decode_segment", "detokenize"}

@@ -203,15 +203,14 @@ def test_firing_node_is_penalized_like_reference(runtimes, slo_feedback):
     assert health["status"] == "degraded" and health["firing_nodes"] == ["1"]
 
 
-# queue-level pushes of the reference's ContinuousQueue; the port's
-# scheduler does not push metrics yet (ROADMAP queue C)
+# queue-level pushes of ContinuousQueue (counters and end-of-run gauges)
 QUEUE_KEYS = ("queue_", "kv_pool_", "prefix_cache_")
 
 
 def test_metric_pushes_match_reference(world, runtimes):
     """One slot with metrics enabled in both packages: the same registry
-    keys (the queue's own keys aside), the same deterministic counts, and
-    an SLO evaluation per node."""
+    keys, the queue's included, the same deterministic counts and gauges,
+    and an SLO evaluation per node."""
     (ours, _), (theirs, _) = runtimes
     snaps = []
     for rt, m, port in ((ours, metrics, True), (theirs, j_metrics, False)):
@@ -225,16 +224,16 @@ def test_metric_pushes_match_reference(world, runtimes):
             m.registry().reset()
             rt.monitors, rt.store = {}, None
     ours_s, theirs_s = snaps
-    theirs_s = {k: v for k, v in theirs_s.items()
-                if not k.startswith(QUEUE_KEYS)}
     assert sorted(ours_s) == sorted(theirs_s)
     assert any(k.startswith("node_ttft_s") for k in ours_s)
+    assert sum(1 for k in ours_s if k.startswith(QUEUE_KEYS)) >= 15
     for key, v in theirs_s.items():
         if key.startswith(("node_queries", "node_drops", "node_shed",
                            "node_kv_exhaustions", "node_tokens_out",
                            "ppo_updates", "node_assigned_share",
                            "node_capacity_queries", "node_slo_firing",
-                           "semantic_cache_hit_rate")):
+                           "semantic_cache_hit_rate") + QUEUE_KEYS) \
+                and not isinstance(v, dict):
             assert ours_s[key] == v, key
         elif isinstance(v, dict):
             assert ours_s[key]["count"] == v["count"], key
