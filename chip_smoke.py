@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases card,build,cluster
     python3 chip_smoke.py --phases card,build,cluster,runtime
     python3 chip_smoke.py --phases card,build,launcher
+    python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
                                           # + topk.cu rebuilt with other knobs
@@ -132,6 +133,28 @@ Phases, in order:
            xlstm-350m smoke model's forward, chunk and decode logits
            agree within 1e-4 and its recurrent state after a
            left-padded chunk within atol 1e-5, rtol 1e-4
+  sim      examples/hierarchical_scheduling_sim.py through the port: (a)
+           the paper's four-node testbed (make_paper_testbed, seed 0),
+           each node profiled at 5-30 s and timed, C(L) = k L + b
+           printed; (b) the 20-slot diurnal trace (5,984 queries, SLO
+           15 s) through the Coordinator with the PPO identifier (64 x 4,
+           an update every 256 feedbacks) on the card: per slot the
+           query count, quality and drop rate in [0, 1], loads summing
+           to 1 and updates_done never falling (> 0 after slot 0) are
+           checked, and quality, drops, loads and wall printed; the
+           policy and its Adam state must be on the card; identify and
+           ppo_update ms (CUDA events), the OCO schedule's host ms per
+           node and the device's busy share of the loop (torch.profiler;
+           the phase runs last, as its profiler session can leave a
+           later one empty) printed; (c) the first 3 slots again from the same initial
+           policy on fresh testbeds with (a)'s capacities, card against
+           CPU: equal up to the first PPO update, then routed on the
+           card's probabilities with the policies held as the runtime
+           parity holds them; (d) the first 6 slots under the Random
+           and LinUCB routers and the oracle (Table II's shape; the
+           oracle's quality beats random's by more than 0.02), and node
+           3 under the OCO schedule and the four fixed deployments at
+           500 queries (Table III's shape)
 
 The lines before the last are the card's nvidia-smi name and power limit
 and the kernels' JSON record; the last line is {"ok": true, "device":
@@ -156,7 +179,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
-              "kernels", "parity")
+              "kernels", "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -1141,8 +1164,6 @@ def runtime_parity(torch) -> None:
     running means are held, and evaluated, less the drift that the two
     sides' biases at each PPO epoch predict:
     sum over epochs c of 0.1 * 0.9**(epochs after c) * (b_card - b_cpu)."""
-    import copy
-    import numpy as np
     from repro_torch.cluster import ClusterRuntime, LiveWorkload, \
         replay_trace
     from repro_torch.configs import get_smoke_config
@@ -1199,7 +1220,31 @@ def runtime_parity(torch) -> None:
           f"runtime parity: ppo_updates {upd_g} / {upd_c}, loads {load_g} "
           f"/ {load_c}")
     steps = id_c.updates_done * id_c.update_epochs
-    pol_g, pol_c = copy.deepcopy(id_g.policy).cpu(), id_c.policy
+    check(len(biases["cpu"]) == steps and len(biases["cuda"]) == steps,
+          f"runtime parity: {len(biases['cuda'])} / {len(biases['cpu'])} "
+          f"PPO epochs recorded, {steps} expected")
+    par = policy_parity(torch, id_g.policy, id_c.policy, biases, probe,
+                        steps, id_c.lr)
+    log(f"parity: runtime at the smoke config, card vs CPU: "
+        f"{sum(len(e[1]) for e in ev_c if e[0] == 'results')} answers and "
+        f"assignments equal over 3 slots, ppo_updates {upd_c}; policies "
+        f"after the update, both evaluated on the CPU: {par['text']}")
+    check(par["ok"], "runtime parity: the policies after the update differ")
+
+
+def policy_parity(torch, pol_g, pol_c, biases, probe, steps, lr) -> dict:
+    """The card's policy ``pol_g`` against the CPU's ``pol_c`` after
+    ``steps`` Adam steps (PPO epochs) from the same policy, both
+    evaluated on the CPU on ``probe``: the parameters within 2 lr per
+    step, the running variances and the running means (the card's less
+    the drift that the two sides' pre-norm biases at each epoch predict,
+    ``biases[dev][epoch][layer]``) within ``RUNNING_STAT_TOL``, and the
+    probabilities within 1e-4 in train mode and in eval mode once the
+    pre-norm biases are aligned.  The probabilities in eval mode as
+    trained are reported, not held."""
+    import copy
+    from repro_torch.core import ppo
+    pol_g = copy.deepcopy(pol_g).cpu()
     worst = max(max_err(a, b) for a, b in zip(
         pol_g.state_dict().values(), pol_c.state_dict().values()))
 
@@ -1212,18 +1257,14 @@ def runtime_parity(torch) -> None:
     # running stats (whose means average those biases in) drop out
     train_err = max_err(probs(pol_g, True), probs(pol_c, True))
     raw_err = max_err(probs(pol_g, False), probs(pol_c, False))
-    n_ep = len(biases["cpu"])
-    check(n_ep == steps and len(biases["cuda"]) == n_ep,
-          f"runtime parity: {len(biases['cuda'])} / {n_ep} PPO epochs "
-          f"recorded, {steps} expected")
     aligned = copy.deepcopy(pol_g)
     mu_err = var_err = drift = 0.0
     stats_ok = True
     for n, (layer, want) in enumerate(zip(aligned.layers[:-1],
                                           pol_c.layers[:-1])):
-        pred = sum((1 - ppo.BN_MOMENTUM) * ppo.BN_MOMENTUM ** (n_ep - 1 - c)
+        pred = sum((1 - ppo.BN_MOMENTUM) * ppo.BN_MOMENTUM ** (steps - 1 - c)
                    * (biases["cuda"][c][n] - biases["cpu"][c][n])
-                   for c in range(n_ep))
+                   for c in range(steps))
         layer.bn_mu.sub_(pred)           # the card's own, less the drift
         layer.b.data.copy_(want.b.data)
         drift = max(drift, float(pred.abs().max()))
@@ -1234,20 +1275,17 @@ def runtime_parity(torch) -> None:
                          and torch.allclose(layer.bn_var, want.bn_var,
                                             **RUNNING_STAT_TOL))
     eval_err = max_err(probs(aligned, False), probs(pol_c, False))
-    log(f"parity: runtime at the smoke config, card vs CPU: "
-        f"{sum(len(e[1]) for e in ev_c if e[0] == 'results')} answers and "
-        f"assignments equal over 3 slots, ppo_updates {upd_c}; policies "
-        f"after the update, both evaluated on the CPU: params max |err| "
-        f"{worst:.3g} (tol {2 * id_c.lr * steps:.3g}); running means "
-        f"less the bias drift of {n_ep} epochs (max |drift| {drift:.3g}) "
-        f"{mu_err:.3g}, running variances {var_err:.3g} (allclose "
-        f"{RUNNING_STAT_TOL}); probabilities in train mode "
-        f"{train_err:.3g}, in eval mode with the pre-norm biases aligned "
-        f"and the running means less the drift {eval_err:.3g} (tol 1e-4 "
-        f"each), in eval mode as trained {raw_err:.3g} (not held)")
-    check(worst <= 2 * id_c.lr * steps and stats_ok and train_err <= 1e-4
-          and eval_err <= 1e-4,
-          "runtime parity: the policies after the update differ")
+    text = (f"params max |err| {worst:.3g} (tol {2 * lr * steps:.3g}); "
+            f"running means less the bias drift of {steps} epochs (max "
+            f"|drift| {drift:.3g}) {mu_err:.3g}, running variances "
+            f"{var_err:.3g} (allclose {RUNNING_STAT_TOL}); probabilities in "
+            f"train mode {train_err:.3g}, in eval mode with the pre-norm "
+            f"biases aligned and the running means less the drift "
+            f"{eval_err:.3g} (tol 1e-4 each), in eval mode as trained "
+            f"{raw_err:.3g} (not held)")
+    ok = worst <= 2 * lr * steps and stats_ok and train_err <= 1e-4 \
+        and eval_err <= 1e-4
+    return {"ok": ok, "params_err": worst, "text": text}
 
 
 LAUNCHER_SLOTS = 4       # the CI saturation smoke's --slots
@@ -1421,6 +1459,418 @@ def phase_launcher(torch, card) -> dict:
         for name, c in got.items():
             total[name] = total.get(name, 0) + c
     return total
+
+
+SIM_SLO = 15.0           # examples/hierarchical_scheduling_sim.py's --slo
+SIM_SLOTS = 20           # its --slots
+SIM_LEVELS = (5, 10, 15, 20, 25, 30)    # its profiling levels (s)
+SIM_PARITY_SLOTS = 3
+SIM_BASELINE_SLOTS = 6
+TABLE3_QUERIES = 500     # benchmarks/table3_intra_node.py's N_QUERIES
+TABLE3_SLOTS = 2
+TABLE3_KINDS = ("small", "mid", "mixed1", "mixed2")
+
+
+def _sim_slots(n_slots):
+    """The example's trace: diurnal volumes (base 300, seed 2) and, per
+    slot t, a Dirichlet(2) domain mix from default_rng(t)."""
+    import numpy as np
+    from repro_torch.data.traces import diurnal_volume_trace
+    volumes = diurnal_volume_trace(SIM_SLOTS, base=300, seed=2)[:n_slots]
+    return [(int(v), np.random.default_rng(t).dirichlet(np.full(6, 2.0)))
+            for t, v in enumerate(volumes)]
+
+
+def _sim_testbed(caps):
+    """A fresh testbed (seed 0) with capacities ``caps`` copied in: they
+    are a function of the seeds, as benchmarks/common.py reuses them."""
+    from repro_torch.core.cluster import make_paper_testbed
+    nodes, qual, w = make_paper_testbed(seed=0)
+    for node, cap in zip(nodes, caps):
+        node.capacity = cap
+    return nodes, qual, w
+
+
+def _sim_check(m, vol, t, where) -> None:
+    import numpy as np
+    check(m.n_queries == vol, f"{where} slot {t}: {m.n_queries} queries, "
+          f"{vol} sent")
+    check(0.0 <= m.quality_mean <= 1.0 and 0.0 <= m.drop_rate <= 1.0,
+          f"{where} slot {t}: quality {m.quality_mean}, drop rate "
+          f"{m.drop_rate}")
+    check(abs(float(np.sum(m.per_node_load)) - 1.0) <= 1e-9,
+          f"{where} slot {t}: loads {m.per_node_load} do not sum to 1")
+
+
+def _busy_ms(trace: Path) -> tuple:
+    """(device busy ms, device activities) of a torch.profiler trace: the
+    union of its kernel, memcpy and memset intervals."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, None
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in events):
+        busy += b - a if end is None else max(0.0, b - max(a, end))
+        end = b if end is None else max(end, b)
+    return busy / 1e3, len(events)
+
+
+def phase_sim(torch, card) -> None:
+    """examples/hierarchical_scheduling_sim.py through the port, with the
+    PPO identifier on the card: (a) the paper's four-node testbed, each
+    node profiled and timed; (b) the 20-slot diurnal loop at full size
+    through the Coordinator, every slot checked, the identifier and the
+    intra-node solve timed and the device's busy share traced; (c) the
+    first slots again, card against CPU; (d) the paper's routers and
+    fixed deployments on the same trace at a smaller depth."""
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.core import ppo
+    from repro_torch.core.cluster import make_paper_testbed
+    from repro_torch.core.coordinator import Coordinator
+    from repro_torch.core.identifier import OnlineQueryIdentifier
+    from repro_torch.core.workload import QueryGenerator
+    tag = f"[{card['smi']}]"
+    t_phase = time.perf_counter()
+
+    # (a) build and profile
+    nodes, _, _ = make_paper_testbed(seed=0)
+    for node in nodes:
+        t0 = time.perf_counter()
+        node.profile(levels=SIM_LEVELS)
+        cap = node.capacity
+        log(f"sim: node {node.node_id} ({node.family}, {node.num_gpus} GPU) "
+            f"profiled at {SIM_LEVELS} s in {time.perf_counter() - t0:.3f} "
+            f"s: C(L) = {cap.k:.3f} L + {cap.b:.3f}, C({SIM_SLO:g} s) = "
+            f"{cap(SIM_SLO):.1f} queries {tag}")
+    caps = [node.capacity for node in nodes]
+
+    # (b) the slot loop at full size, the identifier on the card
+    from torch.profiler import ProfilerActivity, profile
+    slots = _sim_slots(SIM_SLOTS)
+    gen = QueryGenerator(seed=1)
+    ident = OnlineQueryIdentifier(64, len(nodes), update_threshold=256,
+                                  device=DEV)
+    initial = bridge.policy_to_numpy(ident.policy)
+    coord = Coordinator(nodes, ident, seed=3)
+    identify = _CudaTimer(torch, ident.identify)
+    ident.identify = identify
+    plain_update = ppo.ppo_update
+    update = _CudaTimer(torch, plain_update, size_arg=3)
+    sched_ms = [[] for _ in nodes]
+    for node in nodes:
+        def timed(n_queries, budget_s, plain=node.scheduler.schedule,
+                  out=sched_ms[node.node_id]):
+            t = time.perf_counter()
+            alloc = plain(n_queries, budget_s)
+            out.append(1e3 * (time.perf_counter() - t))
+            return alloc
+        node.scheduler.schedule = timed
+    trace = ROOT / "build" / "sim_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    walls, history, upd = [], [], []
+    ppo.ppo_update = update
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_loop = time.perf_counter()
+            for t, (vol, mix) in enumerate(slots):
+                qs = gen.sample(vol, mix)
+                t0 = time.perf_counter()
+                m = coord.run_slot(qs, SIM_SLO)
+                walls.append(time.perf_counter() - t0)
+                _sim_check(m, vol, t, "sim")
+                check(not upd or ident.updates_done >= upd[-1],
+                      f"sim slot {t}: updates_done fell")
+                upd.append(ident.updates_done)
+                history.append(m)
+                load = "/".join(f"{p:.3f}" for p in m.per_node_load)
+                log(f"sim: slot {t:2d} B {vol:4d} quality "
+                    f"{m.quality_mean:.4f} drop rate {m.drop_rate:.4f} load "
+                    f"[{load}] wall {walls[-1]:.3f} s, ppo updates "
+                    f"{ident.updates_done} {tag}")
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t_loop
+    finally:
+        ppo.ppo_update = plain_update
+    prof.export_chrome_trace(str(trace))
+    check(upd[0] > 0, f"no PPO update after slot 0 ({slots[0][0]} queries, "
+          "threshold 256)")
+    check(sum(v for v, _ in slots) == sum(m.n_queries for m in history),
+          "queries lost in the slot loop")
+    tensors = list(ident.policy.parameters()) + list(ident.policy.buffers())
+    adam = [v for st in ident.opt.state.values() for k, v in st.items()
+            if k != "step" and torch.is_tensor(v)]   # step: a host count
+    check(len(ident.opt.state) == len(list(ident.policy.parameters()))
+          and adam and all(x.device.type == "cuda" for x in tensors + adam),
+          "the policy or its Adam state is not on the card")
+    k = len(history) // 3
+    first = float(np.mean([m.quality_mean for m in history[:k]]))
+    last = float(np.mean([m.quality_mean for m in history[-k:]]))
+    busy_ms, n_dev = _busy_ms(trace)
+    timed_ms = sum(identify.ms) + sum(update.ms)
+    log(f"sim: {sum(m.n_queries for m in history)} queries in {SIM_SLOTS} "
+        f"slots at SLO {SIM_SLO:g} s in {loop_s:.3f} s (slot wall median "
+        f"{statistics.median(walls):.3f} s, min {min(walls):.3f}, max "
+        f"{max(walls):.3f}); quality first third {first:.4f}, last third "
+        f"{last:.4f}; drop rate mean "
+        f"{float(np.mean([m.drop_rate for m in history])):.4f}; PPO updates "
+        f"{ident.updates_done} {tag}")
+    log(f"sim: identify on the card {_ms(identify.ms)} (host "
+        f"{_ms(identify.host_ms)}) {tag}")
+    log(f"sim: ppo_update on the card, one epoch at B "
+        f"{sorted(set(update.sizes))}: {_ms(update.ms)} (host "
+        f"{_ms(update.host_ms)}; {ident.updates_done} updates x "
+        f"{ident.update_epochs} epochs) {tag}")
+    for node in nodes:
+        xs = sched_ms[node.node_id]
+        log(f"sim: node {node.node_id} ({node.num_gpus} GPU) "
+            f"IntraNodeScheduler.schedule on the host {_ms(xs)}, "
+            f"{sum(xs) / 1e3:.3f} s in all ({100 * sum(xs) / 1e3 / loop_s:.1f}"
+            f"% of the loop) {tag}")
+    # a torch.profiler session after another one in the same process
+    # can trace nothing (after --profile's slice pass): then the CUDA
+    # events' sum, host gaps inside the calls included, bounds the share
+    traced = (f"{busy_ms:.3f} ms ({100 * busy_ms / (loop_s * 1e3):.3f}%, "
+              f"{n_dev} device activities traced by torch.profiler)"
+              if n_dev else "not traced (the profiler saw no device "
+              "activity)")
+    log(f"sim: device busy in the {loop_s * 1e3:.1f} ms loop {traced}; "
+        f"identify + ppo_update by CUDA events {timed_ms:.3f} ms "
+        f"({100 * timed_ms / (loop_s * 1e3):.3f}%, an upper bound) {tag}")
+
+    # (c) parity, card against CPU
+    t0 = time.perf_counter()
+    sim_parity(torch, caps, initial, tag)
+    log(f"sim: parity in {time.perf_counter() - t0:.3f} s")
+
+    # (d) the paper's baselines on the same trace, at a smaller depth
+    t0 = time.perf_counter()
+    sim_baselines(caps, history, tag)
+    log(f"sim: baselines in {time.perf_counter() - t0:.3f} s")
+    log(f"sim: phase in {time.perf_counter() - t_phase:.3f} s")
+
+
+def _sim_run(torch, caps, ident, n_slots, probs_from=None):
+    """Slots 0 .. n_slots-1 of the trace on a fresh testbed: the slot
+    log [(probs, assignment, results, metrics, updates_done,
+    embeddings)].  With
+    ``probs_from`` (a log), each slot after the identifier's first update
+    is routed on that log's probabilities instead of its own."""
+    from repro_torch.core.coordinator import Coordinator
+    from repro_torch.core.workload import QueryGenerator
+    nodes, _, _ = _sim_testbed(caps)
+    coord = Coordinator(nodes, ident, seed=3)
+    gen = QueryGenerator(seed=1)
+    out = []
+    plain_identify, route, dispatch = ident.identify, coord._route, \
+        coord._dispatch
+    cur = {}
+
+    def identify(e):
+        own = plain_identify(e)
+        cur["own"], cur["e"] = own, e
+        if probs_from is not None and ident.updates_done > 0:
+            return probs_from[len(out)][0]
+        return own
+
+    def routed(probs, slo_s):
+        assign, props = route(probs, slo_s)
+        cur["assign"] = assign.tolist()
+        return assign, props
+
+    def dispatched(queries, assign, slo_s):
+        res = dispatch(queries, assign, slo_s)
+        cur["results"] = [(r.qid, r.node, r.model, r.quality, r.dropped)
+                          for r in res]
+        return res
+
+    ident.identify, coord._route, coord._dispatch = identify, routed, \
+        dispatched
+    for t, (vol, mix) in enumerate(_sim_slots(n_slots)):
+        m = coord.run_slot(gen.sample(vol, mix), SIM_SLO)
+        _sim_check(m, vol, t, "sim parity")
+        out.append((cur["own"], cur["assign"], cur["results"],
+                    (m.quality_mean, m.drop_rate, m.per_node_load.tolist(),
+                     m.n_queries), ident.updates_done, cur["e"]))
+    return out
+
+
+def sim_parity(torch, caps, initial, tag) -> None:
+    """The first slots of (b) again, from (b)'s initial policy (carried
+    by bridge.policy_to_numpy / policy_from_numpy), on fresh testbeds with
+    (a)'s capacities: one identifier on the card, one on the CPU.  Up to
+    the first PPO update the CPU routes on its own probabilities, held
+    within 1e-5 of the card's, and the assignments, every result and the
+    slot metrics are equal.  After it the CPU run routes on the card's
+    probabilities, so both see the same feedback: the slots stay equal,
+    the policies after the first update are held as runtime_parity holds
+    them (policy_parity), and after the last update their parameters
+    within 2 lr per Adam step.  The probabilities each side computed
+    after the first update are reported, not held."""
+    import copy
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.core import ppo
+    from repro_torch.core.identifier import OnlineQueryIdentifier
+    plain_update = ppo.ppo_update
+    biases = {"cuda": [], "cpu": []}
+    firsts, idents, logs, side = {}, {}, {}, {}
+
+    def recorded(policy, *args, **kw):
+        biases[side["now"]].append([layer.b.detach().cpu().clone()
+                                    for layer in policy.layers[:-1]])
+        return plain_update(policy, *args, **kw)
+
+    ppo.ppo_update = recorded
+    try:
+        for name, dev in (("cuda", DEV), ("cpu", "cpu")):
+            side["now"] = name
+            ident = OnlineQueryIdentifier(64, len(caps), update_threshold=256,
+                                          device=dev)
+            ident.load_policy(bridge.policy_from_numpy(initial, dev))
+            plain = ident.maybe_update
+
+            def update_once(plain=plain, ident=ident, name=name):
+                out = plain()
+                if ident.updates_done == 1 and name not in firsts:
+                    firsts[name] = copy.deepcopy(ident.policy).cpu()
+                return out
+            ident.maybe_update = update_once
+            idents[name] = ident
+            logs[name] = _sim_run(torch, caps, ident, SIM_PARITY_SLOTS,
+                                  logs.get("cuda"))
+    finally:
+        ppo.ppo_update = plain_update
+    card, cpu = logs["cuda"], logs["cpu"]
+    raw = []
+    for t, (g, c) in enumerate(zip(card, cpu)):
+        err = float(np.abs(g[0] - c[0]).max())
+        if t == 0 or card[t - 1][4] == 0:      # routed before any update
+            check(err <= 1e-5, f"sim parity slot {t}: probabilities "
+                  f"{err:.3g} apart before any update (tol 1e-5)")
+        else:
+            raw.append(err)
+        check(g[1:5] == c[1:5], f"sim parity slot {t}: assignments, "
+              "results or metrics differ on the card and the CPU")
+    check(card[0][4] == 1, f"sim parity: {card[0][4]} updates after slot 0")
+    epochs = idents["cpu"].update_epochs
+    n_ep = card[-1][4] * epochs
+    check(len(biases["cuda"]) == len(biases["cpu"]) == n_ep,
+          f"sim parity: {len(biases['cuda'])} / {len(biases['cpu'])} PPO "
+          f"epochs recorded, {n_ep} expected")
+    probe = torch.as_tensor(np.asarray(card[0][5], np.float32))
+    par = policy_parity(torch, firsts["cuda"], firsts["cpu"],
+                        {d: b[:epochs] for d, b in biases.items()}, probe,
+                        epochs, idents["cpu"].lr)
+    end = policy_parity(torch, idents["cuda"].policy, idents["cpu"].policy,
+                        biases, probe, n_ep, idents["cpu"].lr)
+    log(f"sim: parity over {SIM_PARITY_SLOTS} slots "
+        f"({sum(len(g[2]) for g in card)} queries), card vs CPU: "
+        f"probabilities before the first update "
+        f"{float(np.abs(card[0][0] - cpu[0][0]).max()):.3g} apart (tol "
+        f"1e-5), assignments, results and slot metrics equal; "
+        f"after the first update each side's own probabilities "
+        f"{[f'{x:.3g}' for x in raw]} apart (not held; the CPU routed on "
+        f"the card's); the policies after the first update: {par['text']}; "
+        f"after the last ({n_ep} epochs) params max |err| "
+        f"{end['params_err']:.3g} (tol {2 * idents['cpu'].lr * n_ep:.3g}) "
+        f"{tag}")
+    check(par["ok"], "sim parity: the policies after the first update "
+          "differ")
+    check(end["params_err"] <= 2 * idents["cpu"].lr * n_ep,
+          "sim parity: the policies' parameters after the last update "
+          "differ")
+
+
+def sim_baselines(caps, history, tag) -> None:
+    """Table II's routers over the trace's first slots (Random and LinUCB
+    through the Coordinator, the oracle by argmax of
+    OracleAllocator.probs_for_domains, as benchmarks/table2_allocation.py
+    drives it), and Table III's shape: node 3 (2 GPUs) under the OCO
+    schedule and the four fixed deployments at 500 queries and the SLO's
+    budget.  Holds what tests/test_ppo_and_sim.py holds: the oracle's
+    quality beats random's by more than 0.02."""
+    import numpy as np
+    from repro_torch.core.baselines import (FixedDeploymentScheduler,
+                                            LinUCBAllocator,
+                                            OracleAllocator, RandomAllocator)
+    from repro_torch.core.coordinator import Coordinator
+    from repro_torch.core.protocols import QueryRouter
+    from repro_torch.core.workload import QueryGenerator
+    slots = _sim_slots(SIM_BASELINE_SLOTS)
+    quality = {}
+
+    def served(results):
+        ok = [r.quality for r in results if not r.dropped]
+        return (float(np.mean(ok)) if ok else 0.0,
+                float(np.mean([r.dropped for r in results])),
+                float(np.mean([r.quality for r in results])))
+
+    for name in ("random", "linucb", "oracle"):
+        t0 = time.perf_counter()
+        nodes, qual, _ = _sim_testbed(caps)
+        gen = QueryGenerator(seed=1)
+        rows = []
+        if name == "oracle":
+            orc = OracleAllocator(qual)
+            for vol, mix in slots:
+                qs = gen.sample(vol, mix)
+                assign = orc.probs_for_domains([q.domain for q in qs]
+                                               ).argmax(1)
+                res = []
+                for n, node in enumerate(nodes):
+                    res += node.process_slot(
+                        [qs[i] for i in np.where(assign == n)[0]], SIM_SLO)
+                check(len(res) == vol, f"oracle: {len(res)} results of {vol}")
+                rows.append(served(res))
+        else:
+            router = RandomAllocator(len(nodes), seed=2) if name == "random" \
+                else LinUCBAllocator(64, len(nodes), seed=2)
+            check(isinstance(router, QueryRouter),
+                  f"{name} is not a QueryRouter")
+            coord = Coordinator(nodes, router, seed=3)
+            res_all = []
+            dispatch = coord._dispatch
+
+            def kept(queries, assign, slo_s, dispatch=dispatch,
+                     res_all=res_all):
+                res = dispatch(queries, assign, slo_s)
+                res_all.append(res)
+                return res
+            coord._dispatch = kept
+            for t, (vol, mix) in enumerate(slots):
+                m = coord.run_slot(gen.sample(vol, mix), SIM_SLO)
+                _sim_check(m, vol, t, name)
+                rows.append(served(res_all[-1]))
+        q, d, w = (float(np.mean([r[i] for r in rows])) for i in range(3))
+        quality[name] = q
+        log(f"sim: Table II shape, {name} over {len(slots)} slots "
+            f"({sum(v for v, _ in slots)} queries): quality of served "
+            f"queries {q:.4f}, drop rate {d:.4f}, quality with drops as 0 "
+            f"{w:.4f} ({time.perf_counter() - t0:.3f} s) {tag}")
+    ppo_q = float(np.mean([m.quality_mean for m in history[:len(slots)]]))
+    log(f"sim: Table II shape, PPO in (b)'s first {len(slots)} slots "
+        f"(its testbed after profiling): quality of served queries "
+        f"{ppo_q:.4f} {tag}")
+    check(quality["oracle"] > quality["random"] + 0.02,
+          f"oracle quality {quality['oracle']:.4f} does not beat random "
+          f"{quality['random']:.4f} by more than 0.02")
+    for kind in (None,) + TABLE3_KINDS:
+        t0 = time.perf_counter()
+        nodes, _, _ = _sim_testbed(caps)
+        node = nodes[3]
+        sched = None if kind is None else FixedDeploymentScheduler(node, kind)
+        gen = QueryGenerator(seed=1)
+        rows = [served(node.process_slot(gen.sample(TABLE3_QUERIES), SIM_SLO,
+                                         scheduler=sched))
+                for _ in range(TABLE3_SLOTS)]
+        q, d, w = (float(np.mean([r[i] for r in rows])) for i in range(3))
+        log(f"sim: Table III shape, node 3 ({node.num_gpus} GPU) "
+            f"{kind or 'OCO intra-node'} at {TABLE3_QUERIES} queries x "
+            f"{TABLE3_SLOTS} slots, SLO {SIM_SLO:g} s: quality of served "
+            f"queries {q:.4f}, drop rate {d:.4f}, quality with drops as 0 "
+            f"{w:.4f} ({time.perf_counter() - t0:.3f} s) {tag}")
 
 
 def profile_slice(torch, rag, qs, tag) -> list:
@@ -3226,6 +3676,9 @@ def main(argv=None) -> int:
             phase_kernels(torch, card, captured, rec, traced)
         if "parity" in phases:
             phase_parity(torch)
+        # last: its torch.profiler session can leave later ones empty
+        if "sim" in phases:
+            phase_sim(torch, card)
         log(f"chip_smoke: phases {phases} passed in "
             f"{time.perf_counter() - t_all:.1f} s")
     except Exception:   # noqa: BLE001  (report any phase failure, exit 1)

@@ -8,8 +8,8 @@ capacities profiled from real throughput) is inherited unchanged, while
 the per-slot metrics are extended with measured latency percentiles and
 token counts, and the PPO feedback consumes *measured* composite
 quality (ROUGE-L + BERTScore against the reference answer) instead of
-oracle draws.  Works with any ``SchedulableNode`` (the reference also
-runs its simulated ``EdgeNode``, which is not ported).
+oracle draws.  Works with any ``SchedulableNode``, including the
+simulated ``core.cluster.EdgeNode`` (whose latencies are 0.0).
 
 When metrics are enabled (``obs.enable_metrics`` or live tracing) the
 runtime also closes the telemetry loop the paper calls "synergizing

@@ -2,8 +2,8 @@
 
 The port of ``repro/core/coordinator.py``.  Per slot: encode queries ->
 online identifier -> probability vectors -> inter-node scheduling
-(Algorithm 1, capacity-aware) -> per-node execution -> quality feedback
--> PPO update.  With tracing on, each query's trace is rooted in a
+(Algorithm 1, capacity-aware) -> per-node intra-node scheduling +
+execution -> quality feedback -> PPO update.  With tracing on, each query's trace is rooted in a
 ``request`` span over the slot body, with ``identify`` and ``route``
 inside it.
 """
@@ -30,9 +30,10 @@ class SlotMetrics:
 
 
 class Coordinator:
-    """Drives any ``SchedulableNode`` sequence: ``cluster.node.LiveEdgeNode``
-    through the ``ClusterRuntime`` subclass (the reference also drives
-    its oracle-driven simulator, which is not ported)."""
+    """Drives any ``SchedulableNode`` sequence — the oracle-driven
+    ``EdgeNode`` simulator here, or ``cluster.node.LiveEdgeNode`` via
+    the ``ClusterRuntime`` subclass (same routing, measured execution).
+    """
 
     def __init__(self, nodes: Sequence[SchedulableNode],
                  identifier: QueryRouter,
@@ -90,10 +91,11 @@ class Coordinator:
         return scores
 
     def _slot_pipeline(self, queries: Sequence[Query], slo_s: float):
-        """The slot body, instrumented: one ``request`` root span per
-        query wraps encode -> identify -> route -> dispatch -> feedback,
-        so every downstream stage (retrieve, prefill, decode, ...) nests
-        under each query's trace.  -> (props, results, scores)."""
+        """The shared (simulated + live) slot body, instrumented: one
+        ``request`` root span per query wraps encode -> identify ->
+        route -> dispatch -> feedback, so every downstream stage
+        (retrieve, prefill, decode, ...) nests under each query's
+        trace.  -> (props, results, scores)."""
         tr = obs_trace.get_tracer()
         traces = [obs_trace.query_trace(q.qid) for q in queries] \
             if tr.enabled else None

@@ -1,7 +1,6 @@
 """Shared structural interfaces between the simulated and live paths.
 
-A copy of ``repro/core/protocols.py``.  The port has the live path
-only so far: the simulated ``core.cluster.EdgeNode`` is not ported.
+A copy of ``repro/core/protocols.py``.
 
 ``core.cluster.EdgeNode`` (oracle-driven simulator) and
 ``cluster.node.LiveEdgeNode`` (real ServeEngine + retrieval, measured
