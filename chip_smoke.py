@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases card,build,cluster
     python3 chip_smoke.py --phases card,build,cluster,runtime
     python3 chip_smoke.py --phases card,build,launcher
+    python3 chip_smoke.py --phases card,build,serve
     python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
@@ -76,6 +77,32 @@ Phases, in order:
            metrics self-probe printing OK, a non-zero exit failing the
            phase), each with its own launch counts (flat top-k and
            attention launched)
+  serve    the non-paged serving engine's entry points.  (a) The port's
+           serve.py at olmo-1b's published width (bf16, seeded weights):
+           --batch 4 --requests 8 --prompt-len 256 --new-tokens 16
+           --max-len 512 --reference, waves of buckets 256 and 128; (b)
+           the same at xlstm-350m's with --prompt-len 64 (exact-length
+           waves); tokens/s of the queue and of one wave through generate
+           and generate_reference, waves and slot utilization.  (c)
+           build_cluster over the cluster phase's weights without --paged
+           (the continuous queue over the contiguous cache, the
+           reference's default run) and with the wave queue, each
+           profiled and replaying 3 uniform slots of 12 at SLO 1.5 s
+           under ClusterRuntime: per slot load, drop rate, p50 and p95,
+           per node TTFT, queries/s, drop rate and p95; then
+           cluster_serve --smoke --nodes 2 --slots 3, with and without
+           --queue wave, through the port's main.  Each run has its own
+           launch counts (0 just before, read just after): flash
+           attention and the top-k launched, paged decode not; xlstm-350m
+           launches no attention.  (d) At the smoke configs (f32), card
+           against CPU: the greedy tokens of generate,
+           generate_reference, the wave queue and the non-paged
+           continuous queue equal, on both archs.  (e) flash_attention.cu
+           against its plain version at the three call shapes the runs
+           gave it (the largest of each: a wave's padded prompt, a chunk
+           over the row's whole buffer, a decode query over it), timed
+           beside its plain version and SDPA; their rows go into the
+           kernels line under the flash kernel's "shapes"
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -179,7 +206,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
-              "kernels", "parity", "sim")
+              "serve", "kernels", "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -1461,6 +1488,336 @@ def phase_launcher(torch, card) -> dict:
     return total
 
 
+# the port's serve launcher at published width (serve.py's flags; the
+# olmo-1b run's buckets are 256 and 128, the xlstm-350m run's exact)
+SERVE_ARGS = ["--batch", "4", "--requests", "8", "--new-tokens", "16",
+              "--max-len", "512", "--reference"]
+SERVE_PROMPT_LEN = {"olmo-1b": 256, "xlstm-350m": 64}
+# the reference's default cluster run (no --paged), and with --queue wave
+SERVE_CLI = ["--smoke", "--nodes", "2", "--slots", "3"]
+# the non-paged engine's three flash call shapes, in the kernels line
+FLASH_SHAPES = ("prefill", "chunk", "decode")
+
+
+class FlashShapes:
+    """While installed, ``ops.flash_attention`` keeps, for each call shape
+    of the non-paged engine, the inputs of its largest call (q's elements
+    times Sk, the latest on ties; positions cloned, the rest by
+    reference) and counts
+    the calls: "prefill" (a wave's whole padded prompt, Sq = Sk > 1),
+    "chunk" (a chunk over the row's whole buffer, 1 < Sq < Sk) and
+    "decode" (Sq 1 over the whole buffer).  It adds no device work and no
+    synchronisation to the calls it sees."""
+
+    def __init__(self, ops):
+        self.ops, self.orig = ops, ops.flash_attention
+        self.best, self.calls = {}, dict.fromkeys(FLASH_SHAPES, 0)
+
+    def install(self):
+        orig = self.orig
+
+        def flash(q, k, v, qp, kvp, causal=True, window=None, softcap=None):
+            Sq, Sk = q.shape[1], k.shape[1]
+            kind = "decode" if Sq == 1 else \
+                "prefill" if Sq == Sk else "chunk"
+            kw = {"causal": causal, "window": window, "softcap": softcap}
+            self.calls[kind] += 1
+            size = q.numel() * Sk
+            if kind not in self.best or size >= self.best[kind][0]:
+                self.best[kind] = (size, (q, k, v, qp.clone(), kvp.clone()),
+                                   kw)
+            return orig(q, k, v, qp, kvp, **kw)
+
+        self.ops.flash_attention = flash
+
+    def remove(self):
+        self.ops.flash_attention = self.orig
+
+
+def _count_launches(ops, fn):
+    """``fn()`` with every launch count at 0 just before and read just
+    after: (its result, {kernel: launches})."""
+    import torch
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ops.launches)
+
+
+def _serve_cli(torch, ops, serve, arch, tag) -> dict:
+    """(a) / (b): ``repro_torch.launch.serve`` at ``arch``'s published
+    width (bf16), launches counted around ``main``."""
+    argv = ["--arch", arch, "--prompt-len", str(SERVE_PROMPT_LEN[arch])] \
+        + SERVE_ARGS
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            got, launches = _count_launches(ops, lambda: serve.main(argv))
+    finally:
+        sys.stdout.write(buf.getvalue())
+    wall = time.perf_counter() - t0
+    check(got["tokens"] == 8 * 16, f"serve {arch}: {got['tokens']} tokens")
+    check(all(len(o) == 16 for o in got["outputs"]), f"serve {arch}: an "
+          "output is short")
+    check(launches["paged_decode_attention"] == 0,
+          f"serve {arch} launched paged_decode_attention")
+    if arch == "olmo-1b":
+        check(sorted(set(got["buckets"])) == [128, 256],
+              f"serve {arch}: buckets {sorted(set(got['buckets']))}")
+        check(launches["flash_attention"] > 0,
+              f"serve {arch} did not launch flash_attention")
+    else:
+        check(launches["flash_attention"] == 0,
+              f"serve {arch} ({arch} has no attention) launched "
+              "flash_attention")
+    log(f"serve[{arch}]: serve.py {' '.join(argv)} in {wall:.3f} s: "
+        f"{got['tokens']} tokens, {got['waves']} waves, slot utilization "
+        f"{got['slot_utilization']:.4f}, buckets {sorted(set(got['buckets']))}"
+        f", queue {got['tokens'] / got['seconds']:.2f} tokens/s incl. "
+        f"first calls; one wave: generate {got['generate_tok_s']:.2f} "
+        f"tokens/s ({got['generate_s'] * 1e3:.3f} ms), generate_reference "
+        f"{got['reference_tok_s']:.2f} tokens/s "
+        f"({got['reference_s'] * 1e3:.3f} ms); launches "
+        f"{json.dumps(launches)} {tag}")
+    return launches
+
+
+def _serve_replay(torch, ops, cluster_serve, queue, tag) -> dict:
+    """(c): ``build_cluster`` over the cluster phase's published-width
+    weights, non-paged (``queue`` continuous or wave), cluster_serve's
+    other defaults (max_len 192, prefill chunk 32, batch 4, 8 new
+    tokens, top-k 2, flat retrieval): ClusterRuntime with metrics and SLO
+    feedback, profiled, then a uniform replay, every launch count at 0
+    just before and read just after."""
+    from repro_torch.cluster import ClusterRuntime, LiveWorkload, \
+        replay_trace
+    from repro_torch.obs import metrics as obs_metrics
+    cfgs, params = _cluster_models(torch)
+    nodes, qas, _, enc, ident, _ = cluster_serve.build_cluster(
+        2, archs=CLUSTER_ARCHS, models=list(zip(cfgs, params)), entities=40,
+        queue=queue, paged=False, device=DEV)
+    check([(n.engine.paged, n.engine.prefill_chunk) for n in nodes]
+          == [(False, None if queue == "wave" else 32)] * 2,
+          f"build_cluster built {queue} nodes with (paged, chunk) "
+          f"{[(n.engine.paged, n.engine.prefill_chunk) for n in nodes]}")
+    obs_metrics.registry().reset()
+    obs_metrics.enable_metrics()
+    lat = [[] for _ in nodes]
+    per_node = [dict.fromkeys(ops.launches, 0) for _ in nodes]
+    try:
+        runtime = ClusterRuntime(nodes, ident, seed=0, slo_feedback=True)
+        t0 = time.perf_counter()
+        runtime.initialize()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+        for n, node in enumerate(nodes):
+            serve = node.process_slot
+
+            def counted(queries, slo_s, scheduler=None, n=n, serve=serve):
+                before = dict(ops.launches)
+                out = serve(queries, slo_s, scheduler=scheduler)
+                torch.cuda.synchronize()
+                for name, c in ops.launches.items():
+                    per_node[n][name] += c - before[name]
+                lat[n].extend(r.latency_s for r in out)
+                return out
+            node.process_slot = counted
+        slots = []
+        t0 = time.perf_counter()
+        _, launches = _count_launches(ops, lambda: replay_trace(
+            runtime, LiveWorkload(qas, enc, seed=2), n_slots=RUNTIME_SLOTS,
+            slo_s=RUNTIME_SLO, base_volume=RUNTIME_VOLUME, trace="uniform",
+            seed=3, on_slot=lambda t, m: slots.append(m)))
+        wall = time.perf_counter() - t0
+        runtime.close()
+    finally:
+        obs_metrics.enable_metrics(False)
+    sent = sum(m.n_queries for m in slots)
+    check(sent == RUNTIME_SLOTS * RUNTIME_VOLUME == sum(map(len, lat)),
+          f"{queue} replay: {sent} queries sent, {sum(map(len, lat))} results")
+    check(launches["paged_decode_attention"] == 0,
+          f"{queue} replay launched paged_decode_attention")
+    check(per_node[0]["flash_attention"] > 0,
+          f"{queue} replay: node 0 did not launch flash_attention")
+    check(per_node[1]["flash_attention"] == 0,
+          f"{queue} replay: node 1 (xlstm) launched flash_attention")
+    check(all(p["retrieval_topk"] > 0 for p in per_node),
+          f"{queue} replay: a node did not launch retrieval_topk")
+    for t, m in enumerate(slots):
+        log(f"serve[{queue}]: slot {t} n {m.n_queries} load "
+            f"[{'/'.join(f'{p:.3f}' for p in m.per_node_load)}] drop rate "
+            f"{m.drop_rate:.3f} p50 {m.latency_p50:.3f} s p95 "
+            f"{m.latency_p95:.3f} s {tag}")
+    for n, node in enumerate(nodes):
+        st = node.stats
+        ttft = (f"mean TTFT {st.ttft_mean * 1e3:.2f} ms" if st.ttft_s else
+                "TTFT not recorded (a wave's tokens arrive with the wave)")
+        p95 = statistics.quantiles(lat[n], n=20)[-1] if len(lat[n]) > 1 \
+            else (lat[n] or [0.0])[0]
+        log(f"serve[{queue}]: node {n} ({node.arch}) {st.queries} queries, "
+            f"{ttft}, {st.queries_per_s:.3f} queries/s, drop rate "
+            f"{st.drops / max(st.queries, 1):.3f}, p95 {p95:.3f} s, "
+            f"{st.waves} {'waves' if queue == 'wave' else 'frames'}, "
+            f"{st.refills} refills; capacity {node.capacity.k:.3f} q/s; "
+            f"launches {json.dumps(per_node[n])} {tag}")
+    log(f"serve[{queue}]: {sent} queries in {RUNTIME_SLOTS} uniform slots in "
+        f"{wall:.3f} s wall (profiled in {prof_s:.3f} s); launches "
+        f"{json.dumps(launches)} {tag}")
+    return launches
+
+
+def _serve_main(torch, ops, cluster_serve, extra, tag) -> dict:
+    """(c): the reference's default cluster command (no --paged), or with
+    ``extra`` flags, through the port's ``main`` on the card."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, launches = _count_launches(
+                ops, lambda: cluster_serve.main(SERVE_CLI + extra))
+    finally:
+        sys.stdout.write(buf.getvalue())
+    out = buf.getvalue()
+    check("summary:" in out, f"cluster_serve {extra}: no summary")
+    check(launches["paged_decode_attention"] == 0,
+          f"cluster_serve {extra} launched paged_decode_attention")
+    for name in ("flash_attention", "retrieval_topk"):
+        check(launches[name] > 0, f"cluster_serve {extra} did not launch "
+              f"{name}")
+    log(f"serve[cli]: cluster_serve {' '.join(SERVE_CLI + extra)} in "
+        f"{time.perf_counter() - t0:.3f} s; launches {json.dumps(launches)} "
+        f"{tag}")
+    return launches
+
+
+def _serve_paths(torch, cfg, params, dev, prompts):
+    """The smoke model's greedy tokens on ``dev`` through ``generate``,
+    ``generate_reference``, a ``RequestQueue`` and a non-paged
+    ``ContinuousQueue`` (batch 2, chunk 8: refills)."""
+    from repro_torch.serving import (ContinuousQueue, GenerationParams,
+                                     RequestQueue, ServeEngine)
+    gp = GenerationParams(max_new_tokens=8)
+    eng = ServeEngine(cfg, params, max_len=128, batch_size=4, device=dev)
+    out = {"generate": eng.generate(prompts[:4], gen=gp),
+           "generate_reference": eng.generate_reference(prompts[:4], gen=gp)}
+    q = RequestQueue(eng, gp)
+    rids = q.submit_all(prompts)
+    res = q.run()
+    out["wave"] = [res[r] for r in rids]
+    eng = ServeEngine(cfg, params, max_len=128, batch_size=2,
+                      prefill_chunk=8, device=dev)
+    q = ContinuousQueue(eng, gp)
+    rids = q.submit_all(prompts)
+    res = q.run()
+    out["continuous"] = [res[r] for r in rids]
+    out["refills"] = q.stats.refills
+    return out
+
+
+def serve_parity(torch) -> None:
+    """(d): the smoke configs (f32) on the card and on the CPU from the
+    same weights: every path's greedy tokens equal."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    rng = np.random.default_rng(0)
+    for arch in CLUSTER_ARCHS:
+        cfg = get_smoke_config(arch)
+        prompts = [rng.integers(5, cfg.vocab_size, n).tolist()
+                   for n in (37, 9, 20, 3, 64, 14)]
+        params_cpu = Model(cfg).init_params(seed=0, device="cpu")
+        got = _serve_paths(torch, cfg, _to_device(params_cpu, "cuda"),
+                           "cuda", prompts)
+        want = _serve_paths(torch, cfg, params_cpu, "cpu", prompts)
+        check(got == want, f"serve parity {arch}: card and CPU differ:\n"
+              f"{got}\n{want}")
+        check(got["generate"] == got["generate_reference"],
+              f"serve parity {arch}: generate != generate_reference")
+        check(got["refills"] >= 1, f"serve parity {arch}: no refill")
+        log(f"serve parity: {arch} smoke ({cfg.num_layers} layers d"
+            f"{cfg.d_model}, f32) greedy tokens of generate, "
+            f"generate_reference, the wave queue ({len(prompts)} requests) "
+            f"and the non-paged continuous queue ({got['refills']} refills) "
+            "equal on card and CPU")
+
+
+def serve_kernels(torch, ops, shapes, rec, card) -> None:
+    """(e): ``flash_attention.cu`` against its plain version on the card
+    at the non-paged engine's three call shapes, from the serve runs'
+    largest calls: kernel, plain and SDPA ms beside the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    rows = []
+    for kind in FLASH_SHAPES:
+        check(kind in shapes.best, f"no {kind} flash call was recorded")
+        _, args, kw = shapes.best[kind]
+        q, k, v, qp, kvp = args
+        got = ops.flash_attention(*args, **kw)
+        want = ref.flash_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"flash {kind}: non-finite")
+        valid = (qp >= 0)[:, :, None, None].expand_as(got)
+        err, tol = max_err(got, want, valid), tolerance(want)
+        pads = int((qp < 0).sum())
+        log(f"  flash_attention [serve {kind}] q{tuple(q.shape)} "
+            f"k{tuple(k.shape)} {dtype_name(q)}, {pads} pad queries, live "
+            f"keys per row {(kvp >= 0).sum(dim=1).tolist()}: valid rows "
+            f"max|err| {err:.3e} (tol {tol:.3g}); {shapes.calls[kind]} "
+            "calls in the serve runs")
+        check(err <= tol, f"flash serve {kind}: {err} > {tol}")
+        t_k, t_p, t_l, bnd, by = _flash_times(torch, F, ops, ref, args, kw,
+                                              f"serve {kind}", card)
+        if kind == "decode":
+            # the design not taken: copy the live prefix of the buffer
+            # ([:, :cap], cap = one past the last live slot) before the
+            # call, as a per-layer, per-step slice would
+            cap = int((kvp >= 0).any(dim=0).nonzero().max()) + 1
+            t_c = bench_ms(lambda: ops.flash_attention(
+                q, k[:, :cap].contiguous(), v[:, :cap].contiguous(), qp,
+                kvp[:, :cap].contiguous(), **kw))
+            log(f"  flash_attention serve decode over a contiguous copy of "
+                f"the first {cap} slots: {t_c:.4f} ms with the copies, "
+                f"against {t_k:.4f} ms over the whole buffer [{card['smi']}]")
+        rows.append({"shape": kind, "q": list(q.shape), "k": list(k.shape),
+                     "launches": shapes.calls[kind], "max_abs_err": err,
+                     "ms": t_k, "plain_ms": t_p, "bound_ms": bnd,
+                     "bound_by": by, "library_ms": t_l})
+    rec.setdefault("flash_attention", {})["shapes"] = rows
+
+
+def phase_serve(torch, card, rec: dict) -> dict:
+    """The non-paged serving engine's entry points on the card: (a) / (b)
+    serve.py at olmo-1b's and xlstm-350m's published width, (c) the
+    non-paged and wave cluster replays over the cluster phase's weights
+    and cluster_serve's default and wave commands through ``main``, each
+    with its own launch counts; (d) card-vs-CPU parity of every path at
+    the smoke configs; (e) the flash kernel at the three shapes.  Returns
+    the launches of (a)-(c) together."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cluster_serve, serve
+    tag = f"[{card['smi']}]"
+    total = {}
+    shapes = FlashShapes(ops)
+    shapes.install()
+    try:
+        runs = [lambda a=a: _serve_cli(torch, ops, serve, a, tag)
+                for a in CLUSTER_ARCHS]
+        runs += [lambda q=q: _serve_replay(torch, ops, cluster_serve, q, tag)
+                 for q in ("continuous", "wave")]
+        runs += [lambda e=e: _serve_main(torch, ops, cluster_serve, e, tag)
+                 for e in ([], ["--queue", "wave"])]
+        for run in runs:
+            for name, c in run().items():
+                total[name] = total.get(name, 0) + c
+    finally:
+        shapes.remove()
+    serve_parity(torch)
+    serve_kernels(torch, ops, shapes, rec, card)
+    log(f"serve: launches on the paths {json.dumps(total)}")
+    return total
+
+
 SIM_SLO = 15.0           # examples/hierarchical_scheduling_sim.py's --slo
 SIM_SLOTS = 20           # its --slots
 SIM_LEVELS = (5, 10, 15, 20, 25, 30)    # its profiling levels (s)
@@ -2229,7 +2586,7 @@ def kernels_flash(torch, F, ops, ref, gen, main, rec, card) -> None:
                    "flash_attention")
     t_k, t_p, t_l, bnd, by = _flash_times(torch, F, ops, ref, args, kw,
                                           "main path", card)
-    rec["flash_attention"] = dict(
+    rec.setdefault("flash_attention", {}).update(
         max_abs_err=errs["main path"], ms=t_k, plain_ms=t_p, bound_ms=bnd,
         bound_by=by, library_ms=t_l)
     # a 256-query chunk after 1792 cached keys
@@ -3672,6 +4029,9 @@ def main(argv=None) -> int:
         if "launcher" in phases:
             for name, n in phase_launcher(torch, card).items():
                 launches[name] = launches.get(name, 0) + n
+        if "serve" in phases:
+            for name, n in phase_serve(torch, card, rec).items():
+                launches[name] = launches.get(name, 0) + n
         if "kernels" in phases:
             phase_kernels(torch, card, captured, rec, traced)
         if "parity" in phases:
@@ -3691,6 +4051,8 @@ def main(argv=None) -> int:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = rec.get(name, {}).get(key)
+        if "shapes" in rec.get(name, {}):
+            row["shapes"] = rec[name]["shapes"]
         kernels.append(row)
     log(card["smi"])
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,11 @@
 """A live edge node: real retrieval and real decoding, measured.
 
-Counterpart of ``repro/cluster/node.py`` for the paged queues.
-A ``LiveEdgeNode`` owns
+Counterpart of ``repro/cluster/node.py``.  A ``LiveEdgeNode`` owns
 
-  * a paged, chunk-prefilling ``ServeEngine`` on its device, for any
-    architecture the port's ``Model`` serves (attention layers in a
-    paged KV pool, xLSTM layers with per-row recurrent state),
+  * a ``ServeEngine`` on its device, for any architecture the port's
+    ``Model`` serves (attention layers in a contiguous or, with
+    ``paged=True``, a paged KV cache; xLSTM layers with per-row
+    recurrent state),
   * a private domain-partitioned corpus behind a ``VectorIndex``
     backend (exact ``flat`` scan or ``ivf`` ANN probe) on the same device,
   * optionally a ``SemanticQueryCache`` (repeat queries skip the probe)
@@ -13,9 +13,11 @@ A ``LiveEdgeNode`` owns
     retrieval, ``cluster.federation``),
   * a request scheduler: a fresh ``ContinuousQueue`` per scheduler slot
     (``queue="continuous"``), or ONE standing queue for the node's
-    lifetime whose frame stays warm across slots (``queue="standing"``);
-    either refills a row the moment it finishes and forks
-    retrieved-context prefixes out of the session's prefix cache.
+    lifetime whose frame stays warm across slots (``queue="standing"``),
+    either of which refills a row the moment it finishes (and, paged,
+    forks retrieved-context prefixes out of the session's prefix cache);
+    or the synchronous ``RequestQueue`` waves (``queue="wave"``), where a
+    query's generation latency is its wave's finish time.
 
 With a standing queue the node is a *standing engine*: each slot's
 queries stream into the live session (refills instead of a cold frame),
@@ -38,9 +40,7 @@ trace gets a ``retrieve`` span (and ``semantic_cache`` events) and a
 ``detokenize`` span.
 
 Sampling is greedy; the reference's PRNG key becomes an explicit integer
-seed.  Not ported yet (they raise ``NotImplementedError``, ROADMAP A4):
-the wave scheduler (``queue="wave"``) and a non-paged engine
-(``paged=False``).
+seed, folded with the slot count for each slot's queue.
 """
 from __future__ import annotations
 
@@ -63,8 +63,8 @@ from repro_torch.retrieval.cache import SemanticQueryCache
 from repro_torch.retrieval.encoder import TextEncoder
 from repro_torch.retrieval.index import build_index
 from repro_torch.serving.engine import ServeEngine
-from repro_torch.serving.sampling import GenerationParams
-from repro_torch.serving.scheduler import ContinuousQueue
+from repro_torch.serving.sampling import GenerationParams, fold_seed
+from repro_torch.serving.scheduler import ContinuousQueue, RequestQueue
 
 
 @dataclass
@@ -114,11 +114,6 @@ class LiveEdgeNode:
         self.device = resolve_device(device)
         if queue not in ("continuous", "standing", "wave"):
             raise ValueError(f"queue={queue!r} (continuous|standing|wave)")
-        if queue == "wave" or not paged:
-            raise NotImplementedError(
-                "the port's live node serves the continuous and standing "
-                "queues over a paged engine (paged=True); the wave queue "
-                "and the non-paged engine are ROADMAP A4")
         self.node_id = node_id
         self.arch = arch
         self.docs = list(docs)
@@ -128,11 +123,13 @@ class LiveEdgeNode:
         self.queue_kind = queue
         self.admission = admission
         self.seed = seed
+        chunked = queue in ("continuous", "standing")
         # chunk must leave decode room; shrink for tiny test caches
         chunk = min(prefill_chunk, max(1, (max_len - max_new_tokens) // 2))
         self.engine = ServeEngine(
             cfg, params, max_len=max_len, batch_size=batch_size,
-            prefill_chunk=chunk, paged=True, block_size=block_size,
+            prefill_chunk=chunk if chunked else None,
+            paged=paged and chunked, block_size=block_size,
             device=self.device)
         self.gen = GenerationParams(max_new_tokens=max_new_tokens,
                                     eos_id=EOS)
@@ -211,8 +208,7 @@ class LiveEdgeNode:
     def _slot_seed(self) -> int:
         """The sampling seed of the current slot, folded from the node's
         seed and its slot count (greedy decoding does not read it)."""
-        return int(np.random.SeedSequence(
-            [self.seed, self.stats.slots]).generate_state(1)[0])
+        return fold_seed(self.seed, self.stats.slots)
 
     def process_slot(self, queries: Sequence[Query], slo_s: float,
                      scheduler=None) -> List[QueryResult]:
@@ -233,43 +229,68 @@ class LiveEdgeNode:
         t_retrieval = time.perf_counter() - t0
         self.stats.retrieval_s += t_retrieval
 
-        # (tokens, prefix_len) submission: the paged engine forks the
-        # shared retrieved-context prefix instead of re-prefilling it
-        if self.queue_kind == "standing":
-            queue = self._ensure_standing_queue()
+        comps: Dict[int, object] = {}      # rid -> completion
+        done_s: Dict[int, float] = {}      # rid -> generate-path latency
+        delta = None                       # this slot's ContinuousStats
+        if self.queue_kind == "wave":
+            queue = RequestQueue(self.engine, self.gen,
+                                 seed=self._slot_seed())
+            rids = queue.submit_all(
+                self.tok.encode(build_prompt(q.question, c), bos=True)
+                for q, c in zip(queries, contexts))
+            wave_elapsed: List[float] = []
+            t0 = time.perf_counter()
+            while queue.pending():
+                queue.step()
+                wave_elapsed.append(time.perf_counter() - t0)
+            self.stats.generate_s += wave_elapsed[-1] if wave_elapsed \
+                else 0.0
+            self.stats.waves += queue.stats.waves
+            self.stats.tokens_out += queue.stats.tokens_out
+            for rid in rids:
+                comps[rid] = queue.result(rid)
+                done_s[rid] = wave_elapsed[comps[rid].wave]
         else:
-            queue = ContinuousQueue(self.engine, self.gen,
-                                    seed=self._slot_seed(),
-                                    policy=self.admission)
-        # per-slot stats are deltas of the queue's monotone counters (a
-        # fresh queue's delta equals its totals, so both kinds share it)
-        base = queue.stats.snapshot()
-        queue.set_shed(self.shed_fraction)
-        cap = self.engine.cont_max_prompt_len(self.gen.max_new_tokens)
-        rids = []
-        for q, c, tid in zip(queries, contexts, tids):
-            toks, plen = split_prompt(q.question, c, self.tok, cap=cap)
-            rids.append(queue.submit(toks, prefix_len=plen, trace=tid))
-        t0 = time.perf_counter()
-        if queue.standing:
-            # stream this slot into the live session and return the
-            # moment its requests finish: other rows may straddle into
-            # the next slot mid-decode
-            queue.run(wait_for=rids)
-        else:
-            queue.run()
-        self.stats.generate_s += time.perf_counter() - t0
-        delta = queue.stats.delta(base)
-        self.stats.waves += delta.frames
-        self.stats.refills += delta.refills
-        self.stats.prefix_hits += delta.prefix_hits
-        self.stats.prefix_misses += delta.prefix_misses
-        self.stats.prefix_evictions += delta.prefix_evictions
-        self.stats.shed += delta.shed_hint_drops
-        self.stats.kv_exhaustions += delta.kv_exhaustions
-        self.stats.tokens_out += delta.tokens_out
-        self.stats.ttft_s.extend(t_retrieval + v for v in delta.ttft_s)
-        comps = {rid: queue.pop_result(rid) for rid in rids}
+            # (tokens, prefix_len) submission: a paged engine forks the
+            # shared retrieved-context prefix instead of re-prefilling it
+            if self.queue_kind == "standing":
+                queue = self._ensure_standing_queue()
+            else:
+                queue = ContinuousQueue(self.engine, self.gen,
+                                        seed=self._slot_seed(),
+                                        policy=self.admission)
+            # per-slot stats are deltas of the queue's monotone counters
+            # (a fresh queue's delta equals its totals, so both kinds
+            # share it)
+            base = queue.stats.snapshot()
+            queue.set_shed(self.shed_fraction)
+            cap = self.engine.cont_max_prompt_len(self.gen.max_new_tokens)
+            rids = []
+            for q, c, tid in zip(queries, contexts, tids):
+                toks, plen = split_prompt(q.question, c, self.tok, cap=cap)
+                rids.append(queue.submit(toks, prefix_len=plen, trace=tid))
+            t0 = time.perf_counter()
+            if queue.standing:
+                # stream this slot into the live session and return the
+                # moment its requests finish: other rows may straddle
+                # into the next slot mid-decode
+                queue.run(wait_for=rids)
+            else:
+                queue.run()
+            self.stats.generate_s += time.perf_counter() - t0
+            delta = queue.stats.delta(base)
+            self.stats.waves += delta.frames
+            self.stats.refills += delta.refills
+            self.stats.prefix_hits += delta.prefix_hits
+            self.stats.prefix_misses += delta.prefix_misses
+            self.stats.prefix_evictions += delta.prefix_evictions
+            self.stats.shed += delta.shed_hint_drops
+            self.stats.kv_exhaustions += delta.kv_exhaustions
+            self.stats.tokens_out += delta.tokens_out
+            self.stats.ttft_s.extend(t_retrieval + v for v in delta.ttft_s)
+            for rid in rids:
+                comps[rid] = queue.pop_result(rid)
+                done_s[rid] = comps[rid].done_s
 
         results: List[QueryResult] = []
         self.last_contexts = {}
@@ -277,13 +298,13 @@ class LiveEdgeNode:
         for q, rid, ctx, src, tid in zip(queries, rids, contexts, sources,
                                          tids):
             comp = comps[rid]
-            latency = t_retrieval + comp.done_s
+            latency = t_retrieval + done_s[rid]
             with tr.span("detokenize", trace=tid,
                          tokens=len(comp.tokens)):
                 answer = self.tok.decode(comp.tokens)
             # a shed request never ran: it is a drop by decision, not by
             # the SLO clock
-            dropped = comp.shed or latency > slo_s
+            dropped = getattr(comp, "shed", False) or latency > slo_s
             quality = 0.0 if dropped else composite_quality(answer,
                                                             q.reference)
             self.last_contexts[q.qid] = ctx
@@ -301,23 +322,27 @@ class LiveEdgeNode:
                       results: List[QueryResult]) -> None:
         """Per-slot rollup into the global metrics registry (host-side,
         after the slot's requests finished).  ``delta`` is this slot's
-        ContinuousStats diff: a standing queue's counters are monotone for
-        the node's lifetime, so the slot's share is a snapshot diff."""
+        ContinuousStats diff (None on the wave path): a standing queue's
+        counters are monotone for the node's lifetime, so the slot's share
+        is a snapshot diff."""
         reg = obs_metrics.registry()
         node = str(self.node_id)
         reg.counter("node_queries", node=node).inc(len(results))
         reg.counter("node_drops", node=node).inc(
             sum(r.dropped for r in results))
-        reg.counter("node_tokens_out", node=node).inc(delta.tokens_out)
-        reg.counter("node_shed", node=node).inc(delta.shed_hint_drops)
+        reg.counter("node_tokens_out", node=node).inc(
+            delta.tokens_out if delta is not None
+            else queue.stats.tokens_out)
+        reg.counter("node_shed", node=node).inc(
+            delta.shed_hint_drops if delta is not None else 0)
         reg.counter("node_kv_exhaustions", node=node).inc(
-            delta.kv_exhaustions)
+            delta.kv_exhaustions if delta is not None else 0)
         reg.histogram("node_retrieval_s", node=node).observe(t_retrieval)
         h = reg.histogram("node_latency_s", node=node)
         for r in results:
             h.observe(r.latency_s)
         h = reg.histogram("node_ttft_s", node=node)
-        for v in delta.ttft_s:
+        for v in (delta.ttft_s if delta is not None else []):
             # queue TTFT is arrival-anchored (submit -> first token);
             # the node's request clock starts at retrieval
             h.observe(t_retrieval + v)
@@ -364,21 +389,29 @@ class LiveEdgeNode:
         self.close()
         eng = self.engine
         chunk = eng.prefill_chunk
-        if prefill_chunk is not None:
+        if chunk is not None and prefill_chunk is not None:
             chunk = min(prefill_chunk, max(
                 1, (eng.max_len - self.gen.max_new_tokens) // 2))
         self.engine = ServeEngine(
             eng.cfg, eng.params, max_len=eng.max_len,
             batch_size=batch_size or eng.batch_size,
-            prefill_chunk=chunk, paged=True, block_size=eng.block_size,
+            prefill_chunk=chunk, paged=eng.paged, block_size=eng.block_size,
             device=self.device)
 
     # ------------------------------------------------------------ profiling
 
+    def _make_queue(self):
+        """A fresh per-run queue of the node's kind: profiling must not
+        disturb (or be skewed by) the standing session's frame."""
+        if self.queue_kind in ("continuous", "standing"):
+            return ContinuousQueue(self.engine, self.gen,
+                                   policy=self.admission)
+        return RequestQueue(self.engine, self.gen)
+
     def profile(self, calib_queries: int = 0) -> CapacityFunction:
         """Measured-throughput capacity: serve a calibration burst of
-        varied-length prompts through a fresh queue, after one warm-up
-        pass, and extrapolate C(L) = qps * L."""
+        varied-length prompts through the scheduler the slots use, after
+        one warm-up pass, and extrapolate C(L) = qps * L."""
         n = calib_queries or 2 * self.engine.batch_size
         texts = [d.text for d in self.docs] or ["profile warm up prompt"]
         prompts = []
@@ -388,13 +421,11 @@ class LiveEdgeNode:
             n_ctx = max(1, 1 + i % max(self.top_k, 1))
             prompts.append(self.tok.encode(
                 build_prompt("what is this ?", [ctx] * n_ctx), bos=True))
-        # profiling always uses fresh per-run queues: it must not
-        # disturb (or be skewed by) the standing session's frame
-        warm = ContinuousQueue(self.engine, self.gen, policy=self.admission)
+        warm = self._make_queue()
         warm.submit_all(prompts[:self.engine.batch_size])
         warm.run()
         t0 = time.perf_counter()
-        queue = ContinuousQueue(self.engine, self.gen, policy=self.admission)
+        queue = self._make_queue()
         queue.submit_all(prompts)
         queue.run()
         elapsed = max(time.perf_counter() - t0, 1e-6)

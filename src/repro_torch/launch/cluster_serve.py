@@ -16,12 +16,12 @@ per-slot measured latency, quality and drops.
     ... --trace spike --arrival-rate 40   # open-loop saturation replay
     ... --index ivf --nprobe 3   # ANN retrieval instead of the flat scan
 
-Every flag of the reference is accepted, with its default.  What the
-port does not serve yet raises ``NotImplementedError`` before anything
-is built: ``--ckpt`` (ROADMAP A6), ``--queue wave`` and a run without
-``--paged`` (the non-paged engine; A4), and a node of an architecture
-other than olmo-1b or xlstm-350m, so ``--nodes`` >= 3 (node 2 is
-hymba-1.5b; A4).  ``build_cluster(models=...)`` takes each node's
+Every flag of the reference is accepted, with its default: without
+``--paged`` the nodes serve through the non-paged engine, and ``--queue
+wave`` runs synchronous waves.  What the port does not serve yet raises
+``NotImplementedError`` before anything is built: ``--ckpt`` (ROADMAP
+A6), and a node of an architecture other than olmo-1b or xlstm-350m, so
+``--nodes`` >= 3 (node 2 is hymba-1.5b; A4).  ``build_cluster(models=...)`` takes each node's
 ``(cfg, params)`` in place of the drawn weights.
 """
 import argparse
@@ -47,20 +47,12 @@ from repro_torch.retrieval.encoder import TextEncoder
 NODE_ARCHS = ("olmo-1b", "xlstm-350m", "hymba-1.5b", "qwen2-moe-a2.7b")
 
 
-def check_ported(n_nodes: int, archs=NODE_ARCHS, *, ckpt=None,
-                 queue: str = "continuous", paged: bool = False) -> None:
+def check_ported(n_nodes: int, archs=NODE_ARCHS, *, ckpt=None) -> None:
     """Raise ``NotImplementedError``, naming its ROADMAP item, for what
     the port cannot serve yet."""
     if ckpt:
         raise NotImplementedError("--ckpt: loading trained checkpoints is "
                                   "not ported yet (ROADMAP A6)")
-    if queue == "wave":
-        raise NotImplementedError("--queue wave: the wave scheduler is not "
-                                  "ported yet (ROADMAP A4)")
-    if not paged:
-        raise NotImplementedError("a run without --paged needs the "
-                                  "non-paged engine, not ported yet "
-                                  "(ROADMAP A4)")
     missing = sorted({archs[n % len(archs)] for n in range(n_nodes)}
                      - set(ARCH_IDS))
     if missing:
@@ -86,7 +78,7 @@ def build_cluster(n_nodes: int, *, smoke: bool = True, entities: int = 8,
     ``models`` is given, else a smoke config of its architecture with
     weights drawn from seed ``seed + n``; ``federated`` attaches a shared
     ``FederatedRetriever`` to all nodes."""
-    check_ported(n_nodes, archs, ckpt=ckpt, queue=queue, paged=paged)
+    check_ported(n_nodes, archs, ckpt=ckpt)
     if models is not None and len(models) != n_nodes:
         raise ValueError(f"models has {len(models)} entries for "
                          f"{n_nodes} nodes")
@@ -174,16 +166,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--queue", default="continuous",
                     choices=["continuous", "standing", "wave"],
                     help="per-node request scheduler: continuous "
-                         "batching fresh per slot, or one standing queue "
-                         "whose frame stays warm across slots (wave is "
-                         "not ported: ROADMAP A4)")
+                         "batching fresh per slot, one standing queue "
+                         "whose frame stays warm across slots, or "
+                         "synchronous waves")
     ap.add_argument("--standing", action="store_true",
                     help="shorthand for --queue standing")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="prompt chunk size of the continuous prefill")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache with shared retrieved-context "
-                         "prefix forking (required by the port so far)")
+                         "prefix forking")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV tokens per pool block (--paged)")
     ap.add_argument("--admission", default="fifo",
@@ -224,8 +216,7 @@ def main(argv=None) -> None:
         args.queue = "standing"
     if args.arrival_rate is not None:
         args.per_slot = max(1, round(args.arrival_rate * args.slot_s))
-    check_ported(args.nodes, ckpt=args.ckpt, queue=args.queue,
-                 paged=args.paged)
+    check_ported(args.nodes, ckpt=args.ckpt)
     device = resolve_device(args.device)
 
     rec = obs.enable() if args.trace_out else None
@@ -330,12 +321,14 @@ def main(argv=None) -> None:
             if args.federated:
                 extra += (f", {st.remote_contexts} remote ctx "
                           f"({st.remote_gold} gold)")
-            extra += (f", {st.refills} refills, "
-                      f"ttft {st.ttft_mean * 1e3:.0f}ms mean")
+            rounds = "waves" if args.queue == "wave" else "frames"
+            if args.queue != "wave":
+                extra += (f", {st.refills} refills, "
+                          f"ttft {st.ttft_mean * 1e3:.0f}ms mean")
             if st.shed:
                 extra += f", {st.shed} shed"
             print(f"  node {node.node_id} [{node.arch}]: {st.queries} "
-                  f"queries in {st.waves} frames, {st.tokens_out} tokens, "
+                  f"queries in {st.waves} {rounds}, {st.tokens_out} tokens, "
                   f"{st.drops} drops, {st.queries_per_s:.1f} q/s measured"
                   + extra)
         if args.queue == "standing":

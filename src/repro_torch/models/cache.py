@@ -1,9 +1,20 @@
-"""Paged KV cache: block allocator, pool layout, scatter writes, gathers,
-and the per-row recurrent state beside the pool.
+"""KV caches: the contiguous cache, the paged cache (block allocator,
+pool layout, scatter writes, gathers), and the per-row recurrent state
+beside either.
 
-Counterpart of the paged half of ``repro/models/cache.py`` for the
-"attn", "mlstm" and "slstm" slot kinds (rolling-window, Mamba and
-encoder state come with later slices).
+Counterpart of ``repro/models/cache.py`` for the "attn", "mlstm" and
+"slstm" slot kinds (rolling-window, Mamba and encoder state come with
+later slices).
+
+Contiguous layout (``Cache``, the non-paged engine): per-row full K/V
+buffers ``[La, B, max_len, KV, hd]`` for the La "attn" layers, slot index
+== absolute position, every row at one shared absolute ``length`` (a
+host int, as the frames of the non-paged engine advance in lockstep),
+per-row ``first`` [B], and the same per-row recurrent ``state`` as the
+paged cache.  ``write_seq`` / ``write_token`` write at the shared
+position in place; ``extract_row`` / ``insert_row`` move a whole row
+(its K/V buffers, its recurrent state and its ``first``), the slot swap
+behind a non-paged refill.
 
 Layout (``PagedCache``): K/V pools ``[La, P, bs, KV, hd]`` for the La
 "attn" layers only (``paged_slot_names`` in the reference), per-row
@@ -45,6 +56,13 @@ def full_kv_positions(length: torch.Tensor, s_max: int) -> torch.Tensor:
     """Absolute positions of ``s_max`` buffer slots, -1 where unwritten:
     ``length`` [B, 1] (per-row) -> [B, s_max]."""
     i = torch.arange(s_max, dtype=torch.int32, device=length.device)[None]
+    return torch.where(i < length, i, torch.full_like(i, -1))
+
+
+def shared_kv_positions(length: int, s_max: int, device) -> torch.Tensor:
+    """The same for a buffer every row fills to one shared ``length``:
+    [s_max] positions, -1 at and beyond ``length``."""
+    i = torch.arange(s_max, dtype=torch.int32, device=device)
     return torch.where(i < length, i, torch.full_like(i, -1))
 
 
@@ -132,19 +150,93 @@ def init_row_state(cfg: ModelConfig, batch: int, device) -> RowState:
             for i, kind in enumerate(kinds) if kind != "attn"}
 
 
-def extract_row(state: RowState, row: int) -> RowState:
-    """A copy of batch row ``row`` (kept as a size-1 batch): the snapshot
-    a prefix entry keeps, and the private copy a fork resumes from."""
+def extract_row(x, row: int):
+    """A copy of batch row ``row`` (kept as a size-1 batch) of a
+    ``RowState`` (the snapshot a prefix entry keeps, the private copy a
+    fork resumes from) or of a contiguous ``Cache`` (its K/V buffers,
+    recurrent state and ``first``; ``length`` is shared and kept)."""
+    if isinstance(x, Cache):
+        return Cache(length=x.length, first=x.first[row:row + 1].clone(),
+                     k=x.k[:, row:row + 1].clone(),
+                     v=x.v[:, row:row + 1].clone(),
+                     state=extract_row(x.state, row))
     return {i: {k: a[row:row + 1].clone() for k, a in st.items()}
-            for i, st in state.items()}
+            for i, st in x.items()}
 
 
-def insert_row(state: RowState, src: RowState, row: int) -> None:
-    """Copy the one row of ``src`` into row ``row`` of ``state`` in place:
-    the per-slot state swap of a refill."""
-    for i, st in state.items():
+def insert_row(dst, src, row: int) -> None:
+    """Copy the one row of ``src`` into row ``row`` of ``dst`` in place,
+    both ``RowState`` (the recurrent-state swap of a paged refill) or
+    both contiguous ``Cache`` (every per-row leaf: K/V buffers, state
+    and ``first``; the caller keeps both at the same shared ``length``,
+    the slot swap of a non-paged refill)."""
+    if isinstance(dst, Cache):
+        dst.k[:, row] = src.k[:, 0]
+        dst.v[:, row] = src.v[:, 0]
+        dst.first[row] = src.first[0]
+        insert_row(dst.state, src.state, row)
+        return
+    for i, st in dst.items():
         for k, a in st.items():
             a[row] = src[i][k][0]
+
+
+@dataclass
+class Cache:
+    length: int                   # shared absolute position (host int)
+    first: torch.Tensor           # [B] int32 first valid abs position
+    k: torch.Tensor               # [La, B, max_len, KV, hd] ("attn")
+    v: torch.Tensor               # [La, B, max_len, KV, hd]
+    state: RowState               # recurrent layers: [B, ...] f32
+
+
+def _n_attn(cfg: ModelConfig) -> int:
+    return sum(cfg.pattern_for_layer(i) == "attn"
+               for i in range(cfg.num_layers))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device) -> Cache:
+    """Zeroed full K/V buffers for each "attn" layer and zeroed recurrent
+    state, at length 0 with every ``first`` 0."""
+    shape = (_n_attn(cfg), batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return Cache(length=0,
+                 first=torch.zeros(batch, dtype=torch.int32, device=device),
+                 k=torch.zeros(shape, dtype=dtype, device=device),
+                 v=torch.zeros(shape, dtype=dtype, device=device),
+                 state=init_row_state(cfg, batch, device))
+
+
+def _buffer_slots(L: int, start: int, S: int, device):
+    """Buffer slots of positions ``start .. start+S-1``: a slice when they
+    do not wrap, else the reference's ``(start + arange) % L`` (a segment
+    longer than the buffer keeps its last L tokens)."""
+    if start + S <= L:
+        return slice(start, start + S), slice(None)
+    if S >= L:
+        return (start + S - L + torch.arange(L, device=device)) % L, \
+            slice(S - L, None)
+    return (start + torch.arange(S, device=device)) % L, slice(None)
+
+
+def write_seq(cache: Cache, j: int, k: torch.Tensor, v: torch.Tensor,
+              start: int) -> None:
+    """Write a [B,S,KV,hd] segment at shared position ``start`` into "attn"
+    layer ``j``'s buffers, in place."""
+    L = cache.k.shape[2]
+    slots, seg = _buffer_slots(L, start, k.shape[1], k.device)
+    cache.k[j][:, slots] = k[:, seg].to(cache.k.dtype)
+    cache.v[j][:, slots] = v[:, seg].to(cache.v.dtype)
+
+
+def write_token(cache: Cache, j: int, k: torch.Tensor, v: torch.Tensor,
+                pos: int) -> None:
+    """Write one [B,1,KV,hd] token at shared position ``pos`` into "attn"
+    layer ``j``'s buffers, in place."""
+    s = pos % cache.k.shape[2]
+    cache.k[j, :, s] = k[:, 0].to(cache.k.dtype)
+    cache.v[j, :, s] = v[:, 0].to(cache.v.dtype)
 
 
 @dataclass
@@ -184,9 +276,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed pools of ``num_blocks`` blocks for each "attn" layer, zeroed
     recurrent state, all rows empty."""
     NB = num_row_blocks(max_len, block_size)
-    n_attn = sum(cfg.pattern_for_layer(i) == "attn"
-                 for i in range(cfg.num_layers))
-    shape = (n_attn, num_blocks, block_size, cfg.num_kv_heads,
+    shape = (_n_attn(cfg), num_blocks, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return PagedCache(
         length=torch.zeros(batch, dtype=torch.int32, device=device),

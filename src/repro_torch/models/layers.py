@@ -4,7 +4,8 @@ Counterpart of ``repro/models/layers.py``.  Layers are plain functions
 over parameter dicts; matmul weights keep the reference's ``[d_in,
 d_out]`` layout (``x @ w``), so parameters convert between the two
 packages without transposes.  Attention goes through the position-masked
-flash kernel (``kernels.ops.flash_attention``).
+flash kernel (``kernels.ops.flash_attention``), the single-query read of
+the non-paged decode (``decode_attention``) included.
 """
 from __future__ import annotations
 
@@ -139,6 +140,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_positions.to(torch.int32).contiguous(),
         kv_positions.to(torch.int32).contiguous(),
         causal=causal, window=window, softcap=softcap)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, q_position: torch.Tensor,
+                     kv_positions: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """Single-query attention over a contiguous KV buffer: q [B,1,H,hd]
+    x [B,S,KV,hd]^2 with q_position [B] and kv_positions [B,S] (-1 =
+    empty slot) -> [B,1,H,hd].  A slot counts iff 0 <= kv_pos <= q_pos
+    (and q_pos - kv_pos < window); f32 softmax, softcapped scores.
+
+    The same function as the flash kernel at Sq 1, so it goes through it
+    (``ops.flash_attention``: the plain version on CPU tensors, the CUDA
+    kernel on the card).  The kernel skips a key tile whose slots all
+    carry -1 before loading it, so callers pass the row's whole buffer
+    (a contiguous view, no copy) with -1 beyond the live slots."""
+    return flash_attention(q, k_cache, v_cache, q_position[:, None],
+                           kv_positions, causal=True, window=window,
+                           softcap=softcap)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,

@@ -1,5 +1,5 @@
-"""Decoder on torch tensors, serving through a paged KV cache and
-per-row recurrent state.
+"""Decoder on torch tensors, serving through a contiguous or a paged KV
+cache beside per-row recurrent state.
 
 Counterpart of the "attn", "mlstm" and "slstm" paths of
 ``repro/models/model.py``.  The reference stacks per-layer parameters
@@ -9,18 +9,26 @@ layer's kind (``cfg.pattern_for_layer``).  Recurrent layers (xLSTM
 cells, ``models.ssm``) have no MLP sublayer.
 
 Entry points (pure functions of the parameter dict, except that the
-paged cache's pools, recurrent state and ``length`` are updated):
+cache's buffers or pools, recurrent state and ``length`` are updated):
 
   forward(params, tokens, positions)                  -> logits [B,S,V]
+  prefill(params, tokens, positions, cache)           -> last logits [B,V]
   prefill_chunk(params, tokens, positions, cache)     -> last logits [B,V]
-  decode_step(params, token, cache, nb_cap, active)   -> logits [B,V]
+  decode_step(params, token, cache, kv_cap, relative,
+              nb_cap, active)                         -> logits [B,V]
 
-Positions are per-row RELATIVE (counted from ``cache.first``; -1 at
-pads) while pool slots are keyed by absolute position, as in the
-reference's continuous-batching mode; a recurrent layer treats a -1
-position as an identity step.  Layer kinds other than "attn", "mlstm"
-and "slstm", MoE, encoder-decoder, qk-norm, sliding windows and
-position embeddings other than RoPE or none raise
+``prefill`` absorbs a whole left-padded prompt batch into a fresh
+contiguous ``Cache`` (full-sequence attention; recurrent layers run with
+no pad mask, as the reference's prefill mode does).  ``prefill_chunk``
+and ``decode_step`` take either cache.  A ``Cache`` keeps every row at
+one shared absolute ``length``: chunk positions are per-row RELATIVE
+(counted from ``cache.first``, -1 at pads), and decode positions are the
+shared absolute ``length`` with slots left of ``first`` masked, or with
+``relative=True`` relative like the chunks (continuous batching).  A
+``PagedCache`` is always relative, with per-row lengths.  A recurrent
+layer treats a -1 chunk position as an identity step.  Layer kinds other
+than "attn", "mlstm" and "slstm", MoE, encoder-decoder, qk-norm, sliding
+windows and position embeddings other than RoPE or none raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -100,6 +108,12 @@ class Model:
                                              dtype, dev)
         return params
 
+    def init_cache(self, batch: int, max_len: int, device: DeviceLike
+                   ) -> cache_lib.Cache:
+        return cache_lib.init_cache(self.cfg, batch, max_len,
+                                    torch_dtype(self.cfg),
+                                    resolve_device(device))
+
     def init_paged_cache(self, batch: int, max_len: int, block_size: int,
                          num_blocks: int, device: DeviceLike
                          ) -> cache_lib.PagedCache:
@@ -171,26 +185,60 @@ class Model:
             x = self._mlp(p, x)
         return self._logits(params, x)
 
+    def prefill(self, params, tokens: torch.Tensor,
+                positions: torch.Tensor, cache: cache_lib.Cache
+                ) -> torch.Tensor:
+        """Absorb a [B, S] prompt batch (absolute ``positions``, -1 at left
+        pads) into a contiguous cache at its shared ``length``: causal
+        attention over the batch itself, its K/V written to the buffers;
+        recurrent layers run over every column from the cache's state,
+        pads included (no pad mask, as in the reference's prefill mode).
+        Advances ``cache.length`` by S; returns the last column's logits."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        start = cache.length
+        x = self._embed(params, tokens)
+        angles = self._angles(positions)
+        for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
+            h = L.apply_norm(p["ln1"], x, cfg)
+            if kind != "attn":
+                y, cache.state[i] = self._cell(p, kind, h, cache.state[i])
+                x = x + y
+                continue
+            q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
+            a = L.flash_attention(q, k, v, positions, positions, causal=True,
+                                  softcap=cfg.attn_logit_softcap)
+            cache_lib.write_seq(cache, self.pool_index[i], k, v, start)
+            x = x + L.attention_out(p["attn"], a)
+            x = self._mlp(p, x)
+        cache.length = start + S
+        return self._logits(params, x[:, -1])
+
     def prefill_chunk(self, params, tokens: torch.Tensor,
-                      positions: torch.Tensor, cache: cache_lib.PagedCache,
+                      positions: torch.Tensor, cache,
                       last_col: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-        """Absorb one [B, C] prompt chunk into the paged cache.
+        """Absorb one [B, C] prompt chunk into the cache.
 
         In an "attn" layer each row's queries attend to its cached past
-        (the full block-table width is gathered; slots at or beyond
-        ``length`` and before ``first`` are masked) plus the chunk itself,
-        then the chunk's K/V are written to the row's blocks.  A recurrent
-        layer runs its cell over the chunk from the row's state, with an
-        identity step at every pad.  ``positions`` are relative (-1 at
-        pads, which write nowhere and leave the state alone).  Advances
-        ``cache.length`` by C and returns the logits at ``last_col`` [B]
-        (default: the last column)."""
+        plus the chunk itself, then the chunk's K/V are written.  A
+        ``PagedCache`` gathers the full block-table width (slots at or
+        beyond the row's ``length`` and before ``first`` are masked) and
+        scatters the chunk into the row's blocks; a contiguous ``Cache``
+        reads its whole buffer (slots at or beyond the shared ``length``
+        and before ``first`` are masked) and writes the chunk at
+        ``length``.  A recurrent layer runs its cell over the chunk from
+        the row's state, with an identity step at every pad.
+        ``positions`` are relative (-1 at pads, which write nowhere and
+        leave the state alone).  Advances ``cache.length`` by C and
+        returns the logits at ``last_col`` [B] (default: the last
+        column)."""
         cfg = self.cfg
         B, S = tokens.shape
-        if self.pool_index:
-            tables, first, start = cache.block_tables, cache.first, \
-                cache.length
+        paged = isinstance(cache, cache_lib.PagedCache)
+        first = cache.first
+        if self.pool_index and paged:
+            tables, start = cache.block_tables, cache.length
             bs, P = cache.block_size, cache.num_blocks
             L_buf = tables.shape[1] * bs
             abs_write = torch.where(positions >= 0,
@@ -199,6 +247,12 @@ class Model:
             plan = cache_lib.pool_write_plan(tables, abs_write, bs, P)
             past = cache_lib.full_kv_positions(start[:, None], L_buf) \
                 - first[:, None]
+        elif self.pool_index:
+            start = cache.length
+            past = cache_lib.shared_kv_positions(
+                start, cache.k.shape[2], tokens.device)[None] \
+                - first[:, None]
+        if self.pool_index:
             kv_pos = torch.cat([past, positions.to(torch.int32)], dim=1)
         mask = positions >= 0
         x = self._embed(params, tokens)
@@ -212,11 +266,16 @@ class Model:
                 continue
             j = self.pool_index[i]
             q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
-            k_buf, v_buf = cache_lib.paged_gather_kv(
-                cache.k[j], cache.v[j], tables, tables.shape[1])
-            cache_lib.paged_write(cache.k[j], cache.v[j], k, v, plan)
+            if paged:
+                k_buf, v_buf = cache_lib.paged_gather_kv(
+                    cache.k[j], cache.v[j], tables, tables.shape[1])
+                cache_lib.paged_write(cache.k[j], cache.v[j], k, v, plan)
+            else:
+                k_buf, v_buf = cache.k[j], cache.v[j]
             k_all = torch.cat([k_buf, k.to(k_buf.dtype)], dim=1)
             v_all = torch.cat([v_buf, v.to(v_buf.dtype)], dim=1)
+            if not paged:
+                cache_lib.write_seq(cache, j, k, v, start)
             a = L.flash_attention(q, k_all, v_all, positions, kv_pos,
                                   causal=True, softcap=cfg.attn_logit_softcap)
             x = x + L.attention_out(p["attn"], a)
@@ -228,18 +287,72 @@ class Model:
             xl = x[torch.arange(B, device=x.device), last_col.long()]
         return self._logits(params, xl)
 
-    def decode_step(self, params, token: torch.Tensor,
-                    cache: cache_lib.PagedCache, nb_cap: Optional[int] = None,
+    def decode_step(self, params, token: torch.Tensor, cache,
+                    kv_cap: Optional[int] = None, relative: bool = False,
+                    nb_cap: Optional[int] = None,
                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
         """token [B,1] -> next-token logits [B,V].
 
-        In an "attn" layer each row writes its token at absolute position
-        ``length`` (rows with ``active`` False write nowhere), then attends
-        through the first ``nb_cap`` block-table columns with the paged
-        decode kernel: slots ``first <= pos <= length`` count.  A recurrent
-        layer steps every row's state, as the reference does (a finished
-        row's state is replaced when the row is refilled).  Rows with
-        ``active`` False keep their length."""
+        Contiguous ``Cache``: every row writes its token at the shared
+        absolute position ``length``, then reads its whole buffer through
+        ``layers.decode_attention``; slots at or beyond ``kv_cap`` (the
+        highest position the caller's loop can reach, exact) and beyond
+        ``length`` count as empty.  Positions are the absolute ``length``
+        with slots left of ``first`` masked, or with ``relative`` the
+        row's live count ``length - first`` (slots before ``first`` go
+        negative).
+
+        ``PagedCache`` (always relative): each row writes at its own
+        ``length`` (rows with ``active`` False write nowhere and keep
+        their length), then attends through the first ``nb_cap``
+        block-table columns with the paged decode kernel: slots ``first
+        <= pos <= length`` count.
+
+        A recurrent layer steps every row's state, as the reference does
+        (a finished row's state is replaced when the row is refilled)."""
+        if isinstance(cache, cache_lib.PagedCache):
+            return self._paged_decode(params, token, cache, nb_cap, active)
+        cfg = self.cfg
+        B = token.shape[0]
+        length, first = cache.length, cache.first
+        if relative:
+            pos = (length - first)[:, None].to(torch.int32)
+        else:
+            pos = torch.full((B, 1), length, dtype=torch.int32,
+                             device=token.device)
+        if self.pool_index:
+            kv = cache_lib.shared_kv_positions(length + 1, cache.k.shape[2],
+                                               token.device)
+            if kv_cap is not None:
+                kv[kv_cap:] = -1
+            kv = kv[None]
+            if relative:
+                kv_pos = kv - first[:, None]
+            else:
+                kv_pos = torch.where(kv >= first[:, None], kv,
+                                     torch.full_like(kv, -1))
+        x = self._embed(params, token)
+        angles = self._angles(pos)
+        for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
+            h = L.apply_norm(p["ln1"], x, cfg)
+            if kind != "attn":
+                y, cache.state[i] = self._cell(p, kind, h, cache.state[i],
+                                               step=True)
+                x = x + y
+                continue
+            j = self.pool_index[i]
+            q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
+            cache_lib.write_token(cache, j, k, v, length)
+            a = L.decode_attention(q, cache.k[j], cache.v[j], pos[:, 0],
+                                   kv_pos, softcap=cfg.attn_logit_softcap)
+            x = x + L.attention_out(p["attn"], a)
+            x = self._mlp(p, x)
+        cache.length = length + 1
+        return self._logits(params, x[:, 0])
+
+    def _paged_decode(self, params, token: torch.Tensor,
+                      cache: cache_lib.PagedCache, nb_cap: Optional[int],
+                      active: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         first, start = cache.first, cache.length
         pos = (start - first)[:, None]

@@ -1,13 +1,15 @@
 """RAG pipeline: retrieve -> augment -> generate.
 
-Counterpart of ``repro/rag/pipeline.py`` for the continuous path: the
-prompt is ``context : <top-k chunks> <sep> question : <q> <sep> answer :``
-with its retrieved-context prefix marked, so a paged engine forks a
-repeated context out of its prefix cache instead of prefilling it again.
-An optional semantic query cache serves near-duplicate questions without
+Counterpart of ``repro/rag/pipeline.py``.  The prompt is ``context :
+<top-k chunks> <sep> question : <q> <sep> answer :``.  On an engine
+built with ``prefill_chunk`` the questions run through a
+``ContinuousQueue`` with their retrieved-context prefix marked, so a
+paged engine forks a repeated context out of its prefix cache instead of
+prefilling it again; otherwise through ``RequestQueue`` waves.  An
+optional semantic query cache serves near-duplicate questions without
 touching the index.  With tracing on, each question gets a ``request``
 trace with ``retrieve`` and ``detokenize`` spans (and ``semantic_cache``
-events).  The synchronous-wave path is not ported yet.
+events).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.retrieval.encoder import TextEncoder
 from repro_torch.retrieval.index import VectorIndex
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.sampling import GenerationParams
-from repro_torch.serving.scheduler import ContinuousQueue
+from repro_torch.serving.scheduler import ContinuousQueue, RequestQueue
 
 
 @dataclass
@@ -113,17 +115,25 @@ class RAGPipeline:
             contexts, scores = self.retrieve(questions, traces=traces)
             gp = GenerationParams(max_new_tokens=self.max_new_tokens,
                                   eos_id=EOS)
-            # submit (tokens, prefix_len) so the paged engine forks
-            # repeated retrieved-context prefixes out of the session's
-            # PrefixCache instead of re-prefilling them
-            queue = ContinuousQueue(self.engine, gp, policy=self.admission)
-            cap = self.engine.cont_max_prompt_len(gp.max_new_tokens)
-            rids = []
-            for i, (q, c) in enumerate(zip(questions, contexts)):
-                toks, plen = split_prompt(q, c, self.tok, cap=cap)
-                rids.append(queue.submit(
-                    toks, prefix_len=plen,
-                    trace=traces[i] if traces else None))
+            if self.engine.prefill_chunk is not None:
+                # continuous batching: submit (tokens, prefix_len) so a
+                # paged engine forks repeated retrieved-context prefixes
+                # out of the session's PrefixCache instead of re-
+                # prefilling them
+                queue = ContinuousQueue(self.engine, gp,
+                                        policy=self.admission)
+                cap = self.engine.cont_max_prompt_len(gp.max_new_tokens)
+                rids = []
+                for i, (q, c) in enumerate(zip(questions, contexts)):
+                    toks, plen = split_prompt(q, c, self.tok, cap=cap)
+                    rids.append(queue.submit(
+                        toks, prefix_len=plen,
+                        trace=traces[i] if traces else None))
+            else:
+                queue = RequestQueue(self.engine, gp)
+                rids = queue.submit_all(
+                    self.tok.encode(build_prompt(q, c), bos=True)
+                    for q, c in zip(questions, contexts))
             outs = queue.run()
             self.last_stats = queue.stats
             results = []

@@ -5,13 +5,17 @@ Counterpart of ``repro/serving/sampling.py``.  Greedy decoding is
 Sampled decoding draws from a ``torch.Generator``: the filters
 (temperature, then top-k, then top-p) match the reference, but the
 random stream differs from ``jax.random``, so sampled outputs agree with
-the reference only in distribution.
+the reference only in distribution.  Where the reference folds a step
+or wave index into a PRNG key (``jax.random.fold_in``), the port folds
+it into an integer seed (``fold_seed``) and draws from a generator
+seeded with the result (``step_generator``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 _NEG_INF = -1e30
@@ -29,6 +33,24 @@ class GenerationParams:
     top_k: int = 0
     top_p: float = 1.0
     eos_id: Optional[int] = None
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """A seed derived from ``seed`` and an index (a decode step, a wave, a
+    scheduler slot): the port's counterpart of ``fold_in``."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1)[0])
+
+
+def step_generator(gp: "GenerationParams", seed: int, i: int,
+                   device) -> Optional[torch.Generator]:
+    """The generator a sampled draw at index ``i`` uses, seeded with
+    ``fold_seed(seed, i)`` on ``device``; None for greedy decoding, which
+    draws nothing."""
+    if gp.temperature <= 0.0:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(fold_seed(seed, i))
+    return g
 
 
 def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,20 +1,32 @@
-"""Continuous-batching request scheduler over a paged ServeEngine.
+"""Request-level schedulers over a ServeEngine: synchronous waves and
+continuous batching.
 
-Counterpart of ``ContinuousQueue`` in ``repro/serving/scheduler.py``:
-FIFO-with-skip or shortest-prefill-first (SJF) admission, per-request
+Counterpart of ``repro/serving/scheduler.py``.  One submit / run /
+result contract, two policies:
+
+``RequestQueue`` runs synchronous *waves*: requests are grouped by
+prompt bucket (``engine.prompt_bucket``), each ``step()`` runs the
+fullest bucket's first ``batch_size`` requests through one
+``engine.generate`` call (the wave's seed folded from the queue's seed
+and the wave index), and a wave runs to its slowest row.
+
+``ContinuousQueue`` (an engine built with ``prefill_chunk=``, paged or
+not): FIFO-with-skip or shortest-prefill-first (SJF) admission, per-request
 ``max_new_tokens`` budgets, retrieved-context ``prefix_len`` marks that
 let paged sessions fork cached prefixes, arrival-anchored TTFT and
 latency, the SLO shed hint (``set_shed``), per-interval stats as
 ``snapshot()`` / ``delta()`` of monotone counters, the standing mode
 (``standing=True``: one session across ``run(wait_for=...)`` rounds),
 the request spans (``shed``, ``queue_wait``, ``prefill``, ``decode``)
-and the ``queue_*`` / ``kv_pool_*`` / ``prefix_cache_*`` metric pushes.
-The wave scheduler ``RequestQueue`` is not ported yet.
+and the ``queue_*`` / ``kv_pool_*`` / ``prefix_cache_*`` metric pushes
+(the pool and prefix series for paged engines only).  A non-paged
+session opens a new frame whenever nothing pending fits the drained one.
 """
 from __future__ import annotations
 
 import time
 import warnings
+from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -23,7 +35,7 @@ import numpy as np
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.engine import ContinuousSession, ServeEngine
-from repro_torch.serving.sampling import GenerationParams
+from repro_torch.serving.sampling import GenerationParams, fold_seed
 
 
 def percentile(xs: Sequence[float], q: float) -> float:
@@ -34,10 +46,140 @@ def percentile(xs: Sequence[float], q: float) -> float:
     return float(np.percentile(xs, q))
 
 
+@dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+
+
+@dataclass
+class Completion:
+    rid: int
+    tokens: List[int]
+    prompt_len: int
+    bucket: int
+    wave: int
+
+
+@dataclass
+class QueueStats:
+    waves: int = 0
+    requests: int = 0
+    tokens_out: int = 0
+    slots_run: int = 0        # batch slots dispatched (idle padding too)
+    slots_used: int = 0       # slots that held a real request
+    # per request: its wave's wall time (a wave's requests finish together)
+    latency_s: List[float] = field(default_factory=list)
+
+    @property
+    def slot_utilization(self) -> float:
+        return self.slots_used / self.slots_run if self.slots_run else 0.0
+
+    @property
+    def latency_mean(self) -> float:
+        return float(np.mean(self.latency_s)) if self.latency_s else 0.0
+
+    @property
+    def latency_p50(self) -> float:
+        return percentile(self.latency_s, 50)
+
+    @property
+    def latency_p95(self) -> float:
+        return percentile(self.latency_s, 95)
+
+    @property
+    def latency_p99(self) -> float:
+        return percentile(self.latency_s, 99)
+
+
 class RequestQueue:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("RequestQueue (synchronous waves) is not "
-                                  "ported yet; use ContinuousQueue")
+    """Packs submitted requests into engine waves; results keep their
+    request ids (submission order) however the waves were packed."""
+
+    def __init__(self, engine: ServeEngine,
+                 gen: Optional[GenerationParams] = None, *, seed: int = 0):
+        self.engine = engine
+        self.gen = gen or GenerationParams()
+        if self.gen.max_new_tokens >= engine.max_len:
+            # reject the impossible (engine, gen) pair up front instead of
+            # accepting requests that can never run
+            raise ValueError(
+                f"max_new_tokens={self.gen.max_new_tokens} does not fit "
+                f"the engine cache (max_len={engine.max_len})")
+        self.seed = seed
+        self._pending: List[Request] = []
+        self._done: Dict[int, Completion] = {}
+        self._next_rid = 0
+        self.stats = QueueStats()
+
+    def submit(self, prompt: Sequence[int]) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        # clip at intake so bucketing and waves see the served length
+        prompt, = self.engine.clip_prompts([list(prompt)],
+                                           self.gen.max_new_tokens)
+        self._pending.append(Request(rid, prompt))
+        return rid
+
+    def submit_all(self, prompts: Iterable[Sequence[int]]) -> List[int]:
+        return [self.submit(p) for p in prompts]
+
+    def pending(self) -> int:
+        return len(self._pending)
+
+    def _pick_wave(self) -> List[Request]:
+        """Fullest bucket first (ties to the smaller bucket), its first
+        ``batch_size`` requests in submission order."""
+        by_bucket: Dict[int, List[Request]] = defaultdict(list)
+        for r in self._pending:
+            b = self.engine.prompt_bucket(len(r.prompt),
+                                          self.gen.max_new_tokens)
+            by_bucket[b].append(r)
+        bucket = max(by_bucket, key=lambda b: (len(by_bucket[b]), -b))
+        return by_bucket[bucket][:self.engine.batch_size]
+
+    def step(self) -> List[Completion]:
+        """Pack and run one wave; returns its completions (none when
+        nothing is pending)."""
+        if not self._pending:
+            return []
+        wave = self._pick_wave()
+        taken = {r.rid for r in wave}
+        self._pending = [r for r in self._pending if r.rid not in taken]
+        t0 = time.perf_counter()
+        outs = self.engine.generate([r.prompt for r in wave], gen=self.gen,
+                                    seed=fold_seed(self.seed,
+                                                   self.stats.waves))
+        elapsed = time.perf_counter() - t0
+        bucket = self.engine.prompt_bucket(
+            max(len(r.prompt) for r in wave), self.gen.max_new_tokens)
+        completions = []
+        for r, toks in zip(wave, outs):
+            c = Completion(r.rid, toks, len(r.prompt), bucket,
+                           self.stats.waves)
+            self._done[r.rid] = c
+            completions.append(c)
+        self.stats.waves += 1
+        self.stats.requests += len(wave)
+        self.stats.tokens_out += sum(len(t) for t in outs)
+        self.stats.slots_run += self.engine.batch_size
+        self.stats.slots_used += len(wave)
+        self.stats.latency_s.extend([elapsed] * len(wave))
+        return completions
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain the queue; {rid: generated tokens} for every completed
+        request (earlier steps' included)."""
+        self.engine.start_profile()
+        try:
+            while self._pending:
+                self.step()
+        finally:
+            self.engine.stop_profile()
+        return {rid: c.tokens for rid, c in self._done.items()}
+
+    def result(self, rid: int) -> Completion:
+        return self._done[rid]
 
 
 @dataclass
@@ -156,6 +298,10 @@ class ContinuousQueue:
                  standing: bool = False):
         self.engine = engine
         self.gen = gen or GenerationParams()
+        if engine.prefill_chunk is None:
+            raise ValueError("ContinuousQueue needs an engine built with "
+                             "prefill_chunk=...; use RequestQueue for "
+                             "synchronous waves")
         if policy not in ("fifo", "sjf"):
             raise ValueError(f"unknown admission policy {policy!r}; "
                              "expected 'fifo' or 'sjf'")
@@ -209,7 +355,8 @@ class ContinuousQueue:
         if len(prompt) > cap:
             prompt, prefix_len = self._truncate(prompt, prefix_len, cap)
             self.stats.shed += 1
-        self._check_block_span(prompt, prefix_len, budget)
+        if self.engine.paged:
+            self._check_block_span(prompt, prefix_len, budget)
         self._pending.append(_ContRequest(rid, prompt, budget, prefix_len,
                                           trace=trace,
                                           t_submit=time.perf_counter()))
@@ -317,7 +464,8 @@ class ContinuousQueue:
         if self._session is None:
             self._session = ContinuousSession(
                 self.engine, self.gen, seed=self.seed,
-                prefix_cache=self.prefix_capacity)
+                prefix_cache=self.prefix_capacity if self.engine.paged
+                else None)
         return self._session
 
     @staticmethod
@@ -325,13 +473,17 @@ class ContinuousQueue:
         """Snapshot of the session/allocator/prefix-cache counters at
         run() entry: a standing session outlives the run, so only the
         run's deltas roll into ``self.stats``."""
+        base = {"frames": session.frames, "segments": session.segments,
+                "refills": session.refills, "forks": 0, "exhaustions": 0,
+                "prefix_hits": 0, "prefix_misses": 0, "prefix_evictions": 0}
+        if session.paged:
+            base["forks"] = session.allocator.forks
+            base["exhaustions"] = session.allocator.exhaustions
         pc = session.prefix_cache
-        return {"frames": session.frames, "segments": session.segments,
-                "refills": session.refills,
-                "forks": session.allocator.forks,
-                "exhaustions": session.allocator.exhaustions,
-                "prefix_hits": pc.hits, "prefix_misses": pc.misses,
-                "prefix_evictions": pc.evictions}
+        if pc is not None:
+            base.update(prefix_hits=pc.hits, prefix_misses=pc.misses,
+                        prefix_evictions=pc.evictions)
+        return base
 
     def run(self, wait_for: Optional[Iterable[int]] = None
             ) -> Dict[int, List[int]]:
@@ -348,6 +500,7 @@ class ContinuousQueue:
                              "per-run queue releases its session at run "
                              "exit and would drop mid-decode rows")
         tr = obs_trace.get_tracer()
+        paged = self.engine.paged
         base = self.stats.snapshot()
         if self._shed_fraction > 0.0 and self._pending:
             # shed the tail (latest arrivals): the oldest requests have
@@ -413,7 +566,7 @@ class ContinuousQueue:
                                 tr.emit("decode", r.trace, r.t_admit,
                                         abs_now, tokens=len(tokens),
                                         slot=slot)
-                    if obs_metrics.metrics_enabled():
+                    if paged and obs_metrics.metrics_enabled():
                         obs_metrics.registry().gauge(
                             "kv_pool_fragmentation").set(
                                 session.pool_fragmentation())
@@ -421,8 +574,8 @@ class ContinuousQueue:
                         break
                 admitted = 0
                 if session.cache is not None:
-                    # refill first: the frame admits at its rows' own
-                    # positions instead of opening a new one
+                    # refill first: a live (or drained but warm) frame
+                    # admits at its position instead of opening a new one
                     for slot in session.free_slots():
                         r = self._admissible(session)
                         if r is None:
@@ -439,15 +592,18 @@ class ContinuousQueue:
                         admitted += 1
                         admit(slot, r)
                 if self._pending and not admitted and not session.active():
-                    if session.cache is not None:
+                    if paged and session.cache is not None:
                         raise RuntimeError(
                             "paged admission stalled: a pending request "
                             "cannot be scheduled even into an idle frame")
-                    # open the session's one frame; the pool persists, so
-                    # later admissions go through refill above
+                    # open a frame: the session's first, or a non-paged
+                    # restart after a drain left nothing refillable (a
+                    # paged session opens one frame: its pool persists,
+                    # so later admissions go through refill above)
                     n = max(1, session.frame_capacity(
-                        [(len(r.prompt), r.budget) for r in self._pending]))
-                    if any(r.prefix_len for r in self._pending):
+                        [(len(r.prompt), r.budget) for r in self._pending])) \
+                        if paged else session.B
+                    if paged and any(r.prefix_len for r in self._pending):
                         # frame rows are packed left-padded, not in the
                         # canonical prefix layout: open with one row so
                         # the rest admit through prefix-aware refill
@@ -477,12 +633,15 @@ class ContinuousQueue:
         st.frames += s.frames - sbase["frames"]
         st.segments += s.segments - sbase["segments"]
         st.refills += s.refills - sbase["refills"]
-        st.cow_forks += s.allocator.forks - sbase["forks"]
-        st.kv_exhaustions += s.allocator.exhaustions - sbase["exhaustions"]
+        if paged:
+            st.cow_forks += s.allocator.forks - sbase["forks"]
+            st.kv_exhaustions += \
+                s.allocator.exhaustions - sbase["exhaustions"]
         pc = s.prefix_cache
-        st.prefix_hits += pc.hits - sbase["prefix_hits"]
-        st.prefix_misses += pc.misses - sbase["prefix_misses"]
-        st.prefix_evictions += pc.evictions - sbase["prefix_evictions"]
+        if pc is not None:
+            st.prefix_hits += pc.hits - sbase["prefix_hits"]
+            st.prefix_misses += pc.misses - sbase["prefix_misses"]
+            st.prefix_evictions += pc.evictions - sbase["prefix_evictions"]
         if obs_metrics.metrics_enabled():
             self._push_metrics(session, base)
         if not self.standing:
@@ -525,6 +684,8 @@ class ContinuousQueue:
             h.observe(v)
         reg.gauge("queue_depth").set(float(self.depth()))
         reg.gauge("queue_oldest_wait_s").set(self.oldest_wait_s())
+        if not session.paged:
+            return
         alloc = session.allocator
         reg.gauge("kv_pool_utilization").set(alloc.utilization())
         reg.gauge("kv_pool_high_watermark").set(alloc.high_watermark)

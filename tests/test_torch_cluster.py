@@ -204,13 +204,15 @@ def test_queue_shed_hint_and_stats_deltas_match_reference(small_model):
 # ------------------------------------------------------------ live nodes
 
 
-def _nodes(world, port: bool, archs, queue: str = "continuous"):
+def _nodes(world, port: bool, archs, queue: str = "continuous", **over):
     """Two federated IVF smoke nodes of ``archs`` with semantic caches
-    over the paged ``queue`` (build_cluster's knobs, reduced)."""
+    over the paged ``queue`` (build_cluster's knobs, reduced; ``over``
+    replaces any of them)."""
     docs, qas, tok, prim, node_docs, j_node_docs = world
     kw = dict(batch_size=2, max_len=192, top_k=2, max_new_tokens=6,
               index_kind="ivf", queue=queue, prefill_chunk=8,
               paged=True, block_size=8)
+    kw.update(over)
     nodes = []
     for n, arch in enumerate(archs):
         cfg = get_smoke_config(arch, max_d_model=32, vocab=len(tok))
@@ -292,10 +294,16 @@ def test_live_node_paths_not_ported_raise(world):
     params = Model(cfg).init_params(seed=0, device="cpu")
     args = (0, "olmo-1b", cfg, params, node_docs[0], tok,
             TextEncoder(seed=0))
-    for kw in ({"queue": "wave", "paged": True}, {},
-               {"queue": "standing"}):
-        with pytest.raises(NotImplementedError, match="A4"):
-            LiveEdgeNode(*args, device="cpu", **kw)
+    # the wave queue and the non-paged engine build nodes now (ported
+    # with the non-paged engine); wave nodes ignore paged, as in the
+    # reference: (queue kind, engine paged, engine chunk)
+    for kw, want in (({"queue": "wave", "paged": True}, ("wave", False,
+                                                         None)),
+                     ({}, ("continuous", False, 32)),
+                     ({"queue": "standing"}, ("standing", False, 32))):
+        built = LiveEdgeNode(*args, device="cpu", **kw)
+        assert (built.queue_kind, built.engine.paged,
+                built.engine.prefill_chunk) == want
     with pytest.raises(ValueError):
         LiveEdgeNode(*args, device="cpu", queue="batch", paged=True)
     node = LiveEdgeNode(*args, device="cpu", paged=True, max_len=128)
