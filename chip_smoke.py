@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases card,build,cluster,runtime
     python3 chip_smoke.py --phases card,build,launcher
     python3 chip_smoke.py --phases card,build,serve
+    python3 chip_smoke.py --phases card,build,archs
     python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
@@ -103,6 +104,41 @@ Phases, in order:
            over the row's whole buffer, a decode query over it), timed
            beside its plain version and SDPA; their rows go into the
            kernels line under the flash kernel's "shapes"
+  archs    the quickstart's other two node archs, hymba-1.5b (Mamba heads
+           beside rolling-window attention, window 1024, GQA 25/5, head
+           dim 64) and qwen2-moe-a2.7b (60 routed experts, top 4, and a
+           shared expert).  (a) serve.py at each arch's published width
+           (bf16, seed 0), --prompt-len 256 and serve's other flags as
+           above: waves, slot utilization, tokens/s of generate and
+           generate_reference on one wave.  (b) A hymba-1.5b wave that
+           wraps its 1024-slot rolling buffer (prompts of 1100 and 1050
+           tokens, max_len 1536, 24 new tokens): generate ==
+           generate_reference, the first tokens equal the full forward's
+           argmax, most later ones the teacher-forced forward's.  (c)
+           build_cluster(4) over the four archs at published width
+           (olmo-1b and xlstm-350m the cluster phase's, hymba-1.5b seed 2,
+           qwen2-moe-a2.7b seed 3; ~35 GB of bf16 weights),
+           cluster_serve's defaults, under ClusterRuntime with SLO
+           feedback, profiled, 3 uniform slots of 12 at SLO 1.5 s, once
+           --paged (prefix cache) and once non-paged: per slot load, drop
+           rate, p50 / p95; per node mean TTFT, decode tokens/s in decode
+           segments, drop rate, p95 and launches (flash on the hymba node
+           and no paged decode: its K/V is per row; paged decode on the
+           qwen2-moe node when paged); then one synchronised slot of the
+           hymba node: the Mamba share of prefill and decode.  (d) At the
+           smoke configs (f32), card against CPU: greedy tokens of
+           generate, generate_reference, the wave queue, the non-paged
+           continuous queue and the paged queue with a forked prefix
+           equal, both archs; cluster_serve --smoke --nodes 4 --paged
+           --standing on the card, its trace through trace_report
+           --check.  (e) flash_attention.cu at hymba's shapes (a chunk of
+           16 over a wrapped 1024-slot buffer; (a)'s wave prefill
+           [4,256,25,64]; (b)'s decode over the wrapped buffer) and at
+           the qwen2-moe node's chunk, paged_attention.cu at its decode,
+           each against the plain version, timed beside it and the
+           library call (rows under each kernel's "shapes"); the MoE
+           layer's ms at decode (gathered weights) and at chunks
+           (per-expert products)
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -206,7 +242,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
-              "serve", "kernels", "parity", "sim")
+              "serve", "archs", "kernels", "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -1492,7 +1528,8 @@ def phase_launcher(torch, card) -> dict:
 # olmo-1b run's buckets are 256 and 128, the xlstm-350m run's exact)
 SERVE_ARGS = ["--batch", "4", "--requests", "8", "--new-tokens", "16",
               "--max-len", "512", "--reference"]
-SERVE_PROMPT_LEN = {"olmo-1b": 256, "xlstm-350m": 64}
+SERVE_PROMPT_LEN = {"olmo-1b": 256, "xlstm-350m": 64, "hymba-1.5b": 256,
+                    "qwen2-moe-a2.7b": 256}
 # the reference's default cluster run (no --paged), and with --queue wave
 SERVE_CLI = ["--smoke", "--nodes", "2", "--slots", "3"]
 # the non-paged engine's three flash call shapes, in the kernels line
@@ -1506,11 +1543,12 @@ class FlashShapes:
     reference) and counts
     the calls: "prefill" (a wave's whole padded prompt, Sq = Sk > 1),
     "chunk" (a chunk over the row's whole buffer, 1 < Sq < Sk) and
-    "decode" (Sq 1 over the whole buffer).  It adds no device work and no
-    synchronisation to the calls it sees."""
+    "decode" (Sq 1 over the whole buffer).  With ``heads`` set, only
+    calls with that many query heads count (one architecture's).  It
+    adds no device work and no synchronisation to the calls it sees."""
 
-    def __init__(self, ops):
-        self.ops, self.orig = ops, ops.flash_attention
+    def __init__(self, ops, heads=None):
+        self.ops, self.orig, self.heads = ops, ops.flash_attention, heads
         self.best, self.calls = {}, dict.fromkeys(FLASH_SHAPES, 0)
 
     def install(self):
@@ -1521,11 +1559,12 @@ class FlashShapes:
             kind = "decode" if Sq == 1 else \
                 "prefill" if Sq == Sk else "chunk"
             kw = {"causal": causal, "window": window, "softcap": softcap}
-            self.calls[kind] += 1
-            size = q.numel() * Sk
-            if kind not in self.best or size >= self.best[kind][0]:
-                self.best[kind] = (size, (q, k, v, qp.clone(), kvp.clone()),
-                                   kw)
+            if self.heads in (None, q.shape[2]):
+                self.calls[kind] += 1
+                size = q.numel() * Sk
+                if kind not in self.best or size >= self.best[kind][0]:
+                    self.best[kind] = (size, (q, k, v, qp.clone(),
+                                              kvp.clone()), kw)
             return orig(q, k, v, qp, kvp, **kw)
 
         self.ops.flash_attention = flash
@@ -1562,15 +1601,20 @@ def _serve_cli(torch, ops, serve, arch, tag) -> dict:
           "output is short")
     check(launches["paged_decode_attention"] == 0,
           f"serve {arch} launched paged_decode_attention")
-    if arch == "olmo-1b":
-        check(sorted(set(got["buckets"])) == [128, 256],
-              f"serve {arch}: buckets {sorted(set(got['buckets']))}")
-        check(launches["flash_attention"] > 0,
-              f"serve {arch} did not launch flash_attention")
-    else:
-        check(launches["flash_attention"] == 0,
-              f"serve {arch} ({arch} has no attention) launched "
-              "flash_attention")
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    L = SERVE_PROMPT_LEN[arch]
+    exact = any(kind in ("mlstm", "slstm", "hymba")
+                for kind in cfg.layer_pattern)
+    want = sorted({L // (1 + i % 3) for i in range(8)}) if exact \
+        else sorted({max(8, 1 << (L // (1 + i % 3) - 1).bit_length())
+                     for i in range(8)})
+    check(sorted(set(got["buckets"])) == want,
+          f"serve {arch}: buckets {sorted(set(got['buckets']))}, want {want}")
+    attends = any(kind in ("attn", "hymba") for kind in cfg.layer_pattern)
+    check((launches["flash_attention"] > 0) == attends,
+          f"serve {arch}: {launches['flash_attention']} flash_attention "
+          f"launches ({arch} {'has' if attends else 'has no'} attention)")
     log(f"serve[{arch}]: serve.py {' '.join(argv)} in {wall:.3f} s: "
         f"{got['tokens']} tokens, {got['waves']} waves, slot utilization "
         f"{got['slot_utilization']:.4f}, buckets {sorted(set(got['buckets']))}"
@@ -1583,24 +1627,17 @@ def _serve_cli(torch, ops, serve, arch, tag) -> dict:
     return launches
 
 
-def _serve_replay(torch, ops, cluster_serve, queue, tag) -> dict:
-    """(c): ``build_cluster`` over the cluster phase's published-width
-    weights, non-paged (``queue`` continuous or wave), cluster_serve's
-    other defaults (max_len 192, prefill chunk 32, batch 4, 8 new
-    tokens, top-k 2, flat retrieval): ClusterRuntime with metrics and SLO
-    feedback, profiled, then a uniform replay, every launch count at 0
-    just before and read just after."""
+def _replay(torch, ops, nodes, qas, enc, ident, on_node=None):
+    """ClusterRuntime with metrics and SLO feedback over ``nodes``,
+    profiled, then a replay of RUNTIME_SLOTS uniform slots of
+    RUNTIME_VOLUME queries at RUNTIME_SLO, every launch count at 0 just
+    before and read just after; ``on_node(n, fn)`` runs node n's
+    ``process_slot`` call ``fn`` (a recorder around it).  Returns
+    (launches, per-node launches, per-node latencies, per-slot metrics,
+    replay wall s, profile s)."""
     from repro_torch.cluster import ClusterRuntime, LiveWorkload, \
         replay_trace
     from repro_torch.obs import metrics as obs_metrics
-    cfgs, params = _cluster_models(torch)
-    nodes, qas, _, enc, ident, _ = cluster_serve.build_cluster(
-        2, archs=CLUSTER_ARCHS, models=list(zip(cfgs, params)), entities=40,
-        queue=queue, paged=False, device=DEV)
-    check([(n.engine.paged, n.engine.prefill_chunk) for n in nodes]
-          == [(False, None if queue == "wave" else 32)] * 2,
-          f"build_cluster built {queue} nodes with (paged, chunk) "
-          f"{[(n.engine.paged, n.engine.prefill_chunk) for n in nodes]}")
     obs_metrics.registry().reset()
     obs_metrics.enable_metrics()
     lat = [[] for _ in nodes]
@@ -1616,7 +1653,8 @@ def _serve_replay(torch, ops, cluster_serve, queue, tag) -> dict:
 
             def counted(queries, slo_s, scheduler=None, n=n, serve=serve):
                 before = dict(ops.launches)
-                out = serve(queries, slo_s, scheduler=scheduler)
+                run = lambda: serve(queries, slo_s, scheduler=scheduler)
+                out = on_node(n, run) if on_node else run()
                 torch.cuda.synchronize()
                 for name, c in ops.launches.items():
                     per_node[n][name] += c - before[name]
@@ -1635,7 +1673,33 @@ def _serve_replay(torch, ops, cluster_serve, queue, tag) -> dict:
         obs_metrics.enable_metrics(False)
     sent = sum(m.n_queries for m in slots)
     check(sent == RUNTIME_SLOTS * RUNTIME_VOLUME == sum(map(len, lat)),
-          f"{queue} replay: {sent} queries sent, {sum(map(len, lat))} results")
+          f"replay: {sent} queries sent, {sum(map(len, lat))} results")
+    return launches, per_node, lat, slots, wall, prof_s
+
+
+def _p95(xs) -> float:
+    return statistics.quantiles(xs, n=20)[-1] if len(xs) > 1 \
+        else (xs or [0.0])[0]
+
+
+def _serve_replay(torch, ops, cluster_serve, queue, tag) -> dict:
+    """(c): ``build_cluster`` over the cluster phase's published-width
+    weights, non-paged (``queue`` continuous or wave), cluster_serve's
+    other defaults (max_len 192, prefill chunk 32, batch 4, 8 new
+    tokens, top-k 2, flat retrieval): ClusterRuntime with metrics and SLO
+    feedback, profiled, then a uniform replay, every launch count at 0
+    just before and read just after."""
+    cfgs, params = _cluster_models(torch)
+    nodes, qas, _, enc, ident, _ = cluster_serve.build_cluster(
+        2, archs=CLUSTER_ARCHS, models=list(zip(cfgs, params)), entities=40,
+        queue=queue, paged=False, device=DEV)
+    check([(n.engine.paged, n.engine.prefill_chunk) for n in nodes]
+          == [(False, None if queue == "wave" else 32)] * 2,
+          f"build_cluster built {queue} nodes with (paged, chunk) "
+          f"{[(n.engine.paged, n.engine.prefill_chunk) for n in nodes]}")
+    launches, per_node, lat, slots, wall, prof_s = _replay(
+        torch, ops, nodes, qas, enc, ident)
+    sent = sum(m.n_queries for m in slots)
     check(launches["paged_decode_attention"] == 0,
           f"{queue} replay launched paged_decode_attention")
     check(per_node[0]["flash_attention"] > 0,
@@ -1653,11 +1717,9 @@ def _serve_replay(torch, ops, cluster_serve, queue, tag) -> dict:
         st = node.stats
         ttft = (f"mean TTFT {st.ttft_mean * 1e3:.2f} ms" if st.ttft_s else
                 "TTFT not recorded (a wave's tokens arrive with the wave)")
-        p95 = statistics.quantiles(lat[n], n=20)[-1] if len(lat[n]) > 1 \
-            else (lat[n] or [0.0])[0]
         log(f"serve[{queue}]: node {n} ({node.arch}) {st.queries} queries, "
             f"{ttft}, {st.queries_per_s:.3f} queries/s, drop rate "
-            f"{st.drops / max(st.queries, 1):.3f}, p95 {p95:.3f} s, "
+            f"{st.drops / max(st.queries, 1):.3f}, p95 {_p95(lat[n]):.3f} s, "
             f"{st.waves} {'waves' if queue == 'wave' else 'frames'}, "
             f"{st.refills} refills; capacity {node.capacity.k:.3f} q/s; "
             f"launches {json.dumps(per_node[n])} {tag}")
@@ -1783,7 +1845,8 @@ def serve_kernels(torch, ops, shapes, rec, card) -> None:
                      "launches": shapes.calls[kind], "max_abs_err": err,
                      "ms": t_k, "plain_ms": t_p, "bound_ms": bnd,
                      "bound_by": by, "library_ms": t_l})
-    rec.setdefault("flash_attention", {})["shapes"] = rows
+    rec.setdefault("flash_attention", {}).setdefault("shapes", []).extend(
+        rows)
 
 
 def phase_serve(torch, card, rec: dict) -> dict:
@@ -1815,6 +1878,502 @@ def phase_serve(torch, card, rec: dict) -> dict:
     serve_parity(torch)
     serve_kernels(torch, ops, shapes, rec, card)
     log(f"serve: launches on the paths {json.dumps(total)}")
+    return total
+
+
+# the quickstart's other two node archs (cluster_serve.NODE_ARCHS[2:])
+NEW_ARCHS = ("hymba-1.5b", "qwen2-moe-a2.7b")
+HYMBA_HEADS = 25           # hymba-1.5b's query heads (its flash calls)
+# (b): a hymba wave whose rolling buffer (W 1024) wraps in prefill and
+# again in decode
+WRAP_LENS, WRAP_MAX_LEN, WRAP_NEW = (1100, 1050), 1536, 24
+ARCHS_MODELS = {}          # hymba-1.5b and qwen2-moe-a2.7b weights, drawn once
+
+
+def _archs_models(torch):
+    """The four-node cluster's configs and weights at published width:
+    the cluster phase's olmo-1b and xlstm-350m (seeds 0, 1) and
+    hymba-1.5b and qwen2-moe-a2.7b drawn here (seeds 2, 3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfgs, params = _cluster_models(torch)
+    if not ARCHS_MODELS:
+        t0 = time.perf_counter()
+        for n, arch in enumerate(NEW_ARCHS, start=2):
+            cfg = get_config(arch)
+            ARCHS_MODELS[arch] = (cfg, Model(cfg).init_params(seed=n,
+                                                              device=DEV))
+        torch.cuda.synchronize()
+        ARCHS_MODELS["draw_s"] = time.perf_counter() - t0
+    return list(zip(cfgs, params)) + [ARCHS_MODELS[a] for a in NEW_ARCHS]
+
+
+def archs_wrap(torch, ops, tag) -> FlashShapes:
+    """(b): hymba-1.5b at published width (seed 0) over a 1536-slot cache:
+    a wave of 1100- and 1050-token prompts (exact-length: one left-padded
+    row) fills and wraps the 1024-slot rolling buffer in prefill, and 24
+    decode steps wrap it again.  ``generate`` must equal
+    ``generate_reference``; the first token must equal the argmax of the
+    full-sequence forward at the last prompt position (the same
+    operations as the prefill), and the later tokens are held against the
+    teacher-forced forward (bf16: an order of summation apart, so a
+    near-tie may flip; most must agree).  Returns (the hymba flash calls'
+    recorder, the launches of ``generate``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import GenerationParams, ServeEngine
+    import numpy as np
+    cfg = get_config("hymba-1.5b")
+    params = Model(cfg).init_params(seed=0, device=DEV)
+    eng = ServeEngine(cfg, params, max_len=WRAP_MAX_LEN, batch_size=2,
+                      device=DEV)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(5, cfg.vocab_size, n).tolist() for n in WRAP_LENS]
+    gp = GenerationParams(max_new_tokens=WRAP_NEW)
+    shapes = FlashShapes(ops, heads=HYMBA_HEADS)
+    shapes.install()
+    try:
+        out, launches = _count_launches(ops, lambda: eng.generate(prompts,
+                                                                  gen=gp))
+        t0 = time.perf_counter()
+        loop = eng.generate_reference(prompts, gen=gp)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+    finally:
+        shapes.remove()
+    check(out == loop, "hymba wrap: generate != generate_reference")
+    check(all(len(o) == WRAP_NEW for o in out), "hymba wrap: short output")
+    check(launches["flash_attention"] > 0, "hymba wrap: no flash launch")
+    L = max(WRAP_LENS)
+    toks = np.zeros((2, L + WRAP_NEW - 1), np.int32)
+    pos = np.full(toks.shape, -1, np.int32)
+    for i, (p, o) in enumerate(zip(prompts, out)):
+        seq = p + o[:-1]
+        toks[i, L - len(p):] = seq
+        pos[i, L - len(p):] = np.arange(L - len(p), toks.shape[1])
+    with torch.no_grad():
+        logits = eng.model.forward(params, torch.as_tensor(toks, device=DEV),
+                                   torch.as_tensor(pos, device=DEV))
+    pred = logits[:, L - 1:].argmax(-1).cpu().numpy()
+    got = np.asarray(out)
+    check(bool((pred[:, 0] == got[:, 0]).all()),
+          f"hymba wrap: first tokens {got[:, 0]} != forward argmax "
+          f"{pred[:, 0]}")
+    agree = float((pred == got).mean())
+    check(agree >= 0.5, f"hymba wrap: only {agree:.3f} of the tokens agree "
+          "with the teacher-forced forward")
+    log(f"archs[wrap]: hymba-1.5b prompts {list(WRAP_LENS)} (buffer "
+        f"{min(cfg.sliding_window, WRAP_MAX_LEN)} slots, window "
+        f"{cfg.sliding_window}), {WRAP_NEW} new tokens: generate == "
+        f"generate_reference ({t_ref:.3f} s), first tokens = forward argmax, "
+        f"{agree:.4f} of {got.size} tokens = teacher-forced forward argmax; "
+        f"launches {json.dumps(launches)} {tag}")
+    return shapes, launches
+
+
+def mamba_split(torch, node, queries, slo_s) -> dict:
+    """One more slot of ``queries`` on the hymba node with the card
+    synchronised around every prefill chunk, decode step and Mamba call:
+    host seconds in ``prefill_chunk`` / ``decode_step`` and, inside them,
+    in ``mamba_forward`` / ``mamba_step``."""
+    from repro_torch.models import ssm
+    model = node.engine.model
+    t = {}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            t[key] = t.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    fwd, step = ssm.mamba_forward, ssm.mamba_step
+    ssm.mamba_forward = timed("mamba prefill", fwd)
+    ssm.mamba_step = timed("mamba decode", step)
+    model.prefill_chunk = timed("prefill", model.prefill_chunk)
+    model.decode_step = timed("decode", model.decode_step)
+    try:
+        node.process_slot(queries, slo_s)
+    finally:
+        ssm.mamba_forward, ssm.mamba_step = fwd, step
+        for name in ("prefill_chunk", "decode_step"):
+            delattr(model, name)
+    return t
+
+
+def archs_replay(torch, ops, cluster_serve, paged, tag, moe_rec) -> dict:
+    """(c): ``build_cluster(4)`` over the four archs' published-width
+    weights (olmo-1b, xlstm-350m, hymba-1.5b, qwen2-moe-a2.7b; seeds 0-3),
+    paged with the prefix cache or non-paged (the continuous queue),
+    cluster_serve's other defaults; ClusterRuntime with SLO feedback,
+    profiled, then 3 uniform slots of 12 at SLO 1.5 s, each node's
+    launches counted.  The qwen2-moe node's kernel inputs go to
+    ``moe_rec`` (a MainPathInputs).  On the paged run, the hymba node's
+    Mamba share of prefill (``mamba_split``).  Returns (launches, the
+    qwen2-moe node's launches)."""
+    label = "paged" if paged else "nonpaged"
+    models = _archs_models(torch)
+    nodes, qas, _, enc, ident, _ = cluster_serve.build_cluster(
+        4, models=models, entities=40, paged=paged, device=DEV)
+    check([n.arch for n in nodes] == list(cluster_serve.NODE_ARCHS),
+          f"4 nodes of {[n.arch for n in nodes]}")
+
+    def on_node(n, run):
+        if n != 3 or moe_rec is None:
+            return run()
+        moe_rec.install()
+        try:
+            return run()
+        finally:
+            moe_rec.remove()
+
+    seg_by = {}
+    with timed_segments(torch) as seg:
+        launches, per_node, lat, slots, wall, prof_s = _replay(
+            torch, ops, nodes, qas, enc, ident, on_node)
+        seg_by = dict(seg["by"])
+    check(per_node[2]["flash_attention"] > 0,
+          f"archs {label}: the hymba node did not launch flash_attention")
+    check(per_node[2]["paged_decode_attention"] == 0,
+          f"archs {label}: the hymba node launched paged_decode_attention "
+          "(its K/V is per-row, not pooled)")
+    check(per_node[3]["flash_attention"] > 0,
+          f"archs {label}: the qwen2-moe node did not launch flash_attention")
+    check((per_node[3]["paged_decode_attention"] > 0) == paged,
+          f"archs {label}: the qwen2-moe node launched paged decode "
+          f"{per_node[3]['paged_decode_attention']} times")
+    check(per_node[1]["flash_attention"] == 0,
+          f"archs {label}: node 1 (xlstm) launched flash_attention")
+    for t, m in enumerate(slots):
+        log(f"archs[{label}]: slot {t} n {m.n_queries} load "
+            f"[{'/'.join(f'{p:.3f}' for p in m.per_node_load)}] drop rate "
+            f"{m.drop_rate:.3f} p50 {m.latency_p50:.3f} s p95 "
+            f"{m.latency_p95:.3f} s {tag}")
+    for n, node in enumerate(nodes):
+        st = node.stats
+        dec = seg_by.get(node.engine.cfg.name, [0.0, 0])
+        log(f"archs[{label}]: node {n} ({node.arch}) {st.queries} queries, "
+            f"mean TTFT {st.ttft_mean * 1e3:.2f} ms, decode "
+            f"{dec[1] / max(dec[0], 1e-9):.2f} tokens/s ({dec[1]} tokens in "
+            f"{dec[0]:.3f} s of decode segments), drop rate "
+            f"{st.drops / max(st.queries, 1):.3f}, p95 {_p95(lat[n]):.3f} s, "
+            f"{st.queries_per_s:.3f} queries/s, {st.waves} frames, "
+            f"{st.refills} refills, prefix hits {st.prefix_hits}; capacity "
+            f"{node.capacity.k:.3f} q/s; launches {json.dumps(per_node[n])} "
+            f"{tag}")
+    log(f"archs[{label}]: {sum(m.n_queries for m in slots)} queries in "
+        f"{RUNTIME_SLOTS} uniform slots in {wall:.3f} s wall (profiled in "
+        f"{prof_s:.3f} s); launches {json.dumps(launches)} {tag}")
+    if paged:
+        t = mamba_split(torch, nodes[2], _queries_from(qas, enc, 12),
+                        RUNTIME_SLO)
+        pre, dec = t.get("prefill", 0.0), t.get("decode", 0.0)
+        m_pre, m_dec = t.get("mamba prefill", 0.0), t.get("mamba decode", 0.0)
+        log(f"archs[{label}]: hymba node, one synchronised slot of 12: "
+            f"prefill chunks {pre:.3f} s, Mamba in them {m_pre:.3f} s "
+            f"({m_pre / max(pre, 1e-9):.4f} of prefill); decode steps "
+            f"{dec:.3f} s, Mamba in them {m_dec:.3f} s "
+            f"({m_dec / max(dec, 1e-9):.4f} of decode) {tag}")
+    for node in nodes:
+        node.close()
+    return launches, per_node[3]
+
+
+def _queries_from(qas, enc, n):
+    """The first ``n`` questions as cluster queries (qids 900..)."""
+    from repro_torch.core.cluster import Query
+    return [Query(qa.domain, enc.encode([qa.question])[0], 900 + i,
+                  qa.question, qa.answer) for i, qa in enumerate(qas[:n])]
+
+
+def _paged_fork_tokens(torch, cfg, params, dev):
+    """The smoke model's greedy tokens through the paged continuous queue
+    (batch 2, chunk 8, blocks of 8) on a stream that forks one shared
+    prefix (a mid-block tail) into three rows."""
+    from repro_torch.serving import (ContinuousQueue, GenerationParams,
+                                     ServeEngine)
+    ctx = [5, 6, 7, 2, 3, 4, 1, 2, 9, 9, 3]
+    stream = [([8, 30, 2, 19, 7], 0), (ctx + [14, 4, 1], len(ctx)),
+              (ctx + [7, 8, 2, 40], len(ctx)), ([21, 3, 3, 17], 0),
+              (ctx + [9, 1, 5], len(ctx))]
+    eng = ServeEngine(cfg, params, max_len=128, batch_size=2,
+                      prefill_chunk=8, paged=True, block_size=8, device=dev)
+    q = ContinuousQueue(eng, GenerationParams(max_new_tokens=8))
+    rids = [q.submit(p, prefix_len=pl) for p, pl in stream]
+    res = q.run()
+    return [res[r] for r in rids], q.stats.prefix_hits, q.stats.cow_forks
+
+
+def archs_parity(torch, ops, cluster_serve, tag) -> dict:
+    """(d): the smoke configs (f32) of both archs on the card and on the
+    CPU from the same weights: greedy tokens of generate,
+    generate_reference, the wave queue, the non-paged continuous queue
+    and the paged continuous queue with a forked prefix equal; then
+    ``cluster_serve --smoke --nodes 4`` on the card (paged, standing),
+    its trace through ``trace_report --check``."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    rng = np.random.default_rng(0)
+    for arch in NEW_ARCHS:
+        cfg = get_smoke_config(arch)
+        prompts = [rng.integers(5, cfg.vocab_size, n).tolist()
+                   for n in (37, 9, 20, 3, 64, 14)]
+        params_cpu = Model(cfg).init_params(seed=0, device="cpu")
+        params_gpu = _to_device(params_cpu, "cuda")
+        got = _serve_paths(torch, cfg, params_gpu, "cuda", prompts)
+        want = _serve_paths(torch, cfg, params_cpu, "cpu", prompts)
+        got["paged"] = _paged_fork_tokens(torch, cfg, params_gpu, "cuda")
+        want["paged"] = _paged_fork_tokens(torch, cfg, params_cpu, "cpu")
+        check(got == want, f"archs parity {arch}: card and CPU differ:\n"
+              f"{got}\n{want}")
+        check(got["generate"] == got["generate_reference"],
+              f"archs parity {arch}: generate != generate_reference")
+        check(got["paged"][1] >= 2 and got["paged"][2] >= 1,
+              f"archs parity {arch}: prefix hits / forks {got['paged'][1:]}")
+        log(f"archs parity: {arch} smoke ({cfg.num_layers} layers d"
+            f"{cfg.d_model}, window {cfg.sliding_window}, f32) greedy tokens "
+            f"of generate, generate_reference, the wave queue, the non-paged "
+            f"continuous queue ({got['refills']} refills) and the paged "
+            f"queue ({got['paged'][1]} prefix hits, {got['paged'][2]} "
+            f"copy-on-write forks) equal on card and CPU")
+    trace = ROOT / "build" / "trace_archs.jsonl"
+    trace.parent.mkdir(exist_ok=True)
+    argv = ["--smoke", "--nodes", "4", "--slots", "2", "--per-slot", "8",
+            "--paged", "--standing", "--trace-out", str(trace)]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, launches = _count_launches(ops,
+                                          lambda: cluster_serve.main(argv))
+    finally:
+        sys.stdout.write(buf.getvalue())
+    out = buf.getvalue()
+    check("summary:" in out and "0 request(s) unfinished" in out,
+          "cluster_serve --nodes 4: no summary or unfinished requests")
+    report = _trace_check(trace)
+    for name in ("flash_attention", "paged_decode_attention",
+                 "retrieval_topk"):
+        check(launches[name] > 0, f"cluster_serve --nodes 4 did not launch "
+              f"{name}")
+    log(f"archs[cli]: cluster_serve {' '.join(argv)} in "
+        f"{time.perf_counter() - t0:.3f} s; trace_report --check: "
+        f"{report.splitlines()[-1] if report else ''}; launches "
+        f"{json.dumps(launches)} {tag}")
+    return launches
+
+
+def _flash_row(torch, F, ops, ref, args, kw, label, calls, card) -> dict:
+    """The flash kernel held against its plain version on ``args`` and
+    timed beside it and SDPA: a kernels-line "shapes" row."""
+    q, k, v, qp, kvp = args
+    got = ops.flash_attention(*args, **kw)
+    want = ref.flash_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
+    valid = (qp >= 0)[:, :, None, None].expand_as(got)
+    err, tol = max_err(got, want, valid), tolerance(want)
+    log(f"  flash_attention [{label}] q{tuple(q.shape)} k{tuple(k.shape)} "
+        f"window {kw.get('window')} {dtype_name(q)}: valid rows max|err| "
+        f"{err:.3e} (tol {tol:.3g}); {calls} calls on the archs paths")
+    check(err <= tol, f"flash {label}: {err} > {tol}")
+    t_k, t_p, t_l, bnd, by = _flash_times(torch, F, ops, ref, args, kw,
+                                          label, card)
+    return {"shape": label, "q": list(q.shape), "k": list(k.shape),
+            "launches": calls, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": bnd, "bound_by": by, "library_ms": t_l}
+
+
+def _wrapped_chunk(torch, gen, W=1024, C=16, B=4):
+    """hymba's chunk of 16 over a wrapped rolling buffer of 1024 slots:
+    row b has absorbed 1100 + 37 b tokens (relative positions from 0), its
+    buffer holds the last 1024 of them by ``p % 1024``, the chunk's
+    queries follow (the first b columns pads, -1)."""
+    from repro_torch.models import cache as cache_lib
+    H, KV, hd, bf16 = HYMBA_HEADS, 5, 64, torch.bfloat16
+    start = torch.tensor([[1100 + 37 * b] for b in range(B)],
+                         dtype=torch.int32, device=DEV)
+    past = cache_lib.rolling_kv_positions(start, W)
+    cols = torch.arange(C, dtype=torch.int32, device=DEV)[None]
+    qp = torch.where(cols >= torch.arange(B, device=DEV)[:, None],
+                     start + cols, torch.full_like(cols, -1)).to(torch.int32)
+    q = torch.randn(B, C, H, hd, generator=gen, device=DEV).to(bf16)
+    k = torch.randn(B, W + C, KV, hd, generator=gen, device=DEV).to(bf16)
+    v = torch.randn(B, W + C, KV, hd, generator=gen, device=DEV).to(bf16)
+    return q, k, v, qp.contiguous(), torch.cat([past, qp], 1).contiguous()
+
+
+def archs_kernels(torch, ops, serve_shapes, wrap_shapes, moe_rec,
+                  moe_launches, rec, card) -> None:
+    """(e): ``flash_attention.cu`` at hymba's shapes (a chunk of 16 over a
+    wrapped 1024-slot buffer, the wave prefill [4,256,25,64] of (a), the
+    decode read of (b)'s wrapped buffer) and qwen2-moe's paged decode
+    and chunk from (c), each against its plain version, timed beside it
+    and the library call; their rows join the kernels line's "shapes".
+    Then the qwen2-moe MoE layer's time at decode and at a chunk."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(11)
+    W = 1024
+    rows = [_flash_row(torch, F, ops, ref, _wrapped_chunk(torch, gen, W),
+                       {"causal": True, "window": W, "softcap": None},
+                       "hymba chunk 16 over a wrapped 1024 buffer", 0, card)]
+    for shapes, kind, label in ((serve_shapes, "prefill",
+                                 "hymba wave prefill"),
+                                (wrap_shapes, "decode",
+                                 "hymba decode over the wrapped buffer")):
+        check(kind in shapes.best, f"no hymba {kind} flash call recorded")
+        _, args, kw = shapes.best[kind]
+        rows.append(_flash_row(torch, F, ops, ref, args, kw, label,
+                               shapes.calls[kind], card))
+    check(rows[1]["q"] == [4, 256, HYMBA_HEADS, 64],
+          f"hymba wave prefill recorded at q{rows[1]['q']}")
+    check("flash_attention" in moe_rec.best
+          and "paged_decode_attention" in moe_rec.best,
+          "the qwen2-moe node's kernel inputs were not recorded")
+    _, args, kw = moe_rec.best["flash_attention"]
+    rows.append(_flash_row(torch, F, ops, ref, args, kw,
+                           "qwen2-moe paged chunk",
+                           moe_launches["flash_attention"], card))
+    rec.setdefault("flash_attention", {}).setdefault("shapes", []).extend(
+        rows)
+    _, args, kw = moe_rec.best["paged_decode_attention"]
+    got = ops.paged_decode_attention(*args, **kw)
+    want = ref.paged_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    # a row with no live slot (an idle row of the batch) is unspecified
+    q, kp, _, tb, fi, la = args
+    bs = kp.shape[1]
+    pos = torch.arange(tb.shape[1] * bs, device=DEV)[None]
+    live = ((pos >= fi[:, None]) & (pos <= la[:, None])
+            & (tb >= 0).repeat_interleave(bs, 1)).any(dim=1)
+    check(bool(live.any()), "qwen2-moe paged decode: no row has a live slot")
+    err = max_err(got, want, live[:, None, None].expand_as(got))
+    tol = tolerance(want[live])
+    log(f"  paged_decode_attention [qwen2-moe node] q{tuple(q.shape)} "
+        f"pool{tuple(kp.shape)} table{tuple(tb.shape)}, "
+        f"{int(live.sum())} rows with live slots: max|err| {err:.3e} "
+        f"(tol {tol:.3g})")
+    check(err <= tol, f"paged decode qwen2-moe: {err} > {tol}")
+    t_k, t_p, t_l, bnd, by = _paged_times(torch, F, ops, ref, args, kw,
+                                          "qwen2-moe node", card)
+    rec.setdefault("paged_decode_attention", {}).setdefault(
+        "shapes", []).append({
+            "shape": "qwen2-moe paged decode", "q": list(args[0].shape),
+            "k": list(args[1].shape),
+            "launches": moe_launches["paged_decode_attention"],
+            "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
+            "library_ms": t_l})
+    cfg, params = ARCHS_MODELS["qwen2-moe-a2.7b"]
+    p = params["blocks"][0]["moe"]
+    E, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
+    cf = float(E)
+    for B, S, what in ((4, 1, "decode (4 rows)"), (1, 32, "chunk of 32"),
+                       (4, 16, "4 rows x 16"), (4, 256, "wave of 4 x 256")):
+        x = (torch.randn(B, S, cfg.d_model, generator=gen, device=DEV)
+             * 0.5).to(p["router"].dtype)
+        t = bench_ms(lambda: moe.apply_moe(p, x, cfg, cf), reps=10)
+        n = B * S * k
+        route = "gathered weights" if n <= moe.MOE_GATHER_MAX else \
+            "one bmm a projection over the expert-sorted rows"
+        line = (f"  qwen2-moe MoE layer [{what}] x{tuple(x.shape)}: "
+                f"{t:.4f} ms ({route})")
+        # the expert products alone, by each route on the same rows
+        idx, _ = moe.route(p, x, k)
+        keep = moe.capacity_keep(idx, E, moe.capacity(S, k, E, cf))
+        xa = x[:, :, None].expand(B, S, k, -1).reshape(n, -1)
+        args = (p, xa, idx.reshape(n), keep.reshape(n))
+        want = _experts_loop(*args)
+        routes = {"sorted-rows bmm": lambda: moe._experts_grouped(*args),
+                  "per-expert products": lambda: _experts_loop(*args)}
+        if n <= 128:        # a gather copies n x 17.3 MB of weights
+            routes["gathered weights"] = \
+                lambda: moe._experts_gathered(*args[:3])
+        parts = []
+        for name, fn in routes.items():
+            err = max_err(fn(), want)
+            check(err <= tolerance(want), f"MoE experts [{what}] {name}: "
+                  f"{err} from the per-expert products")
+            parts.append(f"{name} {bench_ms(fn, reps=10):.4f} ms")
+        log(f"{line}; its experts: {', '.join(parts)} [{card['smi']}]")
+
+
+def _experts_loop(params, xa, e, keep):
+    """The design not taken for a chunk's experts: the kept rows sorted
+    by expert, three products for each expert with rows (one host read
+    of the counts, ~6 launches an expert)."""
+    import torch
+    import torch.nn.functional as F
+    E = params["wg"].shape[0]
+    key = torch.where(keep, e, torch.full_like(e, E))
+    key_s, order = torch.sort(key, stable=True)
+    counts = torch.bincount(key_s, minlength=E + 1)[:E].tolist()
+    xs = xa[order]
+    ys = torch.zeros_like(xs)
+    off = 0
+    for j, c in enumerate(counts):
+        if c:
+            r = xs[off:off + c]
+            ys[off:off + c] = (F.silu(r @ params["wg"][j])
+                               * (r @ params["wi"][j])) @ params["wo"][j]
+            off += c
+    out = torch.empty_like(ys)
+    out.index_copy_(0, order, ys)
+    return out
+
+
+def phase_archs(torch, card, rec: dict) -> dict:
+    """hymba-1.5b and qwen2-moe-a2.7b on the card: (a) serve.py at both
+    archs' published width, (b) a hymba wave that wraps its rolling
+    buffer, (c) the 4-node cluster replay paged and non-paged, each with
+    its own launch counts, (d) card-vs-CPU parity at the smoke configs
+    and cluster_serve --smoke --nodes 4, (e) the kernels at the archs'
+    shapes and the MoE layer's time.  Returns the launches of (a)-(d)
+    together."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cluster_serve, serve
+    tag = f"[{card['smi']}]"
+    total = {}
+
+    def add(launches):
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+
+    serve_shapes = FlashShapes(ops, heads=HYMBA_HEADS)
+    serve_shapes.install()
+    try:
+        for arch in NEW_ARCHS:
+            add(_serve_cli(torch, ops, serve, arch, tag))
+    finally:
+        serve_shapes.remove()
+    wrap_shapes, launches = archs_wrap(torch, ops, tag)
+    add(launches)
+    models = _archs_models(torch)
+    log(f"archs: 4 nodes {[c.name for c, _ in models]}, "
+        f"{sum(c.param_count() for c, _ in models) / 1e9:.2f}B params "
+        f"(hymba-1.5b and qwen2-moe-a2.7b drawn in "
+        f"{ARCHS_MODELS['draw_s']:.1f} s)")
+    moe_rec = MainPathInputs(ops)
+    for paged in (True, False):
+        launches, moe_launches = archs_replay(
+            torch, ops, cluster_serve, paged, tag, moe_rec if paged else None)
+        add(launches)
+        if paged:
+            moe_paged = moe_launches
+    add(archs_parity(torch, ops, cluster_serve, tag))
+    archs_kernels(torch, ops, serve_shapes, wrap_shapes, moe_rec, moe_paged,
+                  rec, card)
+    for arch in NEW_ARCHS:
+        ARCHS_MODELS.pop(arch)
+    torch.cuda.empty_cache()
+    log(f"archs: launches on the paths {json.dumps(total)}")
     return total
 
 
@@ -2427,7 +2986,7 @@ def kernels_paged(torch, F, ops, ref, gen, main, rec, card) -> None:
                    "paged_decode_attention")
     t_k, t_p, t_l, bnd, by = _paged_times(torch, F, ops, ref, args, kw,
                                           "main path", card, (1, 2, 3, 4))
-    rec["paged_decode_attention"] = dict(
+    rec.setdefault("paged_decode_attention", {}).update(
         max_abs_err=errs["main path"], ms=t_k, plain_ms=t_p, bound_ms=bnd,
         bound_by=by, library_ms=t_l)
     _paged_times(torch, F, ops, ref, long1, {}, "B1 2048-token context",
@@ -4031,6 +4590,9 @@ def main(argv=None) -> int:
                 launches[name] = launches.get(name, 0) + n
         if "serve" in phases:
             for name, n in phase_serve(torch, card, rec).items():
+                launches[name] = launches.get(name, 0) + n
+        if "archs" in phases:
+            for name, n in phase_archs(torch, card, rec).items():
                 launches[name] = launches.get(name, 0) + n
         if "kernels" in phases:
             phase_kernels(torch, card, captured, rec, traced)

@@ -24,6 +24,8 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "olmo_1b",
     "xlstm-350m": "xlstm_350m",
+    "hymba-1.5b": "hymba_1_5b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

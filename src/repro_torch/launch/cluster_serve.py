@@ -18,11 +18,13 @@ per-slot measured latency, quality and drops.
 
 Every flag of the reference is accepted, with its default: without
 ``--paged`` the nodes serve through the non-paged engine, and ``--queue
-wave`` runs synchronous waves.  What the port does not serve yet raises
-``NotImplementedError`` before anything is built: ``--ckpt`` (ROADMAP
-A6), and a node of an architecture other than olmo-1b or xlstm-350m, so
-``--nodes`` >= 3 (node 2 is hymba-1.5b; A4).  ``build_cluster(models=...)`` takes each node's
-``(cfg, params)`` in place of the drawn weights.
+wave`` runs synchronous waves.  Nodes cycle through the reference's
+``NODE_ARCHS`` (olmo-1b, xlstm-350m, hymba-1.5b, qwen2-moe-a2.7b), so
+``--nodes 4`` serves one node of each.  What the port does not serve yet
+raises ``NotImplementedError`` before anything is built: ``--ckpt``
+(ROADMAP A6), and a node of an architecture the port has no config for
+(A4).  ``build_cluster(models=...)`` takes each node's ``(cfg, params)``
+in place of the drawn weights.
 """
 import argparse
 import json

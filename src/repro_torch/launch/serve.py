@@ -7,6 +7,7 @@ Counterpart of ``repro/launch/serve.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --batch 4 --requests 8 --prompt-len 256 --new-tokens 16 \\
         --max-len 512 --reference
+    ... --arch hymba-1.5b        # or qwen2-moe-a2.7b, xlstm-350m
     ... --smoke --device cpu     # a tiny config on the plain PyTorch path
 
 Every flag of the reference is accepted, plus ``--device`` (``cuda`` by

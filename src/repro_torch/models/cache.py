@@ -1,42 +1,51 @@
 """KV caches: the contiguous cache, the paged cache (block allocator,
-pool layout, scatter writes, gathers), and the per-row recurrent state
-beside either.
+pool layout, scatter writes, gathers), and the per-row state beside
+either: recurrent state and the hymba layers' rolling K/V.
 
-Counterpart of ``repro/models/cache.py`` for the "attn", "mlstm" and
-"slstm" slot kinds (rolling-window, Mamba and encoder state come with
-later slices).
+Counterpart of ``repro/models/cache.py`` for the "attn", "hymba",
+"mlstm" and "slstm" slot kinds (encoder state comes with a later slice).
 
 Contiguous layout (``Cache``, the non-paged engine): per-row full K/V
 buffers ``[La, B, max_len, KV, hd]`` for the La "attn" layers, slot index
 == absolute position, every row at one shared absolute ``length`` (a
 host int, as the frames of the non-paged engine advance in lockstep),
-per-row ``first`` [B], and the same per-row recurrent ``state`` as the
-paged cache.  ``write_seq`` / ``write_token`` write at the shared
-position in place; ``extract_row`` / ``insert_row`` move a whole row
-(its K/V buffers, its recurrent state and its ``first``), the slot swap
-behind a non-paged refill.
+per-row ``first`` [B], and the same per-row ``state`` as the paged
+cache.  ``write_seq`` / ``write_token`` write at the shared position in
+place; ``extract_row`` / ``insert_row`` move a whole row (its K/V
+buffers, its state and its ``first``), the slot swap behind a non-paged
+refill.
 
 Layout (``PagedCache``): K/V pools ``[La, P, bs, KV, hd]`` for the La
 "attn" layers only (``paged_slot_names`` in the reference), per-row
 ``length`` [B], ``first`` [B] and ``block_tables`` [B, NB] (-1 =
 unallocated).  Row r's absolute position p lives in pool block
 ``block_tables[r, p // bs]`` at offset ``p % bs``.  Every other layer
-keeps per-row state ``state[layer]`` (a dict of [B, ...] f32 tensors:
-mLSTM ``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m``).  A model
-without "attn" layers has empty pools (La = 0): the block allocator,
-the block tables and the copy-on-write decisions run all the same.  The
-reference consumes donated caches inside compiled programs; here the
-pools are preallocated and written in place, and a layer's state is
+keeps per-row state ``state[layer]``, a dict of [B, ...] tensors: mLSTM
+``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m`` (f32), and a hymba
+layer its Mamba ``h`` (f32) and ``conv`` (model dtype) beside its K/V
+``k``/``v`` [B, Lw, KV, hd] in a rolling buffer of ``Lw = min(window,
+max_len)`` slots, where slot j holds the latest position p with p % Lw
+== j (``rolling_kv_positions``).  A hymba layer's K/V is not pooled in
+either cache: it is part of the row, so refills, forks and prefix
+entries copy it with the Mamba state.  A model without "attn" layers has
+empty pools (La = 0): the block allocator, the block tables and the
+copy-on-write decisions run all the same.  The reference consumes
+donated caches inside compiled programs; here the pools are
+preallocated and written in place, and a layer's recurrent state is
 replaced by the new tensors its cell returns.
 
 Invalid writes (pad tokens, finished rows, unallocated blocks) must
 write nowhere.  The reference routes them to a positive out-of-bounds
 index dropped by ``mode="drop"``; torch's ``index_copy_`` raises on an
 out-of-bounds index and wraps negative ones, so ``pool_write_plan``
-selects the valid (destination, source) pairs explicitly, once per call,
-and every layer reuses the plan.  ``pool_write_plan`` + ``paged_write``
-take the place of the reference's ``paged_write_token`` (one token per
-row, decode) and ``paged_write_seq`` (a chunk per row, prefill).
+and ``rolling_write_plan`` select the valid (destination, source) pairs
+explicitly, once per call, and every layer reuses the plan.
+``pool_write_plan`` + ``paged_write`` take the place of the reference's
+``paged_write_token`` (one token per row, decode) and
+``paged_write_seq`` (a chunk per row, prefill); ``rolling_write_plan`` +
+``rolling_write`` that of ``rolling_write_seq``, and
+``rolling_write_token`` (no plan: a frozen row rewrites its slot's old
+contents) that of the reference's function of that name.
 """
 from __future__ import annotations
 
@@ -64,6 +73,27 @@ def shared_kv_positions(length: int, s_max: int, device) -> torch.Tensor:
     [s_max] positions, -1 at and beyond ``length``."""
     i = torch.arange(s_max, dtype=torch.int32, device=device)
     return torch.where(i < length, i, torch.full_like(i, -1))
+
+
+def rolling_kv_positions(length, window: int, device=None) -> torch.Tensor:
+    """Absolute position held by each slot of a rolling buffer of
+    ``window`` slots after ``length`` tokens (negative = empty): the
+    largest p < length with p % window == j.  ``length`` [B, 1] gives
+    [B, window]; a host int (one shared length) gives [window].  On a
+    buffer that has not wrapped (length <= window) these are the full
+    buffer's positions, negative in the empty slots."""
+    if not isinstance(length, torch.Tensor):
+        length = torch.tensor(length, dtype=torch.int32, device=device)
+    j = torch.arange(window, dtype=torch.int32, device=length.device)
+    if length.dim():
+        j = j[None]
+    return j + window * torch.div(length - 1 - j, window,
+                                  rounding_mode="floor")
+
+
+def rolling_len(cfg: ModelConfig, max_len: int) -> int:
+    """Slots of a hymba layer's rolling K/V buffer: min(window, max_len)."""
+    return min(cfg.sliding_window or max_len, max_len)
 
 
 class BlockAllocator:
@@ -141,13 +171,26 @@ def num_row_blocks(max_len: int, block_size: int) -> int:
     return -(-max_len // block_size)
 
 
-def init_row_state(cfg: ModelConfig, batch: int, device) -> RowState:
-    """Zeroed per-row state of every recurrent layer, batch ``batch``: a
-    plain refill starts from ``init_row_state(cfg, 1, dev)``."""
-    init = {"mlstm": ssm.mlstm_init_state, "slstm": ssm.slstm_init_state}
-    kinds = [cfg.pattern_for_layer(i) for i in range(cfg.num_layers)]
-    return {i: init[kind](cfg, batch, device)
-            for i, kind in enumerate(kinds) if kind != "attn"}
+def init_row_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> RowState:
+    """Zeroed per-row state of every layer that is not "attn", batch
+    ``batch``: recurrent cells, and for a hymba layer its Mamba state and
+    its rolling K/V buffer (``rolling_len`` slots, ``dtype``).  A plain
+    refill starts from ``init_row_state(cfg, 1, max_len, dtype, dev)``."""
+    out: RowState = {}
+    for i in range(cfg.num_layers):
+        kind = cfg.pattern_for_layer(i)
+        if kind == "mlstm":
+            out[i] = ssm.mlstm_init_state(cfg, batch, device)
+        elif kind == "slstm":
+            out[i] = ssm.slstm_init_state(cfg, batch, device)
+        elif kind == "hymba":
+            shape = (batch, rolling_len(cfg, max_len), cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            out[i] = dict(ssm.mamba_init_state(cfg, batch, dtype, device),
+                          k=torch.zeros(shape, dtype=dtype, device=device),
+                          v=torch.zeros(shape, dtype=dtype, device=device))
+    return out
 
 
 def extract_row(x, row: int):
@@ -187,25 +230,28 @@ class Cache:
     first: torch.Tensor           # [B] int32 first valid abs position
     k: torch.Tensor               # [La, B, max_len, KV, hd] ("attn")
     v: torch.Tensor               # [La, B, max_len, KV, hd]
-    state: RowState               # recurrent layers: [B, ...] f32
+    state: RowState               # non-"attn" layers: [B, ...]
 
 
-def _n_attn(cfg: ModelConfig) -> int:
-    return sum(cfg.pattern_for_layer(i) == "attn"
-               for i in range(cfg.num_layers))
+def paged_layers(cfg: ModelConfig) -> List[int]:
+    """The layers whose K/V go through the pools (the reference's
+    ``paged_slot_names``): full attention only.  A hymba layer's rolling
+    K/V stays in its row's state, its live span already O(window)."""
+    return [i for i in range(cfg.num_layers)
+            if cfg.pattern_for_layer(i) == "attn"]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> Cache:
     """Zeroed full K/V buffers for each "attn" layer and zeroed recurrent
     state, at length 0 with every ``first`` 0."""
-    shape = (_n_attn(cfg), batch, max_len, cfg.num_kv_heads,
+    shape = (len(paged_layers(cfg)), batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return Cache(length=0,
                  first=torch.zeros(batch, dtype=torch.int32, device=device),
                  k=torch.zeros(shape, dtype=dtype, device=device),
                  v=torch.zeros(shape, dtype=dtype, device=device),
-                 state=init_row_state(cfg, batch, device))
+                 state=init_row_state(cfg, batch, max_len, dtype, device))
 
 
 def _buffer_slots(L: int, start: int, S: int, device):
@@ -220,23 +266,67 @@ def _buffer_slots(L: int, start: int, S: int, device):
     return (start + torch.arange(S, device=device)) % L, slice(None)
 
 
-def write_seq(cache: Cache, j: int, k: torch.Tensor, v: torch.Tensor,
-              start: int) -> None:
-    """Write a [B,S,KV,hd] segment at shared position ``start`` into "attn"
-    layer ``j``'s buffers, in place."""
-    L = cache.k.shape[2]
-    slots, seg = _buffer_slots(L, start, k.shape[1], k.device)
-    cache.k[j][:, slots] = k[:, seg].to(cache.k.dtype)
-    cache.v[j][:, slots] = v[:, seg].to(cache.v.dtype)
+def write_seq(k_buf: torch.Tensor, v_buf: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, start: int) -> None:
+    """Write a [B,S,KV,hd] segment at shared position ``start`` into
+    [B,L,KV,hd] buffers (an "attn" layer's full ones or a hymba layer's
+    rolling ones), in place."""
+    slots, seg = _buffer_slots(k_buf.shape[1], start, k.shape[1], k.device)
+    k_buf[:, slots] = k[:, seg].to(k_buf.dtype)
+    v_buf[:, slots] = v[:, seg].to(v_buf.dtype)
 
 
-def write_token(cache: Cache, j: int, k: torch.Tensor, v: torch.Tensor,
-                pos: int) -> None:
-    """Write one [B,1,KV,hd] token at shared position ``pos`` into "attn"
-    layer ``j``'s buffers, in place."""
-    s = pos % cache.k.shape[2]
-    cache.k[j, :, s] = k[:, 0].to(cache.k.dtype)
-    cache.v[j, :, s] = v[:, 0].to(cache.v.dtype)
+def write_token(k_buf: torch.Tensor, v_buf: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, pos: int) -> None:
+    """Write one [B,1,KV,hd] token at shared position ``pos`` into
+    [B,L,KV,hd] buffers (slot ``pos % L``), in place."""
+    s = pos % k_buf.shape[1]
+    k_buf[:, s] = k[:, 0].to(k_buf.dtype)
+    v_buf[:, s] = v[:, 0].to(v_buf.dtype)
+
+
+def rolling_write_plan(abs_pos: torch.Tensor, window: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Valid per-row writes of tokens at absolute positions ``abs_pos``
+    [B, S] (-1 = invalid) into rolling buffers of ``window`` slots: (row
+    [n], slot [n], source token [n] into the flattened [B*S] tokens).  A
+    row that carries more than ``window`` valid tokens keeps only its
+    last ``window`` (so no slot is written twice).  One host
+    synchronisation (the count n)."""
+    pos = abs_pos.long()
+    last = torch.where(pos >= 0, pos, torch.full_like(pos, -1)
+                       ).amax(dim=1, keepdim=True)
+    valid = (pos >= 0) & (pos > last - window)
+    src = torch.nonzero(valid.reshape(-1), as_tuple=True)[0]
+    S = pos.shape[1]
+    return src // S, pos.reshape(-1)[src] % window, src
+
+
+def rolling_write(k_buf: torch.Tensor, v_buf: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, plan) -> None:
+    """Scatter [B,S,KV,hd] tokens into per-row rolling buffers
+    [B,W,KV,hd] in place, as ``plan`` (``rolling_write_plan``) selects."""
+    rows, slots, src = plan
+    KV, hd = k.shape[2:]
+    for buf, x in ((k_buf, k), (v_buf, v)):
+        buf[rows, slots] = x.reshape(-1, KV, hd)[src].to(buf.dtype)
+
+
+def rolling_write_token(k_buf: torch.Tensor, v_buf: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                        active: Optional[torch.Tensor] = None) -> None:
+    """Write one [B,1,KV,hd] token per row at per-row absolute position
+    ``pos`` [B] into slot ``pos % W`` of per-row rolling buffers
+    [B,W,KV,hd], in place.  A row with ``active`` False rewrites the
+    slot's old contents (no host synchronisation)."""
+    B, W = k_buf.shape[:2]
+    rows = torch.arange(B, device=k_buf.device)
+    slot = pos.long() % W
+    for buf, x in ((k_buf, k), (v_buf, v)):
+        new = x[:, 0].to(buf.dtype)
+        if active is not None:
+            new = torch.where(active[:, None, None], new, buf[rows, slot])
+        buf[rows, slot] = new
 
 
 @dataclass
@@ -246,7 +336,7 @@ class PagedCache:
     block_tables: torch.Tensor    # [B, NB] int32 pool block ids, -1 free
     k: torch.Tensor               # [La, P, bs, KV, hd] ("attn" layers)
     v: torch.Tensor               # [La, P, bs, KV, hd]
-    state: RowState               # recurrent layers: [B, ...] f32
+    state: RowState               # non-"attn" layers: [B, ...]
 
     @property
     def block_size(self) -> int:
@@ -276,8 +366,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed pools of ``num_blocks`` blocks for each "attn" layer, zeroed
     recurrent state, all rows empty."""
     NB = num_row_blocks(max_len, block_size)
-    shape = (_n_attn(cfg), num_blocks, block_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (len(paged_layers(cfg)), num_blocks, block_size,
+             cfg.num_kv_heads, cfg.resolved_head_dim)
     return PagedCache(
         length=torch.zeros(batch, dtype=torch.int32, device=device),
         first=torch.zeros(batch, dtype=torch.int32, device=device),
@@ -285,7 +375,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                                 device=device),
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        state=init_row_state(cfg, batch, device))
+        state=init_row_state(cfg, batch, max_len, dtype, device))
 
 
 def pool_write_plan(table: torch.Tensor, abs_pos: torch.Tensor,

@@ -162,6 +162,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            softcap=softcap)
 
 
+def fill_pad_queries(attn: torch.Tensor, v: torch.Tensor,
+                     q_positions: torch.Tensor) -> torch.Tensor:
+    """``attn`` [B,Sq,H,hd] with the rows of pad queries (position < 0)
+    set to the mean of ``v`` [B,Sk,KV,hd] over its keys, each query head
+    reading its KV head.  That is what attention gives a query whose keys
+    are all masked in the plain version (a uniform softmax over every
+    key) and in the reference (the same, for a segment of at most 512
+    keys, its one block); the kernel leaves such rows unspecified.  Only
+    a layer that carries pad columns into later state needs them: a
+    hymba layer's Mamba branch, one layer on, absorbs every column of an
+    unmasked prefill."""
+    H, KV = attn.shape[2], v.shape[2]
+    mean = v.float().mean(dim=1).repeat_interleave(H // KV, dim=1)
+    pad = (q_positions < 0)[:, :, None, None]
+    return torch.where(pad, mean[:, None].to(attn.dtype), attn)
+
+
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
                    device) -> dict:
     d = cfg.d_model

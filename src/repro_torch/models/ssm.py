@@ -1,20 +1,23 @@
-"""xLSTM's recurrent cells on torch tensors: mLSTM and sLSTM.
+"""Recurrent blocks on torch tensors: the Mamba-style selective SSM
+(Hymba's parallel heads) and xLSTM's mLSTM and sLSTM cells.
 
-Counterpart of the xLSTM half of ``repro/models/ssm.py``.  Each cell
-exposes
+Counterpart of ``repro/models/ssm.py``.  Each block exposes
 
   * ``<kind>_forward(params, x, cfg, state=None, mask=None)``: the scan
     over a [B,S,D] sequence used by the full forward and by chunked
     prefill; returns (y, final_state);
   * ``<kind>_step(params, x_t, cfg, state)``: one decode token [B,1,D].
 
-States are f32 and fixed-size: mLSTM carries ``C`` [B,H,hd,hd], ``n``
-[B,H,hd] and ``m`` [B,H]; sLSTM carries ``c``, ``n``, ``h`` and ``m``,
-each [B,d].  The stabiliser ``m`` starts at 0.  ``mask`` ([B,S] bool,
-True = real token) makes a padded position an exact identity on the
-state: mLSTM gives it the gates log_i = -1e30, log_f = 0 (no insert, no
-decay), sLSTM carries the old state through, so a left- or right-padded
-chunk ends in the same state as the unpadded one.
+States are fixed-size.  Mamba carries ``h`` [B,inner,N] (f32) and the
+causal conv's history ``conv`` [B,W-1,inner] (the model's dtype).  mLSTM
+carries ``C`` [B,H,hd,hd], ``n`` [B,H,hd] and ``m`` [B,H]; sLSTM carries
+``c``, ``n``, ``h`` and ``m``, each [B,d]; all f32, the stabiliser ``m``
+starting at 0.  ``mask`` ([B,S] bool, True = real token) makes a padded
+position an exact identity on the state: Mamba zeroes its conv input and
+passes ``h`` through (``dA`` = 1, ``dBx`` = 0), mLSTM gives it the gates
+log_i = -1e30, log_f = 0 (no insert, no decay), sLSTM carries the old
+state through, so a left- or right-padded chunk ends in the same state
+as the unpadded one.
 
 Parameters keep the reference's ``[d_in, d_out]`` layout and are drawn
 from a seeded ``torch.Generator`` (a different stream from jax.random).
@@ -29,6 +32,165 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
+
+# ---------------------------------------------------------------------------
+# Mamba-style selective SSM (the hymba block's second branch)
+
+MAMBA_TIME_BLOCK = 128     # steps whose dA / dBx are built at once
+
+
+def mamba_inner_dim(cfg: ModelConfig) -> int:
+    return (cfg.ssm.expand if cfg.ssm else 2) * cfg.d_model
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    d = cfg.d_model
+    inner = mamba_inner_dim(cfg)
+    state = cfg.ssm.state_size
+    width = cfg.ssm.conv_width
+    dt_rank = max(1, math.ceil(d / 16))
+    in_proj = dense_init(gen, d, 2 * inner, dtype, device)       # x and z
+    conv_w = torch.randn((width, inner), generator=gen, device=device,
+                         dtype=torch.float32) / math.sqrt(width)
+    x_proj = dense_init(gen, inner, dt_rank + 2 * state, dtype, device)
+    dt_proj = dense_init(gen, dt_rank, inner, dtype, device)
+    out_proj = dense_init(gen, inner, d, dtype, device)
+    a = torch.arange(1, state + 1, dtype=torch.float32, device=device)
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros(inner, dtype=dtype, device=device),
+        "x_proj": x_proj,
+        "dt_proj": dt_proj,
+        "dt_bias": torch.full((inner,), -4.6, dtype=dtype,
+                              device=device),           # softplus ~ 0.01
+        "A_log": torch.log(a).repeat(inner, 1),         # f32 [inner, N]
+        "D": torch.ones(inner, dtype=torch.float32, device=device),
+        "out_proj": out_proj,
+    }
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    inner = mamba_inner_dim(cfg)
+    return {
+        "h": torch.zeros((batch, inner, cfg.ssm.state_size),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm.conv_width - 1, inner),
+                            dtype=dtype, device=device),
+    }
+
+
+def _mamba_conv_full(params, xi: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over [B,S,inner] (zero history), in f32 tap
+    by tap as the reference sums it, cast back to xi's dtype."""
+    w = params["conv_w"].float()                       # [W, inner]
+    W, S = w.shape[0], xi.shape[1]
+    xpad = F.pad(xi.float(), (0, 0, W - 1, 0))
+    out = torch.zeros_like(xpad[:, :S])
+    for i in range(W):
+        out = out + xpad[:, i:i + S] * w[i]
+    return (out + params["conv_b"].float()).to(xi.dtype)
+
+
+def _mamba_ssm_params(params, cfg: ModelConfig, xc: torch.Tensor):
+    """xc [..., inner] -> (dt [..., inner], B [..., N], C [..., N]), f32."""
+    state = cfg.ssm.state_size
+    proj = xc @ params["x_proj"]
+    dt_rank = proj.shape[-1] - 2 * state
+    dt, Bm, Cm = torch.split(proj, [dt_rank, state, state], dim=-1)
+    dt = F.softplus(dt @ params["dt_proj"] + params["dt_bias"])
+    return dt.float(), Bm.float(), Cm.float()
+
+
+def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
+                  state: Optional[dict] = None,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, dict]:
+    """x [B,S,D] -> (y [B,S,D], state {h, conv}).
+
+    The scan keeps the reference's per-step f32 order, ``h * dA + dBx``
+    then the ``C`` contraction, but builds ``dA`` and ``dBx`` for
+    ``MAMBA_TIME_BLOCK`` steps at once and contracts ``C`` once per
+    block: only the two-op recurrence runs per step.  A masked step has
+    ``dA`` = 1 and ``dBx`` = 0, so ``h`` passes through exactly.  The
+    conv history returned ends at the last valid column (a right-padded
+    suffix chunk keeps its real tail)."""
+    B, S, _ = x.shape
+    xz = x @ params["in_proj"]
+    xi, z = xz.chunk(2, dim=-1)
+    if mask is not None:
+        xi = torch.where(mask[..., None], xi, torch.zeros_like(xi))
+    Wm1 = cfg.ssm.conv_width - 1
+    if state is not None:
+        prev = state["conv"].to(xi.dtype)
+        xc = F.silu(_mamba_conv_full(params, torch.cat([prev, xi], 1)
+                                     )[:, prev.shape[1]:])
+        h = state["h"]
+    else:
+        prev = torch.zeros((B, Wm1, xi.shape[-1]), dtype=xi.dtype,
+                           device=xi.device)
+        xc = F.silu(_mamba_conv_full(params, xi))
+        h = torch.zeros((B, xi.shape[-1], cfg.ssm.state_size),
+                        dtype=torch.float32, device=x.device)
+    dt, Bm, Cm = _mamba_ssm_params(params, cfg, xc)
+    A = -torch.exp(params["A_log"])                    # [inner, N]
+    x32 = xc.float()
+    ys = []
+    for t0 in range(0, S, MAMBA_TIME_BLOCK):
+        sl = slice(t0, min(S, t0 + MAMBA_TIME_BLOCK))
+        # time-major [T, B, inner, N]
+        dt_b = dt[:, sl].transpose(0, 1)[..., None]
+        dA = torch.exp(dt_b * A)
+        dBx = dt_b * Bm[:, sl].transpose(0, 1)[:, :, None, :] \
+            * x32[:, sl].transpose(0, 1)[..., None]
+        if mask is not None:
+            m = mask[:, sl].transpose(0, 1)[:, :, None, None]
+            dA = torch.where(m, dA, torch.ones_like(dA))
+            dBx = torch.where(m, dBx, torch.zeros_like(dBx))
+        hs = torch.empty_like(dA)
+        for t in range(dA.shape[0]):
+            torch.mul(h, dA[t], out=hs[t])
+            hs[t].add_(dBx[t])
+            h = hs[t]
+        ys.append(torch.einsum("tbis,bts->bti", hs, Cm[:, sl]))
+    h = h.clone()
+    y = torch.cat(ys, dim=1) + params["D"] * x32
+    out = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
+    # conv history for decode continuation: always [B, W-1, inner]
+    ext = torch.cat([prev, xi], dim=1)                 # [B, Wm1+S, inner]
+    if mask is None:
+        conv = ext[:, ext.shape[1] - Wm1:]
+    else:
+        # the tail must end at the last *valid* column: right-pad
+        # columns are masked zeros, and slicing past them would wipe the
+        # real history (prefix-fork suffix chunks are right-padded)
+        cols = torch.arange(1, S + 1, device=x.device)[None]
+        end = torch.where(mask, cols, torch.zeros_like(cols)).amax(dim=1)
+        idx = end[:, None] + torch.arange(Wm1, device=x.device)[None]
+        conv = torch.gather(ext, 1, idx[..., None].expand(-1, -1,
+                                                           ext.shape[-1]))
+    return out, {"h": h, "conv": conv}
+
+
+def mamba_step(params, x_t: torch.Tensor, cfg: ModelConfig,
+               state: dict) -> Tuple[torch.Tensor, dict]:
+    """One decode token x_t [B,1,D]; state {h [B,inner,N], conv
+    [B,W-1,inner]}.  As in the reference, the conv output stays f32
+    through the SiLU and the state update (cast only for ``x_proj``)."""
+    xz = x_t @ params["in_proj"]
+    xi, z = xz.chunk(2, dim=-1)                         # [B,1,inner]
+    hist = torch.cat([state["conv"].to(xi.dtype), xi], dim=1)
+    w = params["conv_w"].float()
+    xc = F.silu((hist.float() * w[None]).sum(1)
+                + params["conv_b"].float())            # [B,inner] f32
+    dt, Bm, Cm = _mamba_ssm_params(params, cfg, xc.to(x_t.dtype))
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt[..., None] * A)
+    h = state["h"] * dA + dt[..., None] * Bm[:, None, :] * xc[..., None]
+    y = torch.einsum("bis,bs->bi", h, Cm) + params["D"] * xc
+    out = (y[:, None].to(x_t.dtype) * F.silu(z)) @ params["out_proj"]
+    return out, {"h": h, "conv": hist[:, 1:]}
+
 
 # ---------------------------------------------------------------------------
 # mLSTM (matrix memory)

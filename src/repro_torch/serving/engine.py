@@ -71,14 +71,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, torch_dtype
 from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixEntry
 from repro_torch.serving.sampling import (GenerationParams, sample_token,
                                          step_generator)
 
-_RECURRENT_KINDS = ("mlstm", "slstm")
+_RECURRENT_KINDS = ("mlstm", "slstm", "hymba")
 _MIN_BUCKET = 8
 
 
@@ -92,6 +92,7 @@ class ServeEngine:
                  batch_size: int = 8, pad_id: int = 0,
                  prefill_chunk: Optional[int] = None, paged: bool = False,
                  block_size: int = 16, num_blocks: Optional[int] = None,
+                 moe_capacity_factor: Optional[float] = None,
                  profile: Optional[str] = None, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -106,7 +107,10 @@ class ServeEngine:
         if emb_dev.type != self.device.type:
             raise ValueError(f"params live on {emb_dev}, engine on "
                              f"{self.device}")
-        self.model = Model(cfg)
+        cf = moe_capacity_factor
+        if cf is None and cfg.moe is not None:
+            cf = float(cfg.moe.num_experts)   # dropless at serving sizes
+        self.model = Model(cfg, moe_capacity_factor=cf or 1.25)
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -393,9 +397,11 @@ class ServeEngine:
         return logits.float()
 
     def _zero_row_state(self) -> cache_lib.RowState:
-        """Zeroed one-row recurrent state: what a plain refill and a
-        prefix prefill start from."""
-        return cache_lib.init_row_state(self.cfg, 1, self.device)
+        """Zeroed one-row state (recurrent cells, a hymba layer's Mamba
+        state and rolling K/V): what a plain refill and a prefix prefill
+        start from."""
+        return cache_lib.init_row_state(self.cfg, 1, self.max_len,
+                                        torch_dtype(self.cfg), self.device)
 
     @staticmethod
     def _copy_block(cache: cache_lib.PagedCache, src: int, dst: int) -> None:

@@ -139,13 +139,13 @@ def test_cache_writes_and_row_moves(bridged):
         v = rng.standard_normal((2, S, KV, hd)).astype(np.float32)
         name = "s0_attn"
         if S == 1:
-            cache_lib.write_token(c, 0, torch.from_numpy(k),
+            cache_lib.write_token(c.k[0], c.v[0], torch.from_numpy(k),
                                   torch.from_numpy(v), start)
             jc["slots"][name] = jcache.write_token(
                 jc["slots"][name], jnp.asarray(k), jnp.asarray(v),
                 jnp.int32(start), jnp.int32(0))
         else:
-            cache_lib.write_seq(c, 0, torch.from_numpy(k),
+            cache_lib.write_seq(c.k[0], c.v[0], torch.from_numpy(k),
                                 torch.from_numpy(v), start)
             jc["slots"][name] = jcache.write_seq(
                 jc["slots"][name], jnp.asarray(k), jnp.asarray(v),

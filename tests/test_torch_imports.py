@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it pulls in no JAX, no file of
 it imports the JAX package, entry points refuse to fall back to the CPU
-when no GPU is present, and its olmo-1b and xlstm-350m configs equal
-the reference's."""
+when no GPU is present, and its configs (olmo-1b, xlstm-350m, hymba-1.5b,
+qwen2-moe-a2.7b) equal the reference's."""
 import ast
 import dataclasses
 import pathlib
@@ -102,7 +102,8 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
         Model(xcfg).init_params(seed=0)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "xlstm-350m", "hymba-1.5b",
+                                  "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_olmo_config_matches_reference(smoke, arch):
     if smoke:
@@ -113,4 +114,5 @@ def test_olmo_config_matches_reference(smoke, arch):
         ours = port_configs.get_config(arch)
         theirs = get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-    assert port_configs.ARCH_IDS == ["olmo-1b", "xlstm-350m"]
+    assert port_configs.ARCH_IDS == ["olmo-1b", "xlstm-350m", "hymba-1.5b",
+                                     "qwen2-moe-a2.7b"]

@@ -4,9 +4,11 @@ coverage, archs, identifier), equal answers, contexts and sources from
 one slot when the port is handed the reference's weights through
 ``models=``, the README's and CI's commands through ``main`` with
 ``--device cpu`` (their traces pass ``tools/trace_report.py --check`` and
-the metrics self-probe prints OK), and every flag the port does not
-serve yet (``--ckpt``, ``--nodes 3``) raising ``NotImplementedError``
-before anything is built."""
+the metrics self-probe prints OK), four nodes (the reference's whole
+node cycle: olmo-1b, xlstm-350m, hymba-1.5b, qwen2-moe-a2.7b) built and
+serving a slot as the reference's do, and the flag the port does not
+serve yet (``--ckpt``) raising ``NotImplementedError`` before anything is
+built."""
 import pathlib
 import subprocess
 import sys
@@ -121,8 +123,7 @@ def test_main_runs_the_documented_commands(argv, tmp_path, capsys):
 
 @pytest.mark.parametrize("extra,item", [
     (["--paged", "--ckpt", "tiny.npz"], "A6"),
-    (["--paged", "--nodes", "3"], "A4"),
-], ids=["ckpt", "hymba"])
+], ids=["ckpt"])
 def test_unported_flags_raise_before_building(extra, item, monkeypatch):
     def boom(*args, **kw):
         raise AssertionError("build_cluster ran")
@@ -131,6 +132,36 @@ def test_unported_flags_raise_before_building(extra, item, monkeypatch):
     with pytest.raises(NotImplementedError, match=item):
         cluster_serve.main(["--smoke", "--device", "cpu"] + extra)
     assert not obs.metrics_enabled()
+
+
+def test_four_nodes_build_and_serve_like_reference():
+    """``--nodes 4`` builds the reference's whole node cycle (the archs
+    that raised before hymba-1.5b and qwen2-moe-a2.7b were ported) and,
+    handed the reference's weights, each node answers a slot as the
+    reference's does (the non-paged continuous queue, the default)."""
+    kw = dict(entities=3, batch=2, max_len=192, new_tokens=4, top_k=2,
+              seed=0)
+    cluster_serve.check_ported(4)
+    theirs = j_serve.build_cluster(4, **kw)
+    models = [(n.engine.cfg, bridge.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, n.engine.params), n.engine.cfg,
+        device="cpu")) for n in theirs[0]]
+    ours = cluster_serve.build_cluster(4, models=models, device="cpu", **kw)
+    assert [n.arch for n in ours[0]] == [n.arch for n in theirs[0]] \
+        == list(cluster_serve.NODE_ARCHS)
+    picks = [ours[1][i] for i in (0, 4, 4)]
+    out = {}
+    for port, (nodes, _, _, enc, _, _) in ((True, ours), (False, theirs)):
+        Q = Query if port else JQuery
+        res = []
+        for node in nodes:
+            qs = [Q(qa.domain, enc.encode([qa.question])[0], 40 + i,
+                    qa.question, qa.answer) for i, qa in enumerate(picks)]
+            res.append(([(r.qid, r.answer, r.quality, r.dropped)
+                         for r in node.process_slot(qs, 1e9)],
+                        node.last_contexts, node.last_sources))
+        out[port] = res
+    assert out[True] == out[False]
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):

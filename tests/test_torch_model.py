@@ -171,12 +171,12 @@ def test_block_allocator_contract():
 
 
 @pytest.mark.parametrize("change", [
-    {"layer_pattern": ("mlstm", "hymba")},
+    {"qk_norm": True},
     {"layer_pattern": ("local", "attn")},
-    {"sliding_window": 16},
+    {"use_mrope": True},
     {"is_encoder_decoder": True},
     {"pos_embedding": "learned"},
-], ids=["hymba", "local", "window", "enc-dec", "learned-pos"])
+], ids=["qk-norm", "local", "mrope", "enc-dec", "learned-pos"])
 def test_kinds_not_ported_raise(change):
     """What the port does not serve yet raises instead of running."""
     cfg = dataclasses.replace(port_smoke("xlstm-350m", max_d_model=32),

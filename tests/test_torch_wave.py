@@ -335,7 +335,7 @@ def test_serve_unported_arch_raises_before_building(monkeypatch):
 
     monkeypatch.setattr(serve, "Model", boom)
     with pytest.raises(NotImplementedError, match="A4"):
-        serve.main(["--arch", "hymba-1.5b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A4"):
         serve.main(["--smoke", "--device", "cpu"])     # gemma2-9b default
 
