@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases card,build,launcher
     python3 chip_smoke.py --phases card,build,serve
     python3 chip_smoke.py --phases card,build,archs
+    python3 chip_smoke.py --phases card,build,dense
     python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
@@ -139,6 +140,38 @@ Phases, in order:
            library call (rows under each kernel's "shapes"); the MoE
            layer's ms at decode (gathered weights) and at chunks
            (per-expert products)
+  dense    the dense decoders llama3-8b (GQA 32/8, rope theta 5e5),
+           gemma2-9b (serve.py's default: "local" layers of window 4096
+           beside global ones, softcaps 50 and 30, GeGLU, hd 256, GQA 16/8)
+           and nemotron-4-15b (LayerNorm, squared ReLU, GQA 48/8), one at
+           a time at published width (bf16, seed 0; ~18.5, 16 and 31 GB),
+           each freed before the next.  (a) serve.py with no --arch
+           (gemma2-9b), then --arch llama3-8b and nemotron-4-15b,
+           --prompt-len 256 and serve's other flags as above: waves, slot
+           utilization, tokens/s of generate and generate_reference and
+           their tokens equal.  (b) A gemma2 wave of 4200 and 4150 tokens
+           (bucket 4328), max_len 4352, 24 new tokens: the 4096-slot local
+           buffers wrap in prefill and again in decode, the global layers'
+           do not; generate == generate_reference, the first tokens equal
+           the full forward's argmax and most later ones the
+           teacher-forced forward's (the head applied only at the compared
+           columns).  (c) The paged continuous queue with the prefix cache
+           (batch 4, chunk 32, blocks of 16, max_len 768) over each arch:
+           7 requests, a 300-token context forked into refills; each
+           request's tokens against a solo generate_reference run on the
+           card (equal, or first parting where both tokens lie within
+           NEAR_TIE of the forward's top logit); its own launch counts
+           (paged decode and flash).  (d)
+           At the smoke configs (f32), card against CPU: greedy tokens of
+           generate, generate_reference, the wave queue, the non-paged
+           continuous queue, the paged queue with a forked prefix and the
+           paged standing queue equal, all three archs.  (e) the paged
+           decode kernel at (c)'s decodes (gemma2 q [4,16,256] with softcap
+           50, llama3 [4,32,128], nemotron [4,48,128]) and the flash kernel
+           at hd 256 (gemma2's paged chunk of 32, softcap 50; (b)'s local
+           decode over the wrapped buffer), each against its plain
+           version, timed beside it and SDPA (rows under each kernel's
+           "shapes")
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -229,6 +262,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import re
@@ -242,7 +276,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
-              "serve", "archs", "kernels", "parity", "sim")
+              "serve", "archs", "dense", "kernels", "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -1529,7 +1563,8 @@ def phase_launcher(torch, card) -> dict:
 SERVE_ARGS = ["--batch", "4", "--requests", "8", "--new-tokens", "16",
               "--max-len", "512", "--reference"]
 SERVE_PROMPT_LEN = {"olmo-1b": 256, "xlstm-350m": 64, "hymba-1.5b": 256,
-                    "qwen2-moe-a2.7b": 256}
+                    "qwen2-moe-a2.7b": 256, "gemma2-9b": 256,
+                    "llama3-8b": 256, "nemotron-4-15b": 256}
 # the reference's default cluster run (no --paged), and with --queue wave
 SERVE_CLI = ["--smoke", "--nodes", "2", "--slots", "3"]
 # the non-paged engine's three flash call shapes, in the kernels line
@@ -1544,11 +1579,13 @@ class FlashShapes:
     the calls: "prefill" (a wave's whole padded prompt, Sq = Sk > 1),
     "chunk" (a chunk over the row's whole buffer, 1 < Sq < Sk) and
     "decode" (Sq 1 over the whole buffer).  With ``heads`` set, only
-    calls with that many query heads count (one architecture's).  It
+    calls with that many query heads count (one architecture's); with
+    ``window`` set, only calls with that window (one layer kind's).  It
     adds no device work and no synchronisation to the calls it sees."""
 
-    def __init__(self, ops, heads=None):
+    def __init__(self, ops, heads=None, window=None):
         self.ops, self.orig, self.heads = ops, ops.flash_attention, heads
+        self.window = window
         self.best, self.calls = {}, dict.fromkeys(FLASH_SHAPES, 0)
 
     def install(self):
@@ -1559,7 +1596,8 @@ class FlashShapes:
             kind = "decode" if Sq == 1 else \
                 "prefill" if Sq == Sk else "chunk"
             kw = {"causal": causal, "window": window, "softcap": softcap}
-            if self.heads in (None, q.shape[2]):
+            if self.heads in (None, q.shape[2]) \
+                    and self.window in (None, window):
                 self.calls[kind] += 1
                 size = q.numel() * Sk
                 if kind not in self.best or size >= self.best[kind][0]:
@@ -1583,11 +1621,18 @@ def _count_launches(ops, fn):
     return out, dict(ops.launches)
 
 
-def _serve_cli(torch, ops, serve, arch, tag) -> dict:
+def _serve_cli(torch, ops, serve, arch, tag, default=False) -> dict:
     """(a) / (b): ``repro_torch.launch.serve`` at ``arch``'s published
-    width (bf16), launches counted around ``main``."""
-    argv = ["--arch", arch, "--prompt-len", str(SERVE_PROMPT_LEN[arch])] \
-        + SERVE_ARGS
+    width (bf16), launches counted around ``main``; with ``default`` the
+    command names no ``--arch`` (``arch`` must be serve.py's default).
+    ``generate`` and ``generate_reference`` must agree on the timed
+    wave."""
+    from repro_torch.configs import get_config
+    if default:
+        check(serve._parser().parse_args([]).arch == arch,
+              f"serve.py's default arch is not {arch}")
+    argv = ([] if default else ["--arch", arch]) \
+        + ["--prompt-len", str(SERVE_PROMPT_LEN[arch])] + SERVE_ARGS
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -1599,11 +1644,16 @@ def _serve_cli(torch, ops, serve, arch, tag) -> dict:
     check(got["tokens"] == 8 * 16, f"serve {arch}: {got['tokens']} tokens")
     check(all(len(o) == 16 for o in got["outputs"]), f"serve {arch}: an "
           "output is short")
-    check(launches["paged_decode_attention"] == 0,
-          f"serve {arch} launched paged_decode_attention")
-    from repro_torch.configs import get_config
+    check(got["loops_agree"], f"serve {arch}: generate and "
+          "generate_reference differ on the timed wave")
     cfg = get_config(arch)
     L = SERVE_PROMPT_LEN[arch]
+    # random weights can echo a prompt: how many outputs repeat one token
+    prompts = serve.make_prompts(8, L, cfg.vocab_size)
+    repeats = sum(len(set(o)) == 1 for o in got["outputs"])
+    echoes = sum(o[0] == p[-1] for o, p in zip(got["outputs"], prompts))
+    check(launches["paged_decode_attention"] == 0,
+          f"serve {arch} launched paged_decode_attention")
     exact = any(kind in ("mlstm", "slstm", "hymba")
                 for kind in cfg.layer_pattern)
     want = sorted({L // (1 + i % 3) for i in range(8)}) if exact \
@@ -1611,7 +1661,8 @@ def _serve_cli(torch, ops, serve, arch, tag) -> dict:
                      for i in range(8)})
     check(sorted(set(got["buckets"])) == want,
           f"serve {arch}: buckets {sorted(set(got['buckets']))}, want {want}")
-    attends = any(kind in ("attn", "hymba") for kind in cfg.layer_pattern)
+    attends = any(kind in ("attn", "local", "hymba")
+                  for kind in cfg.layer_pattern)
     check((launches["flash_attention"] > 0) == attends,
           f"serve {arch}: {launches['flash_attention']} flash_attention "
           f"launches ({arch} {'has' if attends else 'has no'} attention)")
@@ -1622,7 +1673,9 @@ def _serve_cli(torch, ops, serve, arch, tag) -> dict:
         f"first calls; one wave: generate {got['generate_tok_s']:.2f} "
         f"tokens/s ({got['generate_s'] * 1e3:.3f} ms), generate_reference "
         f"{got['reference_tok_s']:.2f} tokens/s "
-        f"({got['reference_s'] * 1e3:.3f} ms); launches "
+        f"({got['reference_s'] * 1e3:.3f} ms), their tokens equal; "
+        f"{repeats} of 8 outputs one repeated token, {echoes} starting with "
+        f"their prompt's last token; launches "
         f"{json.dumps(launches)} {tag}")
     return launches
 
@@ -2179,13 +2232,43 @@ def _flash_row(torch, F, ops, ref, args, kw, label, calls, card) -> dict:
     err, tol = max_err(got, want, valid), tolerance(want)
     log(f"  flash_attention [{label}] q{tuple(q.shape)} k{tuple(k.shape)} "
         f"window {kw.get('window')} {dtype_name(q)}: valid rows max|err| "
-        f"{err:.3e} (tol {tol:.3g}); {calls} calls on the archs paths")
+        f"{err:.3e} (tol {tol:.3g}); {calls} calls on its path")
     check(err <= tol, f"flash {label}: {err} > {tol}")
     t_k, t_p, t_l, bnd, by = _flash_times(torch, F, ops, ref, args, kw,
                                           label, card)
     return {"shape": label, "q": list(q.shape), "k": list(k.shape),
             "launches": calls, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
             "bound_ms": bnd, "bound_by": by, "library_ms": t_l}
+
+
+def _paged_row(torch, F, ops, ref, args, kw, label, calls, card) -> dict:
+    """The paged decode kernel held against its plain version on ``args``
+    (rows with no live slot, idle rows of the batch, are unspecified and
+    left out) and timed beside it and SDPA over the gathered K/V: a
+    kernels-line "shapes" row."""
+    got = ops.paged_decode_attention(*args, **kw)
+    want = ref.paged_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    q, kp, _, tb, fi, la = args
+    bs = kp.shape[1]
+    pos = torch.arange(tb.shape[1] * bs, device=DEV)[None]
+    live = ((pos >= fi[:, None]) & (pos <= la[:, None])
+            & (tb >= 0).repeat_interleave(bs, 1)).any(dim=1)
+    check(bool(live.any()), f"paged decode {label}: no row has a live slot")
+    err = max_err(got, want, live[:, None, None].expand_as(got))
+    tol = tolerance(want[live])
+    log(f"  paged_decode_attention [{label}] q{tuple(q.shape)} "
+        f"pool{tuple(kp.shape)} table{tuple(tb.shape)} softcap "
+        f"{kw.get('softcap')} {dtype_name(q)}, {int(live.sum())} rows with "
+        f"live slots: max|err| {err:.3e} (tol {tol:.3g}); {calls} calls on "
+        "the path")
+    check(err <= tol, f"paged decode {label}: {err} > {tol}")
+    t_k, t_p, t_l, bnd, by = _paged_times(torch, F, ops, ref, args, kw,
+                                          label, card)
+    return {"shape": label, "q": list(q.shape), "k": list(kp.shape),
+            "launches": calls, "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
+            "library_ms": t_l}
 
 
 def _wrapped_chunk(torch, gen, W=1024, C=16, B=4):
@@ -2244,33 +2327,10 @@ def archs_kernels(torch, ops, serve_shapes, wrap_shapes, moe_rec,
     rec.setdefault("flash_attention", {}).setdefault("shapes", []).extend(
         rows)
     _, args, kw = moe_rec.best["paged_decode_attention"]
-    got = ops.paged_decode_attention(*args, **kw)
-    want = ref.paged_attention_ref(*args, **kw)
-    torch.cuda.synchronize()
-    # a row with no live slot (an idle row of the batch) is unspecified
-    q, kp, _, tb, fi, la = args
-    bs = kp.shape[1]
-    pos = torch.arange(tb.shape[1] * bs, device=DEV)[None]
-    live = ((pos >= fi[:, None]) & (pos <= la[:, None])
-            & (tb >= 0).repeat_interleave(bs, 1)).any(dim=1)
-    check(bool(live.any()), "qwen2-moe paged decode: no row has a live slot")
-    err = max_err(got, want, live[:, None, None].expand_as(got))
-    tol = tolerance(want[live])
-    log(f"  paged_decode_attention [qwen2-moe node] q{tuple(q.shape)} "
-        f"pool{tuple(kp.shape)} table{tuple(tb.shape)}, "
-        f"{int(live.sum())} rows with live slots: max|err| {err:.3e} "
-        f"(tol {tol:.3g})")
-    check(err <= tol, f"paged decode qwen2-moe: {err} > {tol}")
-    t_k, t_p, t_l, bnd, by = _paged_times(torch, F, ops, ref, args, kw,
-                                          "qwen2-moe node", card)
     rec.setdefault("paged_decode_attention", {}).setdefault(
-        "shapes", []).append({
-            "shape": "qwen2-moe paged decode", "q": list(args[0].shape),
-            "k": list(args[1].shape),
-            "launches": moe_launches["paged_decode_attention"],
-            "max_abs_err": err,
-            "ms": t_k, "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
-            "library_ms": t_l})
+        "shapes", []).append(_paged_row(
+            torch, F, ops, ref, args, kw, "qwen2-moe paged decode",
+            moe_launches["paged_decode_attention"], card))
     cfg, params = ARCHS_MODELS["qwen2-moe-a2.7b"]
     p = params["blocks"][0]["moe"]
     E, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
@@ -2374,6 +2434,357 @@ def phase_archs(torch, card, rec: dict) -> dict:
         ARCHS_MODELS.pop(arch)
     torch.cuda.empty_cache()
     log(f"archs: launches on the paths {json.dumps(total)}")
+    return total
+
+
+# the dense decoders (ROADMAP A4), gemma2-9b first: serve.py's default
+DENSE_ARCHS = ("gemma2-9b", "llama3-8b", "nemotron-4-15b")
+# (b): a gemma2 wave whose 4096-slot local buffer wraps in prefill and
+# again in decode (the global layers' 4352-slot buffers do not)
+DENSE_WRAP_LENS, DENSE_WRAP_MAX_LEN, DENSE_WRAP_NEW = (4200, 4150), 4352, 24
+# (c): the paged continuous queue at published width, batch 4 (decode
+# reads q [4, H, hd]), chunks of 32, blocks of 16, the prefix cache on
+DENSE_QUEUE = dict(max_len=768, batch_size=4, prefill_chunk=32, paged=True,
+                   block_size=16)
+DENSE_NEW = 16
+# (c): where the queue's tokens first part from the solo run's, both
+# tokens must lie within this of the top logit of the full forward over
+# the common prefix (a near-tie): the two paths compute the same bf16
+# model with other kernels and another order of summation (chunks of 32
+# against one left-padded prefill, the paged kernel against flash at one
+# query), which moves a logit by ~1e-2 after 32-42 layers
+NEAR_TIE = 0.25
+
+
+def _features_logits(torch, model, params, toks, pos, cols):
+    """The full-sequence forward's logits at columns ``cols`` only (the
+    head over every column of a long wave would be [B, S, 256000] f32)."""
+    with torch.no_grad():
+        feats = model.forward(params, torch.as_tensor(toks, device=DEV),
+                              torch.as_tensor(pos, device=DEV),
+                              return_features=True)
+        return model.head(params, feats[:, cols]).float()
+
+
+def dense_wrap(torch, ops, cfg, params, tag):
+    """(b): gemma2-9b at published width over a 4352-slot cache: a wave of
+    4200- and 4150-token prompts (bucket 4328, left pads 128 and 178)
+    fills and wraps the local layers' 4096-slot buffers in prefill, and
+    24 decode steps wrap them again; the global layers' 4352-slot buffers
+    hold every position.  ``generate`` must equal ``generate_reference``;
+    the first token must equal the argmax of the full-sequence forward at
+    the last prompt position and most later ones the teacher-forced
+    forward's (the head applied at the 24 compared columns only).
+    Returns (the local decode calls' recorder, the launches of
+    ``generate``)."""
+    import numpy as np
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.serving import GenerationParams, ServeEngine
+    eng = ServeEngine(cfg, params, max_len=DENSE_WRAP_MAX_LEN, batch_size=2,
+                      device=DEV)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(5, cfg.vocab_size, n).tolist()
+               for n in DENSE_WRAP_LENS]
+    gp = GenerationParams(max_new_tokens=DENSE_WRAP_NEW)
+    L = eng.prompt_bucket(max(DENSE_WRAP_LENS), DENSE_WRAP_NEW)
+    W = cache_lib.rolling_len(cfg, DENSE_WRAP_MAX_LEN)
+    check(W == cfg.sliding_window < L and L + DENSE_WRAP_NEW - 1
+          <= DENSE_WRAP_MAX_LEN, f"gemma2 wrap: bucket {L}, buffer {W}")
+    shapes = FlashShapes(ops, heads=cfg.num_heads, window=cfg.sliding_window)
+    shapes.install()
+    try:
+        t0 = time.perf_counter()
+        out, launches = _count_launches(ops, lambda: eng.generate(prompts,
+                                                                  gen=gp))
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loop = eng.generate_reference(prompts, gen=gp)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+    finally:
+        shapes.remove()
+    check(out == loop, "gemma2 wrap: generate != generate_reference")
+    check(all(len(o) == DENSE_WRAP_NEW for o in out),
+          "gemma2 wrap: short output")
+    check(launches["flash_attention"] > 0
+          and launches["paged_decode_attention"] == 0,
+          f"gemma2 wrap: launches {launches}")
+    check(shapes.calls["decode"] > 0 and shapes.best["decode"][1][1].shape[1]
+          == W, "gemma2 wrap: no local decode over the 4096-slot buffer")
+    toks = np.zeros((2, L + DENSE_WRAP_NEW - 1), np.int32)
+    pos = np.full(toks.shape, -1, np.int32)
+    for i, (p, o) in enumerate(zip(prompts, out)):
+        toks[i, L - len(p):] = p + o[:-1]
+        pos[i, L - len(p):] = np.arange(L - len(p), toks.shape[1])
+    pred = _features_logits(torch, eng.model, params, toks, pos,
+                            slice(L - 1, None)).argmax(-1).cpu().numpy()
+    got = np.asarray(out)
+    check(bool((pred[:, 0] == got[:, 0]).all()),
+          f"gemma2 wrap: first tokens {got[:, 0]} != forward argmax "
+          f"{pred[:, 0]}")
+    agree = float((pred == got).mean())
+    check(agree >= 0.5, f"gemma2 wrap: only {agree:.3f} of the tokens agree "
+          "with the teacher-forced forward")
+    log(f"dense[wrap]: gemma2-9b prompts {list(DENSE_WRAP_LENS)} (bucket "
+        f"{L}; local buffers {W} slots, window {cfg.sliding_window}, "
+        f"positions up to {L + DENSE_WRAP_NEW - 1}: wrapped in prefill and "
+        f"decode; global buffers {DENSE_WRAP_MAX_LEN} slots), "
+        f"{DENSE_WRAP_NEW} new tokens: generate {t_gen:.3f} s == "
+        f"generate_reference {t_ref:.3f} s, first tokens = forward argmax, "
+        f"{agree:.4f} of {got.size} tokens = teacher-forced forward argmax; "
+        f"launches {json.dumps(launches)} {tag}")
+    return shapes, launches
+
+
+def _dense_stream(vocab):
+    """(c)'s requests: (prompt, budget, prefix_len).  A 300-token context
+    shared by four requests (the first opens the frame with it; the
+    refills miss once, then fork it), and plain requests of other
+    lengths, budgets from 6 to 16: rows finish apart, so later requests
+    are admitted by refill."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    ctx = rng.integers(5, vocab, 300).tolist()
+    q = [rng.integers(5, vocab, n).tolist() for n in (9, 14, 5, 21)]
+    plain = [rng.integers(5, vocab, n).tolist() for n in (40, 130, 77)]
+    return [(ctx + q[0], 16, 300), (plain[0], 6, 0), (plain[1], 12, 0),
+            (plain[2], 8, 0), (ctx + q[1], 16, 300), (ctx + q[2], 10, 300),
+            (ctx + q[3], 14, 300)]
+
+
+def dense_queue(torch, ops, cfg, params, tag) -> tuple:
+    """(c): the paged ``ContinuousQueue`` with the prefix cache at
+    published width (``DENSE_QUEUE``), each request held to a solo
+    ``generate_reference`` run on the card: equal, or first parting
+    where both tokens lie within ``NEAR_TIE`` of the top logit of the
+    forward over the common prefix.
+    Returns (the path's launches, its paged decode's costliest inputs,
+    its flash calls by shape)."""
+    import numpy as np
+    from repro_torch.serving import (ContinuousQueue, GenerationParams,
+                                     ServeEngine)
+    stream = _dense_stream(cfg.vocab_size)
+    eng = ServeEngine(cfg, params, device=DEV, **DENSE_QUEUE)
+    q = ContinuousQueue(eng, GenerationParams(max_new_tokens=DENSE_NEW))
+    rec = MainPathInputs(ops)        # the paged decode's costliest call
+    rec.install()
+    shapes = FlashShapes(ops, heads=cfg.num_heads)      # flash by shape
+    shapes.install()
+    try:
+        t0 = time.perf_counter()
+        res, launches = _count_launches(ops, lambda: (
+            [q.submit(p, b, prefix_len=pl) for p, b, pl in stream],
+            q.run()))
+        wall = time.perf_counter() - t0
+    finally:
+        shapes.remove()
+        rec.remove()
+    rids, outs = res
+    st = q.stats
+    check(st.refills >= 1 and st.prefix_hits >= 1 and st.cow_forks >= 1,
+          f"dense queue {cfg.name}: refills {st.refills}, prefix hits "
+          f"{st.prefix_hits}, forks {st.cow_forks}")
+    for name in ("paged_decode_attention", "flash_attention"):
+        check(launches[name] > 0, f"dense queue {cfg.name}: no {name}")
+    solo = ServeEngine(cfg, params, max_len=DENSE_QUEUE["max_len"],
+                       batch_size=1, device=DEV)
+    equal, parted = 0, []
+    for rid, (p, b, _) in zip(rids, stream):
+        ours = outs[rid]
+        want = solo.generate_reference([p], gen=GenerationParams(
+            max_new_tokens=b))[0]
+        check(len(ours) == b, f"dense queue {cfg.name}: {len(ours)} tokens "
+              f"for a budget of {b}")
+        if ours == want:
+            equal += 1
+            continue
+        # the first token where they part: both must lie within NEAR_TIE
+        # of the top logit of the full forward over the common prefix
+        t = next(i for i, (x, y) in enumerate(zip(ours, want)) if x != y)
+        seq = np.asarray([p + want[:t]], np.int32)
+        pos = np.arange(seq.shape[1], dtype=np.int32)[None]
+        lg = _features_logits(torch, solo.model, params, seq, pos,
+                              [seq.shape[1] - 1])[0, 0]
+        top = float(lg.max())
+        below = (top - float(lg[want[t]]), top - float(lg[ours[t]]))
+        parted.append((rid, t, round(below[0], 4), round(below[1], 4)))
+        check(max(below) <= NEAR_TIE, f"dense queue {cfg.name}: request "
+              f"{rid} parts from its solo run at token {t} ({ours[t]} "
+              f"against {want[t]}), {below[1]:.4f} and {below[0]:.4f} below "
+              "the forward's top logit")
+    log(f"dense[queue]: {cfg.name} paged queue ({len(stream)} requests, "
+        f"batch {DENSE_QUEUE['batch_size']}, chunk "
+        f"{DENSE_QUEUE['prefill_chunk']}) in {wall:.3f} s: {st.refills} "
+        f"refills, {st.prefix_hits} prefix hits, {st.cow_forks} "
+        f"copy-on-write forks; {equal} of {len(stream)} requests equal "
+        f"their solo generate_reference tokens, parted (request, token, "
+        f"the solo and the queue token's distance below the forward's top "
+        f"logit): {parted}; launches {json.dumps(launches)} {tag}")
+    return launches, rec, shapes
+
+
+def _standing_tokens(torch, cfg, params, dev):
+    """The smoke model's greedy tokens through a paged standing queue:
+    two slots, a request straddling the slot boundary mid-decode."""
+    from repro_torch.serving import (ContinuousQueue, GenerationParams,
+                                     ServeEngine)
+    eng = ServeEngine(cfg, params, max_len=96, batch_size=2, prefill_chunk=8,
+                      paged=True, block_size=16, device=dev)
+    q = ContinuousQueue(eng, GenerationParams(max_new_tokens=8),
+                        standing=True)
+    prompts = [[1, 2, 3, 4, 5, 6], [7, 8, 9], [11, 12, 13, 14],
+               [3, 1, 4, 1, 5], [9, 2, 6]]
+    budgets = [6, 2, 8, 4, 5]
+    rids = [q.submit(p, b) for p, b in zip(prompts[:2], budgets)]
+    q.run(wait_for=rids)
+    rids += [q.submit(p, b) for p, b in zip(prompts[2:4], budgets[2:4])]
+    q.run(wait_for=rids[3:])
+    straddled = rids[2] in q.unfinished()
+    rids.append(q.submit(prompts[4], budgets[4]))
+    q.run(wait_for=rids)
+    q.close()
+    return [q.result(r).tokens for r in rids], straddled
+
+
+def dense_parity(torch) -> None:
+    """(d): the smoke configs (f32, gemma2's window 16: its local buffer
+    wraps) on the card and on the CPU from the same weights: greedy
+    tokens of generate, generate_reference, the wave queue, the non-paged
+    continuous queue, the paged queue with a forked prefix and the paged
+    standing queue equal."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    rng = np.random.default_rng(0)
+    for arch in DENSE_ARCHS:
+        cfg = get_smoke_config(arch)
+        prompts = [rng.integers(5, cfg.vocab_size, n).tolist()
+                   for n in (37, 9, 20, 3, 64, 14)]
+        params_cpu = Model(cfg).init_params(seed=0, device="cpu")
+        params_gpu = _to_device(params_cpu, "cuda")
+        got = _serve_paths(torch, cfg, params_gpu, "cuda", prompts)
+        want = _serve_paths(torch, cfg, params_cpu, "cpu", prompts)
+        for key, fn in (("paged", _paged_fork_tokens),
+                        ("standing", _standing_tokens)):
+            got[key] = fn(torch, cfg, params_gpu, "cuda")
+            want[key] = fn(torch, cfg, params_cpu, "cpu")
+        check(got == want, f"dense parity {arch}: card and CPU differ:\n"
+              f"{got}\n{want}")
+        check(got["generate"] == got["generate_reference"],
+              f"dense parity {arch}: generate != generate_reference")
+        check(got["paged"][1] >= 2 and got["paged"][2] >= 1
+              and got["standing"][1],
+              f"dense parity {arch}: prefix hits / forks {got['paged'][1:]}"
+              f", straddled {got['standing'][1]}")
+        log(f"dense parity: {arch} smoke ({cfg.num_layers} layers d"
+            f"{cfg.d_model}, hd {cfg.resolved_head_dim}, window "
+            f"{cfg.sliding_window}, f32) greedy tokens of generate, "
+            f"generate_reference, the wave queue, the non-paged continuous "
+            f"queue ({got['refills']} refills), the paged queue "
+            f"({got['paged'][1]} prefix hits, {got['paged'][2]} "
+            f"copy-on-write forks) and the paged standing queue (a request "
+            f"straddling a slot) equal on card and CPU")
+
+
+def dense_kernels(torch, ops, wrap_shapes, queue_recs, queue_launches, rec,
+                  card) -> None:
+    """(e): the paged decode kernel at the three archs' queue decodes
+    (gemma2 q [4,16,256] with softcap 50, G 2; llama3 [4,32,128], G 4;
+    nemotron [4,48,128], G 6 on the GT-8 instance) and the flash kernel
+    at hd 256 (gemma2's paged chunk of 32 with softcap 50, and the local
+    decode at Sq 1 over (b)'s wrapped 4096-slot buffer), each against its
+    plain version, timed beside it and SDPA (no softcap form); their rows
+    join the kernels line's "shapes"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    want_q = {"gemma2-9b": [4, 16, 256], "llama3-8b": [4, 32, 128],
+              "nemotron-4-15b": [4, 48, 128]}
+    paged_rows = []
+    for arch in DENSE_ARCHS:
+        r = queue_recs[arch][0]
+        check("paged_decode_attention" in r.best,
+              f"{arch}: the queue's paged decode inputs were not recorded")
+        _, args, kw = r.best["paged_decode_attention"]
+        check(list(args[0].shape) == want_q[arch]
+              and args[1].shape[2] == 8, f"{arch} paged decode recorded at "
+              f"q{list(args[0].shape)} pool{list(args[1].shape)}")
+        check(kw.get("softcap") == (50.0 if arch == "gemma2-9b" else None),
+              f"{arch} paged decode softcap {kw.get('softcap')}")
+        paged_rows.append(_paged_row(
+            torch, F, ops, ref, args, kw, f"{arch} paged decode",
+            queue_launches[arch]["paged_decode_attention"], card))
+    rec.setdefault("paged_decode_attention", {}).setdefault(
+        "shapes", []).extend(paged_rows)
+    g = queue_recs["gemma2-9b"][1]
+    check("chunk" in g.best, "no gemma2 chunk was recorded")
+    _, args, kw = g.best["chunk"]
+    check(args[0].shape[1] == DENSE_QUEUE["prefill_chunk"]
+          and args[0].shape[3] == 256 and kw.get("softcap") == 50.0,
+          f"gemma2 chunk recorded at q{list(args[0].shape)} {kw}")
+    rows = [_flash_row(torch, F, ops, ref, args, kw,
+                       "gemma2 paged chunk of 32, hd 256", g.calls["chunk"],
+                       card)]
+    _, args, kw = wrap_shapes.best["decode"]
+    rows.append(_flash_row(torch, F, ops, ref, args, kw,
+                           "gemma2 local decode over a wrapped 4096 buffer",
+                           wrap_shapes.calls["decode"], card))
+    rec.setdefault("flash_attention", {}).setdefault("shapes", []).extend(
+        rows)
+
+
+def phase_dense(torch, card, rec: dict) -> dict:
+    """llama3-8b, gemma2-9b and nemotron-4-15b on the card, one model at a
+    time (bf16 at published width, freed before the next): (a) serve.py
+    with no --arch (gemma2-9b) and with each other arch; (b) a gemma2
+    wave that wraps its local buffers; (c) the paged queue with the
+    prefix cache against solo runs, each with its own launch counts; (d)
+    card-vs-CPU parity at the smoke configs; (e) the kernels at the
+    archs' shapes.  Returns the launches of (a)-(d) together."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    tag = f"[{card['smi']}]"
+    total = {}
+
+    def add(launches):
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+
+    def free():
+        # engines, queues and sessions hold the weights in reference
+        # cycles: collect them before the next model is drawn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    queue_recs, queue_launches = {}, {}
+    for arch in DENSE_ARCHS:
+        add(_serve_cli(torch, ops, serve, arch, tag,
+                       default=arch == "gemma2-9b"))
+        free()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = Model(cfg).init_params(seed=0, device=DEV)
+        torch.cuda.synchronize()
+        log(f"dense: {arch} {cfg.param_count() / 1e9:.2f}B params drawn in "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+            f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if arch == "gemma2-9b":
+            wrap_shapes, launches = dense_wrap(torch, ops, cfg, params, tag)
+            add(launches)
+        launches, *queue_recs[arch] = dense_queue(torch, ops, cfg, params,
+                                                  tag)
+        queue_launches[arch] = launches
+        add(launches)
+        del params        # the recorders keep only the pools they read
+        free()
+    dense_parity(torch)
+    dense_kernels(torch, ops, wrap_shapes, queue_recs, queue_launches, rec,
+                  card)
+    del queue_recs, wrap_shapes
+    free()
+    log(f"dense: launches on the paths {json.dumps(total)}")
     return total
 
 
@@ -4573,36 +4984,34 @@ def main(argv=None) -> int:
     try:
         t_all = time.perf_counter()
         card = phase_card(torch)
-        if "build" in phases:
-            phase_build()
-        if "slice" in phases:
-            launches = phase_slice(torch, card, captured, args.profile,
-                                   traced)
-        # a kernel's launches are its counts over every main path
-        if "cluster" in phases:
-            for name, n in phase_cluster(torch, card, captured).items():
-                launches[name] = launches.get(name, 0) + n
-        if "runtime" in phases:
-            for name, n in phase_runtime(torch, card).items():
-                launches[name] = launches.get(name, 0) + n
-        if "launcher" in phases:
-            for name, n in phase_launcher(torch, card).items():
-                launches[name] = launches.get(name, 0) + n
-        if "serve" in phases:
-            for name, n in phase_serve(torch, card, rec).items():
-                launches[name] = launches.get(name, 0) + n
-        if "archs" in phases:
-            for name, n in phase_archs(torch, card, rec).items():
-                launches[name] = launches.get(name, 0) + n
-        if "kernels" in phases:
-            phase_kernels(torch, card, captured, rec, traced)
-        if "parity" in phases:
-            phase_parity(torch)
-        # last: its torch.profiler session can leave later ones empty
-        if "sim" in phases:
-            phase_sim(torch, card)
+        steps = {
+            "build": phase_build,
+            "slice": lambda: phase_slice(torch, card, captured, args.profile,
+                                         traced),
+            "cluster": lambda: phase_cluster(torch, card, captured),
+            "runtime": lambda: phase_runtime(torch, card),
+            "launcher": lambda: phase_launcher(torch, card),
+            "serve": lambda: phase_serve(torch, card, rec),
+            "archs": lambda: phase_archs(torch, card, rec),
+            "dense": lambda: phase_dense(torch, card, rec),
+            "kernels": lambda: phase_kernels(torch, card, captured, rec,
+                                             traced),
+            "parity": lambda: phase_parity(torch),
+            # last: its torch.profiler session can leave later ones empty
+            "sim": lambda: phase_sim(torch, card),
+        }
+        seconds = {}
+        for name, step in steps.items():
+            if name not in phases:
+                continue
+            t0 = time.perf_counter()
+            # a kernel's launches are its counts over every main path
+            for kernel, n in (step() or {}).items():
+                launches[kernel] = launches.get(kernel, 0) + n
+            seconds[name] = round(time.perf_counter() - t0, 1)
         log(f"chip_smoke: phases {phases} passed in "
-            f"{time.perf_counter() - t_all:.1f} s")
+            f"{time.perf_counter() - t_all:.1f} s (seconds by phase "
+            f"{json.dumps(seconds)})")
     except Exception:   # noqa: BLE001  (report any phase failure, exit 1)
         traceback.print_exc()
         return 1

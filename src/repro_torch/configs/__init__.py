@@ -26,6 +26,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "xlstm-350m": "xlstm_350m",
     "hymba-1.5b": "hymba_1_5b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "llama3-8b": "llama3_8b",
+    "gemma2-9b": "gemma2_9b",
+    "nemotron-4-15b": "nemotron_4_15b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

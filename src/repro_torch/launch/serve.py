@@ -7,8 +7,11 @@ Counterpart of ``repro/launch/serve.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --batch 4 --requests 8 --prompt-len 256 --new-tokens 16 \\
         --max-len 512 --reference
-    ... --arch hymba-1.5b        # or qwen2-moe-a2.7b, xlstm-350m
+    ... --arch hymba-1.5b        # or qwen2-moe-a2.7b, xlstm-350m,
+                                 # llama3-8b, nemotron-4-15b
     ... --smoke --device cpu     # a tiny config on the plain PyTorch path
+
+Without ``--arch`` it serves gemma2-9b, the reference's default.
 
 Every flag of the reference is accepted, plus ``--device`` (``cuda`` by
 default).  Weights are drawn from seed 0 (``Model.init_params``), the
@@ -16,7 +19,8 @@ prompts from a seeded numpy generator: request i has ``prompt_len // (1 +
 i % 3)`` tokens, so the lengths straddle power-of-two buckets and the
 queue schedules across them.  ``--reference`` also times one wave of
 ``generate`` against the per-token host loop ``generate_reference`` on
-the same prompts (each warmed up once first).  An architecture the
+the same prompts (each warmed up once first) and reports whether their
+tokens agree.  An architecture the
 reference knows but the port does not serve yet raises
 ``NotImplementedError``, naming its ROADMAP item, before anything is
 built.
@@ -112,28 +116,30 @@ def main(argv=None) -> dict:
 
     if args.reference:
         wave = prompts[:args.batch]
-        t_new, t_ref = _time_loops(eng, wave, gen, device)
+        (t_new, t_ref), agree = _time_loops(eng, wave, gen, device)
         n = len(wave) * args.new_tokens
         print(f"generate {n / t_new:.1f} tok/s vs generate_reference "
-              f"{n / t_ref:.1f} tok/s -> {t_ref / t_new:.2f}x")
+              f"{n / t_ref:.1f} tok/s -> {t_ref / t_new:.2f}x; tokens "
+              f"{'agree' if agree else 'DIFFER'}")
         result.update(generate_tok_s=n / t_new, reference_tok_s=n / t_ref,
-                      generate_s=t_new, reference_s=t_ref)
+                      generate_s=t_new, reference_s=t_ref,
+                      loops_agree=agree)
     return result
 
 
 def _time_loops(eng: ServeEngine, wave, gen: GenerationParams, device):
     """Seconds of one ``generate`` and one ``generate_reference`` call on
-    ``wave``, both warmed up first."""
+    ``wave``, both warmed up first, and whether their tokens agree."""
     eng.generate(wave, gen=gen)
     eng.generate_reference(wave, gen=gen)
-    times = []
+    times, outs = [], []
     for fn in (eng.generate, eng.generate_reference):
         _sync(device)
         t0 = time.perf_counter()
-        fn(wave, gen=gen)
+        outs.append(fn(wave, gen=gen))
         _sync(device)
         times.append(time.perf_counter() - t0)
-    return times
+    return times, outs[0] == outs[1]
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """KV caches: the contiguous cache, the paged cache (block allocator,
 pool layout, scatter writes, gathers), and the per-row state beside
-either: recurrent state and the hymba layers' rolling K/V.
+either: recurrent state and the rolling K/V of the "local" and hymba
+layers.
 
-Counterpart of ``repro/models/cache.py`` for the "attn", "hymba",
-"mlstm" and "slstm" slot kinds (encoder state comes with a later slice).
+Counterpart of ``repro/models/cache.py`` for the "attn", "local",
+"hymba", "mlstm" and "slstm" slot kinds (encoder state comes with a later
+slice).
 
 Contiguous layout (``Cache``, the non-paged engine): per-row full K/V
 buffers ``[La, B, max_len, KV, hd]`` for the La "attn" layers, slot index
@@ -21,13 +23,14 @@ Layout (``PagedCache``): K/V pools ``[La, P, bs, KV, hd]`` for the La
 unallocated).  Row r's absolute position p lives in pool block
 ``block_tables[r, p // bs]`` at offset ``p % bs``.  Every other layer
 keeps per-row state ``state[layer]``, a dict of [B, ...] tensors: mLSTM
-``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m`` (f32), and a hymba
-layer its Mamba ``h`` (f32) and ``conv`` (model dtype) beside its K/V
-``k``/``v`` [B, Lw, KV, hd] in a rolling buffer of ``Lw = min(window,
-max_len)`` slots, where slot j holds the latest position p with p % Lw
-== j (``rolling_kv_positions``).  A hymba layer's K/V is not pooled in
-either cache: it is part of the row, so refills, forks and prefix
-entries copy it with the Mamba state.  A model without "attn" layers has
+``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m`` (f32), a "local"
+(sliding-window attention) layer its K/V ``k``/``v`` [B, Lw, KV, hd] in
+a rolling buffer of ``Lw = min(window, max_len)`` slots, where slot j
+holds the latest position p with p % Lw == j (``rolling_kv_positions``),
+and a hymba layer the same K/V beside its Mamba ``h`` (f32) and ``conv``
+(model dtype).  Rolling K/V is not pooled in either cache: it is part
+of the row, so refills, forks and prefix entries copy it with the rest
+of the row's state.  A model without "attn" layers has
 empty pools (La = 0): the block allocator, the block tables and the
 copy-on-write decisions run all the same.  The reference consumes
 donated caches inside compiled programs; here the pools are
@@ -92,7 +95,8 @@ def rolling_kv_positions(length, window: int, device=None) -> torch.Tensor:
 
 
 def rolling_len(cfg: ModelConfig, max_len: int) -> int:
-    """Slots of a hymba layer's rolling K/V buffer: min(window, max_len)."""
+    """Slots of a "local" or hymba layer's rolling K/V buffer:
+    min(window, max_len)."""
     return min(cfg.sliding_window or max_len, max_len)
 
 
@@ -174,21 +178,23 @@ def num_row_blocks(max_len: int, block_size: int) -> int:
 def init_row_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device) -> RowState:
     """Zeroed per-row state of every layer that is not "attn", batch
-    ``batch``: recurrent cells, and for a hymba layer its Mamba state and
-    its rolling K/V buffer (``rolling_len`` slots, ``dtype``).  A plain
-    refill starts from ``init_row_state(cfg, 1, max_len, dtype, dev)``."""
+    ``batch``: recurrent cells, a "local" layer's rolling K/V buffer
+    (``rolling_len`` slots, ``dtype``), and for a hymba layer the same
+    buffer beside its Mamba state.  A plain refill starts from
+    ``init_row_state(cfg, 1, max_len, dtype, dev)``."""
     out: RowState = {}
+    shape = (batch, rolling_len(cfg, max_len), cfg.num_kv_heads,
+             cfg.resolved_head_dim)
     for i in range(cfg.num_layers):
         kind = cfg.pattern_for_layer(i)
         if kind == "mlstm":
             out[i] = ssm.mlstm_init_state(cfg, batch, device)
         elif kind == "slstm":
             out[i] = ssm.slstm_init_state(cfg, batch, device)
-        elif kind == "hymba":
-            shape = (batch, rolling_len(cfg, max_len), cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
-            out[i] = dict(ssm.mamba_init_state(cfg, batch, dtype, device),
-                          k=torch.zeros(shape, dtype=dtype, device=device),
+        elif kind in ("local", "hymba"):
+            out[i] = {} if kind == "local" else \
+                ssm.mamba_init_state(cfg, batch, dtype, device)
+            out[i].update(k=torch.zeros(shape, dtype=dtype, device=device),
                           v=torch.zeros(shape, dtype=dtype, device=device))
     return out
 
@@ -235,8 +241,9 @@ class Cache:
 
 def paged_layers(cfg: ModelConfig) -> List[int]:
     """The layers whose K/V go through the pools (the reference's
-    ``paged_slot_names``): full attention only.  A hymba layer's rolling
-    K/V stays in its row's state, its live span already O(window)."""
+    ``paged_slot_names``): full attention only.  The rolling K/V of a
+    "local" or hymba layer stays in its row's state, its live span
+    already O(window)."""
     return [i for i in range(cfg.num_layers)
             if cfg.pattern_for_layer(i) == "attn"]
 
@@ -269,8 +276,8 @@ def _buffer_slots(L: int, start: int, S: int, device):
 def write_seq(k_buf: torch.Tensor, v_buf: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, start: int) -> None:
     """Write a [B,S,KV,hd] segment at shared position ``start`` into
-    [B,L,KV,hd] buffers (an "attn" layer's full ones or a hymba layer's
-    rolling ones), in place."""
+    [B,L,KV,hd] buffers (an "attn" layer's full ones or a "local" or
+    hymba layer's rolling ones), in place."""
     slots, seg = _buffer_slots(k_buf.shape[1], start, k.shape[1], k.device)
     k_buf[:, slots] = k[:, seg].to(k_buf.dtype)
     v_buf[:, slots] = v[:, seg].to(v_buf.dtype)

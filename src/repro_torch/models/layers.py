@@ -112,14 +112,18 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
 
 
 def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP sublayer.  GELU is the tanh form, as ``jax.nn.gelu``'s
+    default in the reference (the exact erf form differs by up to 4.7e-4
+    on [-6, 6])."""
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ params["wg"]) * (x @ params["wi"])
     elif cfg.mlp_type == "gelu_glu":
-        h = F.gelu(x @ params["wg"]) * (x @ params["wi"])
+        h = F.gelu(x @ params["wg"], approximate="tanh") \
+            * (x @ params["wi"])
     elif cfg.mlp_type == "relu2":
         h = torch.square(F.relu(x @ params["wi"]))
     elif cfg.mlp_type == "gelu":
-        h = F.gelu(x @ params["wi"])
+        h = F.gelu(x @ params["wi"], approximate="tanh")
     else:
         return torch.zeros_like(x)
     return h @ params["wo"]
@@ -162,21 +166,45 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            softcap=softcap)
 
 
+FLASH_BLOCK = 512   # the reference's largest query and key block
+
+
 def fill_pad_queries(attn: torch.Tensor, v: torch.Tensor,
-                     q_positions: torch.Tensor) -> torch.Tensor:
-    """``attn`` [B,Sq,H,hd] with the rows of pad queries (position < 0)
-    set to the mean of ``v`` [B,Sk,KV,hd] over its keys, each query head
-    reading its KV head.  That is what attention gives a query whose keys
-    are all masked in the plain version (a uniform softmax over every
-    key) and in the reference (the same, for a segment of at most 512
-    keys, its one block); the kernel leaves such rows unspecified.  Only
-    a layer that carries pad columns into later state needs them: a
-    hymba layer's Mamba branch, one layer on, absorbs every column of an
-    unmasked prefill."""
-    H, KV = attn.shape[2], v.shape[2]
-    mean = v.float().mean(dim=1).repeat_interleave(H // KV, dim=1)
-    pad = (q_positions < 0)[:, :, None, None]
-    return torch.where(pad, mean[:, None].to(attn.dtype), attn)
+                     positions: torch.Tensor) -> torch.Tensor:
+    """``attn`` [B,S,H,hd], a segment's self-attention (its queries and
+    keys at ``positions`` [B,S]), with the rows of pad queries (position
+    < 0) set to the reference's value for a query whose keys are all
+    masked.
+
+    The reference's blocked attention (blocks of ``min(512, S)`` queries
+    and keys, keys padded to a block multiple with zero V at position
+    -1) gives such a query a uniform softmax over every key slot of the
+    key blocks it visits: the sum of V over those blocks over their slot
+    count, each query head reading its KV head.  Its ``causal_skip``
+    leaves out key block j for query block i when the smallest position
+    of block j over the batch exceeds the largest of block i (query
+    columns padded with position 0).  Up to 512 keys this is the mean of
+    V over the keys, the plain version's value too; the kernel leaves
+    such rows unspecified.  Only a layer that carries pad columns into
+    later state needs them: a hymba layer's Mamba branch, one layer on,
+    absorbs every column of an unmasked prefill."""
+    B, S, H, hd = attn.shape
+    KV = v.shape[2]
+    blk = min(FLASH_BLOCK, S)
+    n = -(-S // blk)
+    q_max = F.pad(positions, (0, n * blk - S), value=0) \
+        .reshape(B, n, blk).amax(dim=(0, 2))
+    k_min = F.pad(positions, (0, n * blk - S), value=-1) \
+        .reshape(B, n, blk).amin(dim=(0, 2))
+    visit = (k_min[None, :] <= q_max[:, None]).float()       # [n_q, n_k]
+    v_sum = F.pad(v.float(), (0, 0, 0, 0, 0, n * blk - S)) \
+        .reshape(B, n, blk, KV, hd).sum(dim=2)               # [B,n,KV,hd]
+    fill = torch.einsum("ij,bjkd->bikd", visit, v_sum) \
+        / (visit.sum(dim=1).clamp(min=1) * blk)[None, :, None, None]
+    fill = fill.repeat_interleave(H // KV, dim=2) \
+        .repeat_interleave(blk, dim=1)[:, :S]
+    pad = (positions < 0)[:, :, None, None]
+    return torch.where(pad, fill.to(attn.dtype), attn)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,

@@ -1,15 +1,17 @@
 """Decoder on torch tensors, serving through a contiguous or a paged KV
 cache beside per-row state.
 
-Counterpart of the "attn", "hymba", "mlstm" and "slstm" paths of
-``repro/models/model.py``, with dense or MoE MLP sublayers
+Counterpart of the "attn", "local", "hymba", "mlstm" and "slstm" paths
+of ``repro/models/model.py``, with dense or MoE MLP sublayers
 (``models.moe``).  The reference stacks per-layer parameters by pattern
 slot and scans over cycles; here the parameters are a list of per-layer
 dicts and the stack is a Python loop that dispatches on the layer's kind
 (``cfg.pattern_for_layer``).  Recurrent layers (xLSTM cells,
-``models.ssm``) have no MLP sublayer.  A hymba layer runs sliding-window
-attention and a Mamba SSM on the same normed input, fuses them as
-``0.5 * (bn_a(attn) + bn_m(mamba))``, then its MLP sublayer.
+``models.ssm``) have no MLP sublayer.  An "attn" layer attends to every
+earlier position, a "local" layer (Gemma-2's) to the last
+``sliding_window`` ones.  A hymba layer runs sliding-window attention
+and a Mamba SSM on the same normed input, fuses them as ``0.5 *
+(bn_a(attn) + bn_m(mamba))``, then its MLP sublayer.
 
 Entry points (pure functions of the parameter dict, except that the
 cache's buffers or pools, per-row state and ``length`` are updated):
@@ -29,12 +31,13 @@ one shared absolute ``length``: chunk positions are per-row RELATIVE
 shared absolute ``length`` with slots left of ``first`` masked, or with
 ``relative=True`` relative like the chunks (continuous batching).  A
 ``PagedCache`` is always relative, with per-row lengths.  A recurrent
-layer treats a -1 chunk position as an identity step.  A hymba layer's
-K/V lives in its row's rolling buffer (``cache.state``) in either cache:
-a chunk reads the buffer, then writes it; a decode step writes the
-token, then reads with the window.  Layer kinds other than these four,
-encoder-decoder, qk-norm / M-RoPE and position embeddings other than
-RoPE or none raise ``NotImplementedError``.
+layer treats a -1 chunk position as an identity step.  The K/V of a
+"local" or hymba layer lives in its row's rolling buffer
+(``cache.state``) in either cache: a chunk reads the buffer, then
+writes it; a decode step writes the token, then reads with the window.
+Layer kinds other than these five, encoder-decoder, qk-norm / M-RoPE and
+position embeddings other than RoPE or none raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,7 +53,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.models import ssm
 
-KINDS = ("attn", "hymba", "mlstm", "slstm")
+KINDS = ("attn", "local", "hymba", "mlstm", "slstm")
+# kinds whose K/V is a per-row rolling buffer of the window
+ROLLING_KINDS = ("local", "hymba")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -70,8 +75,9 @@ class Model:
             unsupported.append(f"pos_embedding={cfg.pos_embedding}")
         if unsupported:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves full-attention, hymba, MoE "
-                f"and xLSTM layers only so far ({', '.join(unsupported)})")
+                f"{cfg.name}: the port serves full and sliding-window "
+                f"attention, hymba, MoE and xLSTM layers only so far "
+                f"({', '.join(unsupported)})")
         self.cfg = cfg
         # capacity factor of the MoE dispatch; float(num_experts) is
         # dropless (the serving engine's default)
@@ -80,7 +86,9 @@ class Model:
         # layer -> index into the K/V pools, for the "attn" layers
         self.pool_index = {i: j for j, i in
                            enumerate(cache_lib.paged_layers(cfg))}
-        self.has_hymba = "hymba" in self.kinds
+        # the layers with a rolling K/V buffer in their row's state
+        self.rolling = [i for i, kind in enumerate(self.kinds)
+                        if kind in ROLLING_KINDS]
 
     # ------------------------------------------------------------------ init
 
@@ -109,7 +117,8 @@ class Model:
                 blk["mamba"] = ssm.init_mamba(gen, cfg, dtype, dev)
                 blk["bn_a"] = L.init_norm(cfg, dtype, dev)   # branch norms
                 blk["bn_m"] = L.init_norm(cfg, dtype, dev)
-            if kind in ("attn", "hymba") and cfg.mlp_type != "none":
+            if kind in ("attn", "local", "hymba") \
+                    and cfg.mlp_type != "none":
                 blk["ln2"] = L.init_norm(cfg, dtype, dev)
                 if cfg.moe is not None:
                     blk["moe"] = moe.init_moe(gen, cfg, dtype, dev)
@@ -163,10 +172,16 @@ class Model:
                                self.cfg)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        return self.head(params, L.apply_norm(params["final_norm"], x,
+                                              self.cfg))
+
+    def head(self, params, feats: torch.Tensor) -> torch.Tensor:
+        """Logits of final-normed features (``forward(...,
+        return_features=True)``): the LM head (the embedding's transpose
+        when tied), then the final softcap in f32 if the config has one."""
         cfg = self.cfg
-        x = L.apply_norm(params["final_norm"], x, cfg)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = x @ head
+        logits = feats @ head
         if cfg.final_logit_softcap:
             logits = cfg.final_logit_softcap * torch.tanh(
                 logits.float() / cfg.final_logit_softcap)
@@ -213,26 +228,48 @@ class Model:
         new = None if st is None else dict(st, **mstate)
         return self._mlp(p, x), new
 
+    def _rolling(self, kind: str, p, x: torch.Tensor, st: Optional[dict],
+                 angles, attend, mask: Optional[torch.Tensor] = None,
+                 step: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
+        """A layer whose K/V is a rolling buffer in ``st``: a hymba layer
+        (``_hymba``), or a "local" one: windowed attention through
+        ``attend(q, k, v, st)`` (which reads and writes ``st``'s buffer),
+        then the MLP sublayer.  Returns (x, the layer's new state)."""
+        if kind == "hymba":
+            return self._hymba(p, x, st, angles, attend, mask, step)
+        h = L.apply_norm(p["ln1"], x, self.cfg)
+        q, k, v = L.qkv_project(p["attn"], h, self.cfg, angles)
+        x = x + L.attention_out(p["attn"], attend(q, k, v, st))
+        return self._mlp(p, x), st
+
     def _rolling_len(self, cache) -> int:
-        """Slots of the hymba layers' rolling K/V buffers in ``cache``."""
-        return cache.state[self.kinds.index("hymba")]["k"].shape[1]
+        """Slots of the rolling K/V buffers in ``cache``."""
+        return cache.state[self.rolling[0]]["k"].shape[1]
 
     # ---------------------------------------------------------------- public
 
     def forward(self, params, tokens: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor,
+                return_features: bool = False) -> torch.Tensor:
         """Full-sequence forward: tokens/positions [B,S] -> logits [B,S,V]
-        (recurrent layers start from zero state)."""
+        (recurrent layers start from zero state), or with
+        ``return_features`` the final-normed features [B,S,D], which
+        ``head`` turns into logits (at the columns a caller needs)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         angles = self._angles(positions)
+
+        def attend(q, k, v, st):
+            return self._attention(q, k, v, positions, positions)
+
+        def attend_fill(q, k, v, st):   # pad columns reach the Mamba branch
+            return L.fill_pad_queries(attend(q, k, v, st), v, positions)
+
         for kind, p in zip(self.kinds, params["blocks"]):
-            if kind == "hymba":
-                x, _ = self._hymba(
-                    p, x, None, angles,
-                    lambda q, k, v, st: L.fill_pad_queries(
-                        self._attention(q, k, v, positions, positions), v,
-                        positions))
+            if kind in ROLLING_KINDS:
+                x, _ = self._rolling(kind, p, x, None, angles,
+                                     attend_fill if kind == "hymba"
+                                     else attend)
                 continue
             h = L.apply_norm(p["ln1"], x, cfg)
             if kind != "attn":
@@ -243,6 +280,8 @@ class Model:
                                   softcap=cfg.attn_logit_softcap)
             x = x + L.attention_out(p["attn"], a)
             x = self._mlp(p, x)
+        if return_features:
+            return L.apply_norm(params["final_norm"], x, cfg)
         return self._logits(params, x)
 
     def prefill(self, params, tokens: torch.Tensor,
@@ -251,10 +290,10 @@ class Model:
         """Absorb a [B, S] prompt batch (absolute ``positions``, -1 at left
         pads) into a contiguous cache at its shared ``length``: causal
         attention over the batch itself, its K/V written to the buffers
-        (a hymba layer's rolling buffer keeps the last tokens it holds);
-        recurrent layers (the Mamba branch too) run over every column
-        from the cache's state, pads included (no pad mask, as in the
-        reference's prefill mode).  Advances ``cache.length`` by S;
+        (a "local" or hymba layer's rolling buffer keeps the last tokens
+        it holds); recurrent layers (the Mamba branch too) run over every
+        column from the cache's state, pads included (no pad mask, as in
+        the reference's prefill mode).  Advances ``cache.length`` by S;
         returns the last column's logits."""
         cfg = self.cfg
         S = tokens.shape[1]
@@ -265,13 +304,17 @@ class Model:
         def attend(q, k, v, st):
             a = self._attention(q, k, v, positions, positions)
             cache_lib.write_seq(st["k"], st["v"], k, v, start)
+            return a
+
+        def attend_fill(q, k, v, st):
             # the Mamba branch of the next layer absorbs the pad columns
-            return L.fill_pad_queries(a, v, positions)
+            return L.fill_pad_queries(attend(q, k, v, st), v, positions)
 
         for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
-            if kind == "hymba":
-                x, cache.state[i] = self._hymba(p, x, cache.state[i],
-                                                angles, attend)
+            if kind in ROLLING_KINDS:
+                x, cache.state[i] = self._rolling(
+                    kind, p, x, cache.state[i], angles,
+                    attend_fill if kind == "hymba" else attend)
                 continue
             h = L.apply_norm(p["ln1"], x, cfg)
             if kind != "attn":
@@ -301,12 +344,12 @@ class Model:
         scatters the chunk into the row's blocks; a contiguous ``Cache``
         reads its whole buffer (slots at or beyond the shared ``length``
         and before ``first`` are masked) and writes the chunk at
-        ``length``.  A hymba layer does the same over its row's rolling
-        buffer (read before the write: a chunk that wraps must not read
-        slots it has just overwritten), with the window; a row that
-        brings more tokens than the buffer holds keeps its last ones.  A
-        recurrent layer (and the Mamba branch) runs over the chunk from
-        the row's state, with an identity step at every pad.
+        ``length``.  A "local" or hymba layer does the same over its
+        row's rolling buffer (read before the write: a chunk that wraps
+        must not read slots it has just overwritten), with the window; a
+        row that brings more tokens than the buffer holds keeps its last
+        ones.  A recurrent layer (and the Mamba branch) runs over the
+        chunk from the row's state, with an identity step at every pad.
         ``positions`` are relative (-1 at pads, which write nowhere and
         leave the state alone).  Advances ``cache.length`` by C and
         returns the logits at ``last_col`` [B] (default: the last
@@ -317,7 +360,7 @@ class Model:
         first = cache.first
         start = cache.length
         pos32 = positions.to(torch.int32)
-        if paged and (self.pool_index or self.has_hymba):
+        if paged and (self.pool_index or self.rolling):
             abs_write = torch.where(positions >= 0,
                                     positions + first[:, None],
                                     torch.full_like(positions, -1))
@@ -334,7 +377,7 @@ class Model:
                 - first[:, None]
         if self.pool_index:
             kv_pos = torch.cat([past, pos32], dim=1)
-        if self.has_hymba:
+        if self.rolling:
             Lw = self._rolling_len(cache)
             if paged:
                 r_past = cache_lib.rolling_kv_positions(start[:, None], Lw)
@@ -357,9 +400,9 @@ class Model:
             return self._attention(q, k_all, v_all, positions, r_kv_pos)
 
         for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
-            if kind == "hymba":
-                x, cache.state[i] = self._hymba(p, x, cache.state[i],
-                                                angles, attend, mask)
+            if kind in ROLLING_KINDS:
+                x, cache.state[i] = self._rolling(kind, p, x, cache.state[i],
+                                                  angles, attend, mask)
                 continue
             h = L.apply_norm(p["ln1"], x, cfg)
             if kind != "attn":
@@ -403,16 +446,16 @@ class Model:
         ``length`` count as empty.  Positions are the absolute ``length``
         with slots left of ``first`` masked, or with ``relative`` the
         row's live count ``length - first`` (slots before ``first`` go
-        negative).  A hymba layer does the same over its rolling buffer
-        (slot ``length % Lw``, the window applied).
+        negative).  A "local" or hymba layer does the same over its
+        rolling buffer (slot ``length % Lw``, the window applied).
 
         ``PagedCache`` (always relative): each row writes at its own
         ``length`` (rows with ``active`` False write nowhere and keep
         their length), then attends through the first ``nb_cap``
         block-table columns with the paged decode kernel: slots ``first
-        <= pos <= length`` count.  A hymba layer's K/V is not pooled: the
-        row writes into its rolling buffer and reads it through the flash
-        kernel at one query.
+        <= pos <= length`` count.  The K/V of a "local" or hymba layer is
+        not pooled: the row writes into its rolling buffer and reads it
+        through the flash kernel at one query.
 
         A recurrent layer steps every row's state, as the reference does
         (a finished row's state is replaced when the row is refilled)."""
@@ -448,7 +491,7 @@ class Model:
                                           pos[:, 0], kv_pos,
                                           softcap=cfg.attn_logit_softcap)
 
-        if self.has_hymba:
+        if self.rolling:
             r_pos = frame(cache_lib.rolling_kv_positions(
                 length + 1, self._rolling_len(cache), token.device))
 
@@ -463,16 +506,17 @@ class Model:
 
     def _decode_layers(self, params, token, cache, pos, attend, attn, inc):
         """The decode layer loop shared by both caches: ``attend`` serves
-        the hymba layers (their rolling buffers), ``attn(j, q, k, v)`` the
-        "attn" layers (pool or buffer ``j``); recurrent cells step.
+        the "local" and hymba layers (their rolling buffers), ``attn(j,
+        q, k, v)`` the "attn" layers (pool or buffer ``j``); recurrent
+        cells step.
         Advances ``cache.length`` by ``inc``."""
         cfg = self.cfg
         x = self._embed(params, token)
         angles = self._angles(pos)
         for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
-            if kind == "hymba":
-                x, cache.state[i] = self._hymba(p, x, cache.state[i],
-                                                angles, attend, step=True)
+            if kind in ROLLING_KINDS:
+                x, cache.state[i] = self._rolling(kind, p, x, cache.state[i],
+                                                  angles, attend, step=True)
                 continue
             h = L.apply_norm(p["ln1"], x, cfg)
             if kind != "attn":
@@ -509,7 +553,7 @@ class Model:
                     first, start, softcap=cfg.attn_logit_softcap)
                 return a[:, None]
 
-        if self.has_hymba:
+        if self.rolling:
             r_pos = cache_lib.rolling_kv_positions(
                 (start + 1)[:, None], self._rolling_len(cache)) \
                 - first[:, None]

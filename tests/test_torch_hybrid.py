@@ -290,21 +290,26 @@ def check_state(cfg, state, jc):
                                        **STATE_TOL)
 
 
-def check_forward(cfg, jparams, params):
+def check_forward(cfg, jparams, params, tol=None):
+    """The full forward's logits within ``tol`` (default atol
+    LOGIT_TOL)."""
+    tol = tol or dict(atol=LOGIT_TOL, rtol=0)
     rng = np.random.default_rng(0)
     toks = rng.integers(5, VOCAB, (2, 24)).astype(np.int32)
     pos = np.broadcast_to(np.arange(24, dtype=np.int32), (2, 24)).copy()
     want, _ = JModel(cfg).forward(jparams, {"tokens": jnp.asarray(toks),
                                             "positions": jnp.asarray(pos)})
     got = Model(cfg).forward(params, _t(toks), _t(pos))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                               atol=LOGIT_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
 
 
-def check_prefill_decode(cfg, jparams, params, relative, kv_cap, steps):
+def check_prefill_decode(cfg, jparams, params, relative, kv_cap, steps,
+                         tol=None):
     """A left-padded batch prefilled at absolute positions, then decode
-    steps of seeded tokens (past the window on hymba): logits, pools and
-    per-row state against the reference's."""
+    steps of seeded tokens (past the window on hymba): logits (within
+    ``tol``, default atol LOGIT_TOL), pools and per-row state against the
+    reference's."""
+    tol = tol or dict(atol=LOGIT_TOL, rtol=0)
     model, jm = Model(cfg), JModel(cfg)
     rng = np.random.default_rng(2)
     B, L, max_len = 3, 20, 48
@@ -330,8 +335,7 @@ def check_prefill_decode(cfg, jparams, params, relative, kv_cap, steps):
         want.append(lg)
     assert c.length == int(jc["length"]) == L + steps
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=LOGIT_TOL,
-                                   rtol=0)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
     P = len(cfg.layer_pattern)
     for i, j in model.pool_index.items():
         slot = jc["slots"][f"s{i % P}_attn"]
@@ -342,10 +346,12 @@ def check_prefill_decode(cfg, jparams, params, relative, kv_cap, steps):
     check_state(cfg, c.state, jc)
 
 
-def check_paged(cfg, jparams, params, dec=12):
+def check_paged(cfg, jparams, params, dec=12, tol=None):
     """Paged chunked prefill of a 27-token and a right-padded 7-token row
     over non-contiguous block runs, then decode with row 1 frozen half
-    way: logits, per-row lengths and state against the reference's."""
+    way: logits (within ``tol``, default atol LOGIT_TOL), per-row lengths
+    and state against the reference's."""
+    tol = tol or dict(atol=LOGIT_TOL, rtol=0)
     model, jm = Model(cfg), JModel(cfg)
     B, C, bs, max_len, P, frame = 2, 8, 8, 64, 20, 32
     prompts = [[5 + (3 * i) % (VOCAB - 5) for i in range(27)],
@@ -376,8 +382,7 @@ def check_paged(cfg, jparams, params, dec=12):
                                     "last_col": jnp.asarray(last_col)}, jc)
         got = model.prefill_chunk(params, _t(chunk), _t(pos), tc,
                                   last_col=_t(last_col))
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                                   atol=LOGIT_TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
     # the right-padded row ends at its prompt (as a fork's suffix does)
     tc.length = _t(l_end)
     jc["length"] = jnp.asarray(l_end)
@@ -391,8 +396,7 @@ def check_paged(cfg, jparams, params, dec=12):
         got = model.decode_step(params, _t(tok), tc, nb_cap=8,
                                 active=_t(active))
         np.testing.assert_allclose(got.numpy()[active],
-                                   np.asarray(want)[active], rtol=0,
-                                   atol=LOGIT_TOL)
+                                   np.asarray(want)[active], **tol)
         tok = np.asarray(want).argmax(-1).astype(np.int32)[:, None]
     assert tc.length.tolist() == np.asarray(jc["length"]).tolist() \
         == [frame + dec, 7 + dec // 2]
@@ -451,6 +455,73 @@ def test_hymba_prefill_does_not_depend_on_dead_attention_rows(monkeypatch):
     for i, st in got_state.items():
         for n, a in st.items():
             assert torch.equal(a, want_state[i][n]), (i, n)
+
+
+@pytest.mark.parametrize("S,pads", [(300, (0, 40)), (600, (0, 60)),
+                                    (600, (20, 540)), (1100, (0, 700))])
+def test_fill_pad_queries_follows_the_reference_blocks(S, pads):
+    """A pad query's row is the reference's: a uniform softmax over the
+    key blocks of 512 its query block visits (``causal_skip`` drops a key
+    block whose smallest position over the batch exceeds the query
+    block's largest), zero V at the block padding.  At 1100 keys query
+    block 0 skips key block 1; at <= 512 keys it is the mean of V."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers
+    rng = np.random.default_rng(S + sum(pads))
+    B, H, KV, hd = 2, 4, 2, 8
+    first = np.asarray(pads, np.int32)
+    pos = np.where(np.arange(S)[None] >= first[:, None],
+                   np.arange(S)[None], -1).astype(np.int32)
+    q, k, v = (rng.standard_normal((B, S, h, hd)).astype(np.float32)
+               for h in (H, KV, KV))
+    want = np.asarray(jlayers.flash_attention(
+        *map(jnp.asarray, (q, k, v, pos, pos)), causal=True, window=16,
+        q_block=min(512, S), kv_block=min(512, S)))
+    plain = ops.flash_attention(_t(q), _t(k), _t(v), _t(pos), _t(pos),
+                                causal=True, window=16)
+    got = layers.fill_pad_queries(plain, _t(v), _t(pos)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    if S == 1100:        # the skip matters: not the mean over every key
+        mean = v.mean(axis=1)[:, None].repeat(2, axis=2)
+        assert np.abs(got[1, :512] - mean[1]).max() > 1e-3
+
+
+@pytest.mark.parametrize("lens", [(600, 540), (600, 60)])
+def test_hymba_long_left_padded_wave_matches_reference(lens):
+    """A left-padded ``generate`` wave of 600 tokens (max_len 704): the
+    prefill runs the reference's 512-query blocks, so a pad column's
+    attention row, which the next layer's Mamba branch absorbs, follows
+    them.  Tokens equal the reference's, and the state after a prefill
+    with 540 left pads is within atol 1e-6."""
+    cfg, jparams, params = bridged_pair(ARCH)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(5, VOCAB, n).tolist() for n in lens]
+    gp, jgp = GenerationParams(max_new_tokens=8), JGen(max_new_tokens=8)
+    eng = ServeEngine(cfg, params, max_len=704, batch_size=2, device="cpu")
+    jeng = JEngine(cfg, jparams, max_len=704, batch_size=2)
+    ours = eng.generate(prompts, gen=gp)
+    assert ours == eng.generate_reference(prompts, gen=gp) \
+        == jeng.generate(prompts, gen=jgp)
+    if lens[1] > 100:
+        return
+    toks = np.zeros((2, 600), np.int32)
+    first = np.array([0, 600 - lens[1]], np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, first[i]:] = p
+    pos = np.where(np.arange(600)[None] >= first[:, None],
+                   np.arange(600)[None], -1).astype(np.int32)
+    model, jm = Model(cfg), JModel(cfg)
+    c = model.init_cache(2, 704, "cpu")
+    c.first = _t(first)
+    jc = jm.init_cache(2, 704, jnp.float32)
+    jc["first"] = jnp.asarray(first)
+    model.prefill(params, _t(toks), _t(pos), c)
+    _, jc = jm.prefill(jparams, {"tokens": jnp.asarray(toks),
+                                 "positions": jnp.asarray(pos)}, jc)
+    slot = jc["slots"]["s0_hymba"]["mamba"]
+    for i, st in c.state.items():
+        np.testing.assert_allclose(st["h"].numpy(), np.asarray(slot["h"][i]),
+                                   atol=1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------- serving

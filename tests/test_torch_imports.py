@@ -103,7 +103,8 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "xlstm-350m", "hymba-1.5b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "llama3-8b",
+                                  "gemma2-9b", "nemotron-4-15b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_olmo_config_matches_reference(smoke, arch):
     if smoke:
@@ -115,4 +116,5 @@ def test_olmo_config_matches_reference(smoke, arch):
         theirs = get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert port_configs.ARCH_IDS == ["olmo-1b", "xlstm-350m", "hymba-1.5b",
-                                     "qwen2-moe-a2.7b"]
+                                     "qwen2-moe-a2.7b", "llama3-8b",
+                                     "gemma2-9b", "nemotron-4-15b"]

@@ -337,7 +337,8 @@ def test_serve_unported_arch_raises_before_building(monkeypatch):
     with pytest.raises(NotImplementedError, match="A4"):
         serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A4"):
-        serve.main(["--smoke", "--device", "cpu"])     # gemma2-9b default
+        serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device",
+                    "cpu"])
 
 
 @pytest.mark.parametrize("queue", ["wave", "continuous"])
