@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases card,build,serve
     python3 chip_smoke.py --phases card,build,archs
     python3 chip_smoke.py --phases card,build,dense
+    python3 chip_smoke.py --phases card,build,qwen
     python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
@@ -172,6 +173,32 @@ Phases, in order:
            decode over the wrapped buffer), each against its plain
            version, timed beside it and SDPA (rows under each kernel's
            "shapes")
+  qwen     qwen3-moe-30b-a3b (per-head RMS qk-norm, 128 experts top-8,
+           GQA 32/4) and qwen2-vl-72b (M-RoPE sections 16/24/24, 256
+           stub patch embeddings before the text, GQA 64/8), one model
+           at a time, each freed before the next.  (a) serve.py --arch
+           qwen3-moe-30b-a3b at published width (bf16, ~61 GB) with
+           --prompt-len 256 and serve's other flags as above, and
+           serve.py --arch qwen2-vl-72b --smoke; qwen3 at published width
+           again through dense's paged queue (c) against solo runs, and
+           its MoE layer timed at a decode of 2 and 4 rows and a chunk
+           of 32 by each route.  (b) qwen2-vl-72b at the deepest whole
+           number of its 80 layers that fits the card beside
+           VL_RESERVE_BYTES (32 on an H100 80GB): a prefill of 2 rows
+           of 256 patches + 40 tokens at t/h/w positions that differ
+           over the patches, then decode steps (the prefill's logits within NEAR_TIE of the
+           forward's, the h/w positions moving them by more, each greedy
+           token the teacher-forced forward's or a near-tie), then the
+           paged queue against solo runs.  Peak memory of each model.
+           (c) Card against CPU at the smoke configs (f32), qwen3 also at
+           128 experts top-8: every serving path's greedy tokens, and
+           qwen2-vl's forward, prefill and decode over an 8-patch prefix
+           at t/h/w positions within 1e-4.  (d) The paged decode kernel at
+           G 8 exactly (qwen3 q [4,32,128] over 4 KV heads, qwen2-vl
+           [4,64,128] over 8) and the flash kernel's Sq > 16 route at G 8,
+           hd 128 (qwen3's paged chunk of 32, qwen2-vl's 296-query vision
+           prefill), each against its plain version, timed beside it and
+           SDPA (rows under each kernel's "shapes")
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -262,6 +289,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -276,7 +304,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
-              "serve", "archs", "dense", "kernels", "parity", "sim")
+              "serve", "archs", "dense", "qwen", "kernels", "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -1564,7 +1592,8 @@ SERVE_ARGS = ["--batch", "4", "--requests", "8", "--new-tokens", "16",
               "--max-len", "512", "--reference"]
 SERVE_PROMPT_LEN = {"olmo-1b": 256, "xlstm-350m": 64, "hymba-1.5b": 256,
                     "qwen2-moe-a2.7b": 256, "gemma2-9b": 256,
-                    "llama3-8b": 256, "nemotron-4-15b": 256}
+                    "llama3-8b": 256, "nemotron-4-15b": 256,
+                    "qwen3-moe-30b-a3b": 256}
 # the reference's default cluster run (no --paged), and with --queue wave
 SERVE_CLI = ["--smoke", "--nodes", "2", "--slots", "3"]
 # the non-paged engine's three flash call shapes, in the kernels line
@@ -2300,7 +2329,6 @@ def archs_kernels(torch, ops, serve_shapes, wrap_shapes, moe_rec,
     Then the qwen2-moe MoE layer's time at decode and at a chunk."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.models import moe
     gen = torch.Generator(device=DEV)
     gen.manual_seed(11)
     W = 1024
@@ -2332,28 +2360,53 @@ def archs_kernels(torch, ops, serve_shapes, wrap_shapes, moe_rec,
             torch, F, ops, ref, args, kw, "qwen2-moe paged decode",
             moe_launches["paged_decode_attention"], card))
     cfg, params = ARCHS_MODELS["qwen2-moe-a2.7b"]
-    p = params["blocks"][0]["moe"]
+    moe_layer_times(torch, gen, cfg, params["blocks"][0]["moe"],
+                    ((4, 1, "decode (4 rows)"), (1, 32, "chunk of 32"),
+                     (4, 16, "4 rows x 16"), (4, 256, "wave of 4 x 256")),
+                    "qwen2-moe", card)
+
+
+# a gather of expert weights for a route comparison copies at most this
+MOE_GATHER_BYTES = 2.5e9
+
+
+def moe_layer_times(torch, gen, cfg, p, cases, label, card) -> None:
+    """One MoE layer (``p``, dropless as the engine runs it) timed at each
+    (B, S, what) of ``cases``, and its expert products alone by each
+    route on the same rows, each held to the per-expert products.  The
+    bound counts the bytes of the experts this run's routing reaches,
+    each read once, beside the sorted-rows route's bytes (it reads every
+    expert's weights)."""
+    from repro_torch.models import moe
     E, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
     cf = float(E)
-    for B, S, what in ((4, 1, "decode (4 rows)"), (1, 32, "chunk of 32"),
-                       (4, 16, "4 rows x 16"), (4, 256, "wave of 4 x 256")):
+    expert_bytes = sum(p[w][0].numel() * p[w].element_size()
+                       for w in ("wi", "wg", "wo"))
+    for B, S, what in cases:
         x = (torch.randn(B, S, cfg.d_model, generator=gen, device=DEV)
              * 0.5).to(p["router"].dtype)
         t = bench_ms(lambda: moe.apply_moe(p, x, cfg, cf), reps=10)
         n = B * S * k
         route = "gathered weights" if n <= moe.MOE_GATHER_MAX else \
             "one bmm a projection over the expert-sorted rows"
-        line = (f"  qwen2-moe MoE layer [{what}] x{tuple(x.shape)}: "
-                f"{t:.4f} ms ({route})")
         # the expert products alone, by each route on the same rows
         idx, _ = moe.route(p, x, k)
         keep = moe.capacity_keep(idx, E, moe.capacity(S, k, E, cf))
+        reached = int(idx.unique().numel())
+        bnd = bound_ms(reached * expert_bytes, 6 * n * expert_bytes
+                       / p["wi"].element_size() / 3, dtype_name(x))
+        line = (f"  {label} MoE layer [{what}] x{tuple(x.shape)}, top-{k} "
+                f"of {E}: {t:.4f} ms ({route}); {reached} experts reached, "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]}: "
+                f"{reached * expert_bytes / 1e9:.3f} GB of their weights; "
+                f"the sorted-rows route reads all {E}, "
+                f"{E * expert_bytes / 1e9:.3f} GB)")
         xa = x[:, :, None].expand(B, S, k, -1).reshape(n, -1)
         args = (p, xa, idx.reshape(n), keep.reshape(n))
         want = _experts_loop(*args)
         routes = {"sorted-rows bmm": lambda: moe._experts_grouped(*args),
                   "per-expert products": lambda: _experts_loop(*args)}
-        if n <= 128:        # a gather copies n x 17.3 MB of weights
+        if n * expert_bytes <= MOE_GATHER_BYTES:
             routes["gathered weights"] = \
                 lambda: moe._experts_gathered(*args[:3])
         parts = []
@@ -2435,6 +2488,14 @@ def phase_archs(torch, card, rec: dict) -> dict:
     torch.cuda.empty_cache()
     log(f"archs: launches on the paths {json.dumps(total)}")
     return total
+
+
+def free_models(torch) -> None:
+    """Release a model's weights before the next is drawn: engines,
+    queues and sessions hold them in reference cycles, so collect those
+    first."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # the dense decoders (ROADMAP A4), gemma2-9b first: serve.py's default
@@ -2654,36 +2715,43 @@ def dense_parity(torch) -> None:
     standing queue equal."""
     import numpy as np
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import Model
     rng = np.random.default_rng(0)
     for arch in DENSE_ARCHS:
-        cfg = get_smoke_config(arch)
-        prompts = [rng.integers(5, cfg.vocab_size, n).tolist()
-                   for n in (37, 9, 20, 3, 64, 14)]
-        params_cpu = Model(cfg).init_params(seed=0, device="cpu")
-        params_gpu = _to_device(params_cpu, "cuda")
-        got = _serve_paths(torch, cfg, params_gpu, "cuda", prompts)
-        want = _serve_paths(torch, cfg, params_cpu, "cpu", prompts)
-        for key, fn in (("paged", _paged_fork_tokens),
-                        ("standing", _standing_tokens)):
-            got[key] = fn(torch, cfg, params_gpu, "cuda")
-            want[key] = fn(torch, cfg, params_cpu, "cpu")
-        check(got == want, f"dense parity {arch}: card and CPU differ:\n"
-              f"{got}\n{want}")
-        check(got["generate"] == got["generate_reference"],
-              f"dense parity {arch}: generate != generate_reference")
-        check(got["paged"][1] >= 2 and got["paged"][2] >= 1
-              and got["standing"][1],
-              f"dense parity {arch}: prefix hits / forks {got['paged'][1:]}"
-              f", straddled {got['standing'][1]}")
-        log(f"dense parity: {arch} smoke ({cfg.num_layers} layers d"
-            f"{cfg.d_model}, hd {cfg.resolved_head_dim}, window "
-            f"{cfg.sliding_window}, f32) greedy tokens of generate, "
-            f"generate_reference, the wave queue, the non-paged continuous "
-            f"queue ({got['refills']} refills), the paged queue "
-            f"({got['paged'][1]} prefix hits, {got['paged'][2]} "
-            f"copy-on-write forks) and the paged standing queue (a request "
-            f"straddling a slot) equal on card and CPU")
+        smoke_parity(torch, get_smoke_config(arch), arch, "dense", rng)
+
+
+def smoke_parity(torch, cfg, label, phase, rng) -> None:
+    """The smoke model ``cfg`` (f32) on the card and on the CPU from the
+    same weights: greedy tokens of generate, generate_reference, the wave
+    queue, the non-paged continuous queue, the paged queue with a forked
+    prefix and the paged standing queue equal."""
+    from repro_torch.models import Model
+    prompts = [rng.integers(5, cfg.vocab_size, n).tolist()
+               for n in (37, 9, 20, 3, 64, 14)]
+    params_cpu = Model(cfg).init_params(seed=0, device="cpu")
+    params_gpu = _to_device(params_cpu, "cuda")
+    got = _serve_paths(torch, cfg, params_gpu, "cuda", prompts)
+    want = _serve_paths(torch, cfg, params_cpu, "cpu", prompts)
+    for key, fn in (("paged", _paged_fork_tokens),
+                    ("standing", _standing_tokens)):
+        got[key] = fn(torch, cfg, params_gpu, "cuda")
+        want[key] = fn(torch, cfg, params_cpu, "cpu")
+    check(got == want, f"{phase} parity {label}: card and CPU differ:\n"
+          f"{got}\n{want}")
+    check(got["generate"] == got["generate_reference"],
+          f"{phase} parity {label}: generate != generate_reference")
+    check(got["paged"][1] >= 2 and got["paged"][2] >= 1
+          and got["standing"][1],
+          f"{phase} parity {label}: prefix hits / forks {got['paged'][1:]}"
+          f", straddled {got['standing'][1]}")
+    log(f"{phase} parity: {label} smoke ({cfg.num_layers} layers d"
+        f"{cfg.d_model}, hd {cfg.resolved_head_dim}, window "
+        f"{cfg.sliding_window}, f32) greedy tokens of generate, "
+        f"generate_reference, the wave queue, the non-paged continuous "
+        f"queue ({got['refills']} refills), the paged queue "
+        f"({got['paged'][1]} prefix hits, {got['paged'][2]} "
+        f"copy-on-write forks) and the paged standing queue (a request "
+        f"straddling a slot) equal on card and CPU")
 
 
 def dense_kernels(torch, ops, wrap_shapes, queue_recs, queue_launches, rec,
@@ -2751,17 +2819,11 @@ def phase_dense(torch, card, rec: dict) -> dict:
         for name, c in launches.items():
             total[name] = total.get(name, 0) + c
 
-    def free():
-        # engines, queues and sessions hold the weights in reference
-        # cycles: collect them before the next model is drawn
-        gc.collect()
-        torch.cuda.empty_cache()
-
     queue_recs, queue_launches = {}, {}
     for arch in DENSE_ARCHS:
         add(_serve_cli(torch, ops, serve, arch, tag,
                        default=arch == "gemma2-9b"))
-        free()
+        free_models(torch)
         cfg = get_config(arch)
         t0 = time.perf_counter()
         params = Model(cfg).init_params(seed=0, device=DEV)
@@ -2778,13 +2840,321 @@ def phase_dense(torch, card, rec: dict) -> dict:
         queue_launches[arch] = launches
         add(launches)
         del params        # the recorders keep only the pools they read
-        free()
+        free_models(torch)
     dense_parity(torch)
     dense_kernels(torch, ops, wrap_shapes, queue_recs, queue_launches, rec,
                   card)
     del queue_recs, wrap_shapes
-    free()
+    free_models(torch)
     log(f"dense: launches on the paths {json.dumps(total)}")
+    return total
+
+
+# qwen3-moe-30b-a3b and qwen2-vl-72b (ROADMAP A4)
+QWEN3, QWEN_VL = "qwen3-moe-30b-a3b", "qwen2-vl-72b"
+# (b): qwen2-vl-72b's bf16 weights (~145 GB) do not fit one card; it runs
+# at the deepest whole number of layers that leaves this much of the
+# card beside its weights (the cache, activations, the allocator's
+# slack) and the f32 draw of its largest weight (the LM head)
+VL_RESERVE_BYTES = 16 * 2 ** 30
+VL_GRID = 16            # the stub frontend's 256 patches: a 16 x 16 image
+VL_TEXT = 40            # text tokens after the patches, each row
+VL_DECODE = 8           # greedy tokens after the prefill
+
+
+def _k8(cfg):
+    """qwen3's published routing, 128 experts top-8, on a smoke config."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=128, num_experts_per_tok=8))
+
+
+def vl_positions(torch, B, Nv, S, dev):
+    """M-RoPE's [3, B, Nv + S] t/h/w positions: t counts every column,
+    patch i sits at row i // VL_GRID and column i % VL_GRID of the image
+    (its h and w), text tokens have h = w = t."""
+    t = torch.arange(Nv + S, dtype=torch.int32)
+    h, w = t.clone(), t.clone()
+    h[:Nv], w[:Nv] = t[:Nv] // VL_GRID, t[:Nv] % VL_GRID
+    return torch.stack([t, h, w])[:, None].expand(3, B, Nv + S) \
+        .contiguous().to(dev)
+
+
+def vl_depth(torch, cfg) -> int:
+    """The deepest whole number of qwen2-vl layers whose bf16 weights, the
+    embedding and head, the head's f32 draw and ``VL_RESERVE_BYTES`` fit
+    the card's memory."""
+    one = dataclasses.replace(cfg, num_layers=1).param_count()
+    per_layer = dataclasses.replace(cfg, num_layers=2).param_count() - one
+    embed = one - per_layer                 # embedding + LM head
+    total = torch.cuda.get_device_properties(0).total_memory
+    # bf16 embedding and head (2 bytes a parameter), and the head's f32
+    # draw (4 bytes for each of its embed / 2 parameters)
+    return int((total - VL_RESERVE_BYTES - 4 * embed) // (2 * per_layer))
+
+
+def _draw(torch, cfg, what):
+    """``cfg``'s weights (seed 0) on the card, with the memory it took."""
+    from repro_torch.models import Model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg).init_params(seed=0, device=DEV)
+    torch.cuda.synchronize()
+    log(f"qwen: {what} {cfg.param_count() / 1e9:.2f}B params drawn in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return params
+
+
+def _serve_smoke(torch, ops, serve, arch, tag) -> dict:
+    """serve.py --arch ``arch`` --smoke on the card (f32, d 256), launches
+    counted around ``main``."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            got, launches = _count_launches(ops, lambda: serve.main(
+                ["--arch", arch, "--smoke"]))
+    finally:
+        sys.stdout.write(buf.getvalue())
+    check(got["tokens"] == 8 * 16 and all(len(o) == 16
+                                          for o in got["outputs"]),
+          f"serve {arch} --smoke: {got['tokens']} tokens")
+    check(launches["flash_attention"] > 0
+          and launches["paged_decode_attention"] == 0,
+          f"serve {arch} --smoke: launches {launches}")
+    log(f"qwen[serve]: serve.py --arch {arch} --smoke: {got['tokens']} "
+        f"tokens, {got['waves']} waves; launches {json.dumps(launches)} "
+        f"{tag}")
+    return launches
+
+
+def qwen_vision(torch, ops, cfg, params, tag):
+    """(b): qwen2-vl's stub frontend at published width: a prefill of 2
+    rows of 256 patch embeddings and VL_TEXT tokens at t/h/w positions
+    that differ over the patches, then greedy decode steps.  The prefill's
+    logits must agree with the full forward's at the last prompt column
+    within NEAR_TIE, the h/w positions must move them by more than that,
+    and each greedy token must equal the argmax of the teacher-forced
+    forward or part from it at a near-tie.  Returns (the path's flash
+    calls by shape, its launches)."""
+    import numpy as np
+    from repro_torch.models import Model
+    model = Model(cfg)
+    B, Nv, S = 2, cfg.num_vision_tokens, VL_TEXT
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    dt = params["embed"].dtype
+    vis = (torch.randn(B, Nv, cfg.d_model, generator=gen, device=DEV)
+           * 0.02).to(dt)          # patch embeddings at the tokens' scale
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        5, cfg.vocab_size, (B, S)), dtype=torch.int32, device=DEV)
+    pos = vl_positions(torch, B, Nv, S, DEV)
+    cache = model.init_cache(B, Nv + S + VL_DECODE, DEV)
+
+    def run():
+        with torch.no_grad():
+            first = model.prefill(params, toks, pos, cache,
+                                  vision_embeds=vis)
+            out = [first.argmax(-1)]
+            for _ in range(VL_DECODE - 1):
+                out.append(model.decode_step(
+                    params, out[-1][:, None].to(torch.int32),
+                    cache).argmax(-1))
+            return first.float(), torch.stack(out, 1)
+
+    shapes = FlashShapes(ops, heads=cfg.num_heads)
+    shapes.install()
+    try:
+        t0 = time.perf_counter()
+        (first, out), launches = _count_launches(ops, run)
+        wall = time.perf_counter() - t0
+    finally:
+        shapes.remove()
+    check(cache.length == Nv + S + VL_DECODE - 1,
+          f"qwen2-vl vision: cache length {cache.length}")
+    check(bool(torch.isfinite(first).all()), "qwen2-vl vision: non-finite")
+    check(launches["flash_attention"] > 0
+          and shapes.best["prefill"][1][0].shape[1] == Nv + S,
+          f"qwen2-vl vision: launches {launches}")
+    full = torch.cat([toks, out[:, :-1].to(torch.int32)], 1)
+    with torch.no_grad():
+        feats = model.forward(params, full, vl_positions(
+            torch, B, Nv, full.shape[1], DEV), return_features=True,
+            vision_embeds=vis)
+        lg = model.head(params, feats[:, Nv + S - 1:]).float()
+        flat = model.forward(params, toks, pos[0], return_features=True,
+                             vision_embeds=vis)
+        lg_flat = model.head(params, flat[:, -1]).float()
+    err = max_err(first, lg[:, 0])
+    moved = max_err(lg_flat, lg[:, 0])
+    check(err <= NEAR_TIE, f"qwen2-vl vision: prefill logits {err} from "
+          "the forward's")
+    check(moved > NEAR_TIE, f"qwen2-vl vision: the h/w positions moved "
+          f"the logits by {moved} only")
+    pred = lg.argmax(-1)
+    parted = []
+    for b, t in zip(*torch.nonzero(pred != out, as_tuple=True)):
+        row = lg[b, t]
+        below = (float(row.max() - row[pred[b, t]]),
+                 float(row.max() - row[out[b, t]]))
+        parted.append((int(b), int(t), round(below[1], 4)))
+        check(max(below) <= NEAR_TIE, f"qwen2-vl vision: row {int(b)} token "
+              f"{int(t)} is {below[1]:.4f} below the forward's top logit")
+    log(f"qwen[vision]: qwen2-vl-72b ({cfg.num_layers} of 80 layers) "
+        f"prefill of {B} rows x ({Nv} patches + {S} tokens) at t/h/w "
+        f"positions, {VL_DECODE - 1} decode steps in {wall:.3f} s: prefill "
+        f"logits {err:.4f} from the forward's (max |diff|), the forward "
+        f"at t positions only {moved:.4f} from them; {len(parted)} of "
+        f"{out.numel()} greedy tokens part from the teacher-forced "
+        f"forward's argmax, each a near-tie (row, token, distance below "
+        f"the top logit): {parted}; launches {json.dumps(launches)} {tag}")
+    return shapes, launches
+
+
+def qwen_parity(torch) -> None:
+    """(c): both smoke configs and qwen3's at 128 experts top-8 (f32) on
+    the card and on the CPU from the same weights: every serving path's
+    greedy tokens (``smoke_parity``); then qwen2-vl's forward over an
+    8-patch prefix at t/h/w positions, and its prefill + 3 decode
+    steps, within 1e-4 of the CPU's logits."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    rng = np.random.default_rng(0)
+    vl = get_smoke_config(QWEN_VL)
+    for label, cfg in ((QWEN3, get_smoke_config(QWEN3)),
+                       (f"{QWEN3} top-8 of 128", _k8(get_smoke_config(QWEN3))),
+                       (QWEN_VL, vl)):
+        smoke_parity(torch, cfg, label, "qwen", rng)
+    params_cpu = Model(vl).init_params(seed=0, device="cpu")
+    B, Nv, S = 2, vl.num_vision_tokens, 12
+    gen = torch.Generator().manual_seed(4)
+    vis = torch.randn(B, Nv, vl.d_model, generator=gen)
+    toks = torch.as_tensor(rng.integers(5, vl.vocab_size, (B, S)),
+                           dtype=torch.int32)
+    steps = torch.as_tensor(rng.integers(5, vl.vocab_size, (3, B, 1)),
+                            dtype=torch.int32)
+
+    def logits(params, dev):
+        model = Model(vl)
+        pos = vl_positions(torch, B, Nv, S, dev)
+        out = [model.forward(params, toks.to(dev), pos,
+                             vision_embeds=vis.to(dev))]
+        cache = model.init_cache(B, Nv + S + 3, dev)
+        out.append(model.prefill(params, toks.to(dev), pos, cache,
+                                 vision_embeds=vis.to(dev)))
+        out += [model.decode_step(params, t.to(dev), cache) for t in steps]
+        return [o.cpu() for o in out]
+
+    got = logits(_to_device(params_cpu, DEV), DEV)
+    want = logits(params_cpu, "cpu")
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    check(err <= 1e-4, f"qwen parity: qwen2-vl vision logits {err} apart")
+    log(f"qwen parity: qwen2-vl smoke forward over {Nv} patches + {S} "
+        f"tokens at t/h/w positions, prefill + 3 decode steps: card and "
+        f"CPU logits within {err:.2e} (tol 1e-4)")
+
+
+def qwen_kernels(torch, ops, q3, vl, vision_shapes, rec, card) -> None:
+    """(d): the paged decode kernel at G 8 exactly (qwen3 q [4,32,128] over
+    4 KV heads, qwen2-vl [4,64,128] over 8, from each arch's queue) and
+    the flash kernel's Sq > 16 route at G 8, hd 128 (qwen3's paged chunk,
+    qwen2-vl's vision-prefix prefill), each against its plain version,
+    timed beside it and SDPA; the rows join the kernels line's
+    "shapes"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    paged_rows, flash_rows = [], []
+    for arch, (launches, r, shapes), want in ((QWEN3, q3, [4, 32, 128]),
+                                              (QWEN_VL, vl, [4, 64, 128])):
+        check("paged_decode_attention" in r.best,
+              f"{arch}: the queue's paged decode inputs were not recorded")
+        _, args, kw = r.best["paged_decode_attention"]
+        check(list(args[0].shape) == want and want[1] // args[1].shape[2]
+              == 8, f"{arch} paged decode recorded at "
+              f"q{list(args[0].shape)} pool{list(args[1].shape)}")
+        paged_rows.append(_paged_row(
+            torch, F, ops, ref, args, kw, f"{arch} paged decode (G 8)",
+            launches["paged_decode_attention"], card))
+        if arch == QWEN3:
+            check("chunk" in shapes.best, "no qwen3 chunk was recorded")
+            _, args, kw = shapes.best["chunk"]
+            check(args[0].shape[1] == DENSE_QUEUE["prefill_chunk"]
+                  and args[0].shape[2] // args[1].shape[2] == 8,
+                  f"qwen3 chunk recorded at q{list(args[0].shape)}")
+            flash_rows.append(_flash_row(
+                torch, F, ops, ref, args, kw, "qwen3 paged chunk of 32 (G 8)",
+                shapes.calls["chunk"], card))
+    _, args, kw = vision_shapes.best["prefill"]
+    flash_rows.append(_flash_row(
+        torch, F, ops, ref, args, kw,
+        "qwen2-vl prefill, 256 patches + 40 tokens (G 8)",
+        vision_shapes.calls["prefill"], card))
+    rec.setdefault("paged_decode_attention", {}).setdefault(
+        "shapes", []).extend(paged_rows)
+    rec.setdefault("flash_attention", {}).setdefault("shapes", []).extend(
+        flash_rows)
+
+
+def phase_qwen(torch, card, rec: dict) -> dict:
+    """qwen3-moe-30b-a3b (qk-norm, 128 experts top-8) and qwen2-vl-72b
+    (M-RoPE, the stub vision prefix) on the card, one model at a time,
+    each freed before the next: (a) serve.py at qwen3's published width
+    and qwen2-vl --smoke; qwen3's paged queue against solo runs and its
+    MoE layer's time; (b) qwen2-vl at a reduced depth: the vision prefill
+    and decode, then the paged queue against solo runs; (c) card-vs-CPU
+    parity at the smoke configs; (d) the kernels at the archs' shapes.
+    Returns the launches of (a)-(c)'s paths together."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    tag = f"[{card['smi']}]"
+    total = {}
+
+    def add(launches):
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+
+    torch.cuda.reset_peak_memory_stats()
+    add(_serve_cli(torch, ops, serve, QWEN3, tag))
+    log(f"qwen: serve.py --arch {QWEN3} peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    free_models(torch)
+    add(_serve_smoke(torch, ops, serve, QWEN_VL, tag))
+    free_models(torch)
+    cfg = get_config(QWEN3)
+    params = _draw(torch, cfg, QWEN3)
+    q3 = dense_queue(torch, ops, cfg, params, tag)
+    add(q3[0])
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(12)
+    moe_layer_times(torch, gen, cfg, params["blocks"][0]["moe"],
+                    ((2, 1, "decode (2 rows)"), (4, 1, "decode (4 rows)"),
+                     (1, 32, "chunk of 32")), QWEN3, card)
+    log(f"qwen: {QWEN3} peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB over its queue and MoE timing")
+    del params
+    free_models(torch)
+    depth = vl_depth(torch, get_config(QWEN_VL))
+    vl_cfg = dataclasses.replace(get_config(QWEN_VL), num_layers=depth)
+    log(f"qwen: {QWEN_VL} reduced to {depth} of 80 layers (bf16 weights "
+        f"~{vl_cfg.param_count() * 2 / 1e9:.1f} GB on a "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f} "
+        f"GiB card, {VL_RESERVE_BYTES / 2 ** 30:.0f} GiB reserved)")
+    params = _draw(torch, vl_cfg, f"{QWEN_VL} at {depth} layers")
+    vision_shapes, launches = qwen_vision(torch, ops, vl_cfg, params, tag)
+    add(launches)
+    vl = dense_queue(torch, ops, vl_cfg, params, tag)
+    add(vl[0])
+    log(f"qwen: {QWEN_VL} at {depth} layers peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del params
+    free_models(torch)
+    qwen_parity(torch)
+    qwen_kernels(torch, ops, q3, vl, vision_shapes, rec, card)
+    del q3, vl, vision_shapes
+    free_models(torch)
+    log(f"qwen: launches on the paths {json.dumps(total)}")
     return total
 
 
@@ -4994,6 +5364,7 @@ def main(argv=None) -> int:
             "serve": lambda: phase_serve(torch, card, rec),
             "archs": lambda: phase_archs(torch, card, rec),
             "dense": lambda: phase_dense(torch, card, rec),
+            "qwen": lambda: phase_qwen(torch, card, rec),
             "kernels": lambda: phase_kernels(torch, card, captured, rec,
                                              traced),
             "parity": lambda: phase_parity(torch),

@@ -29,6 +29,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "llama3-8b": "llama3_8b",
     "gemma2-9b": "gemma2_9b",
     "nemotron-4-15b": "nemotron_4_15b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

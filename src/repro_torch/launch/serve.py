@@ -8,7 +8,8 @@ Counterpart of ``repro/launch/serve.py``.
         --batch 4 --requests 8 --prompt-len 256 --new-tokens 16 \\
         --max-len 512 --reference
     ... --arch hymba-1.5b        # or qwen2-moe-a2.7b, xlstm-350m,
-                                 # llama3-8b, nemotron-4-15b
+                                 # llama3-8b, nemotron-4-15b,
+                                 # qwen3-moe-30b-a3b, qwen2-vl-72b
     ... --smoke --device cpu     # a tiny config on the plain PyTorch path
 
 Without ``--arch`` it serves gemma2-9b, the reference's default.

@@ -10,7 +10,7 @@ the non-paged decode (``decode_attention``) included.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,11 +76,19 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exponent)
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> torch.Tensor:
-    """Angles [B, S, head_dim/2] from positions [B, S]."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """Angles [B, S, head_dim/2] from positions [B, S], or from M-RoPE's
+    (Qwen2-VL) t/h/w positions [3, B, S]: frequency section s of
+    ``mrope_sections`` (they sum to head_dim/2) takes its angle from axis
+    s.  With equal t/h/w positions that is RoPE of the 2-D positions."""
     inv = rope_frequencies(head_dim, theta, positions.device)
-    return positions[..., None].float() * inv
+    ang = positions[..., None].float() * inv
+    if positions.dim() == 2:
+        return ang
+    assert sum(mrope_sections) == head_dim // 2, (mrope_sections, head_dim)
+    return torch.cat([part[i] for i, part in enumerate(
+        ang.split(list(mrope_sections), dim=-1))], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -211,22 +219,41 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
                    device) -> dict:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
-    return {
+    p = {
         "wq": dense_init(gen, d, cfg.num_heads * hd, dtype, device),
         "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dtype, device),
         "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dtype, device),
         "wo": dense_init(gen, cfg.num_heads * hd, d, dtype, device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
+    return p
+
+
+def headwise_rms(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Qwen3's qk-norm: RMS over each head's last axis in f32, times the
+    [hd] scale lifted to f32, cast back to x's dtype (the reference's
+    ``_headwise_rms``; unlike ``apply_norm`` the scale multiplies before
+    the cast)."""
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * scale.float()).to(x.dtype)
 
 
 def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 angles: Optional[torch.Tensor]):
-    """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] (rope applied)."""
+    """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] (qk-norm, then rope
+    applied)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
     k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
     v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = headwise_rms(q, params["q_norm"])
+        k = headwise_rms(k, params["k_norm"])
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)

@@ -16,8 +16,9 @@ and a Mamba SSM on the same normed input, fuses them as ``0.5 *
 Entry points (pure functions of the parameter dict, except that the
 cache's buffers or pools, per-row state and ``length`` are updated):
 
-  forward(params, tokens, positions)                  -> logits [B,S,V]
-  prefill(params, tokens, positions, cache)           -> last logits [B,V]
+  forward(params, tokens, positions, vision_embeds)   -> logits [B,S,V]
+  prefill(params, tokens, positions, cache,
+          vision_embeds)                              -> last logits [B,V]
   prefill_chunk(params, tokens, positions, cache)     -> last logits [B,V]
   decode_step(params, token, cache, kv_cap, relative,
               nb_cap, active)                         -> logits [B,V]
@@ -35,9 +36,22 @@ layer treats a -1 chunk position as an identity step.  The K/V of a
 "local" or hymba layer lives in its row's rolling buffer
 (``cache.state``) in either cache: a chunk reads the buffer, then
 writes it; a decode step writes the token, then reads with the window.
-Layer kinds other than these five, encoder-decoder, qk-norm / M-RoPE and
-position embeddings other than RoPE or none raise
-``NotImplementedError``.
+
+Qwen3's qk-norm (``cfg.qk_norm``) runs in ``layers.qkv_project``.  With
+``cfg.use_mrope`` (Qwen2-VL), ``forward``, ``prefill`` and
+``prefill_chunk`` take positions [B, S] or M-RoPE's t/h/w positions [3,
+B, S]: the angles come from all three, masks and cache writes from axis
+0, as the reference's ``pos2d``.  The model treats 2-D positions as equal
+t/h/w positions, for which M-RoPE is RoPE, so the engines (and
+``decode_step``) pass 2-D positions where the reference's broadcast them
+to [3, B, L]; serving is text-only in both packages.  ``forward`` and
+``prefill`` take the stub vision frontend's patch embeddings
+``vision_embeds`` [B, Nv, D], placed before the token embeddings; the
+positions then cover Nv + S columns, and ``prefill`` advances ``length``
+by Nv + S.
+
+Layer kinds other than these five, encoder-decoder and position
+embeddings other than RoPE or none raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -69,8 +83,6 @@ class Model:
             unsupported.append(f"layer_pattern={cfg.layer_pattern}")
         if cfg.is_encoder_decoder:
             unsupported.append("encoder-decoder")
-        if cfg.qk_norm or cfg.use_mrope:
-            unsupported.append("qk_norm / M-RoPE")
         if cfg.pos_embedding not in ("rope", "none"):
             unsupported.append(f"pos_embedding={cfg.pos_embedding}")
         if unsupported:
@@ -147,18 +159,29 @@ class Model:
 
     # -------------------------------------------------------------- helpers
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor,
+               vision_embeds: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         x = params["embed"][tokens.long()]
         if self.cfg.scale_embedding:
             x = x * torch.tensor(self.cfg.d_model, dtype=x.dtype,
                                  device=x.device).sqrt()
+        if vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
         return x
 
     def _angles(self, positions: torch.Tensor) -> Optional[torch.Tensor]:
         cfg = self.cfg
         if cfg.pos_embedding != "rope":
             return None
-        return L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        return L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                             cfg.mrope_sections if cfg.use_mrope else ())
+
+    def _angles_pos2d(self, positions: torch.Tensor):
+        """(RoPE angles, the [B, S] positions of masks and cache writes)
+        from positions [B, S] or M-RoPE's [3, B, S]."""
+        return self._angles(positions), \
+            positions if positions.dim() == 2 else positions[0]
 
     def _mlp(self, p, x: torch.Tensor) -> torch.Tensor:
         """The MLP (or MoE) sublayer with its residual."""
@@ -250,14 +273,17 @@ class Model:
 
     def forward(self, params, tokens: torch.Tensor,
                 positions: torch.Tensor,
-                return_features: bool = False) -> torch.Tensor:
-        """Full-sequence forward: tokens/positions [B,S] -> logits [B,S,V]
-        (recurrent layers start from zero state), or with
-        ``return_features`` the final-normed features [B,S,D], which
+                return_features: bool = False,
+                vision_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Full-sequence forward: tokens [B,S] (after ``vision_embeds``
+        [B,Nv,D] if given) at positions [B,Nv+S] or [3,B,Nv+S] -> logits
+        [B,Nv+S,V] (recurrent layers start from zero state), or with
+        ``return_features`` the final-normed features [B,Nv+S,D], which
         ``head`` turns into logits (at the columns a caller needs)."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
-        angles = self._angles(positions)
+        x = self._embed(params, tokens, vision_embeds)
+        angles, positions = self._angles_pos2d(positions)
 
         def attend(q, k, v, st):
             return self._attention(q, k, v, positions, positions)
@@ -285,21 +311,23 @@ class Model:
         return self._logits(params, x)
 
     def prefill(self, params, tokens: torch.Tensor,
-                positions: torch.Tensor, cache: cache_lib.Cache
+                positions: torch.Tensor, cache: cache_lib.Cache,
+                vision_embeds: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        """Absorb a [B, S] prompt batch (absolute ``positions``, -1 at left
-        pads) into a contiguous cache at its shared ``length``: causal
-        attention over the batch itself, its K/V written to the buffers
-        (a "local" or hymba layer's rolling buffer keeps the last tokens
-        it holds); recurrent layers (the Mamba branch too) run over every
-        column from the cache's state, pads included (no pad mask, as in
-        the reference's prefill mode).  Advances ``cache.length`` by S;
-        returns the last column's logits."""
+        """Absorb a [B, S] prompt batch (after ``vision_embeds`` [B,Nv,D]
+        if given; absolute ``positions`` [B,Nv+S] or [3,B,Nv+S], -1 at
+        left pads) into a contiguous cache at its shared ``length``:
+        causal attention over the batch itself, its K/V written to the
+        buffers (a "local" or hymba layer's rolling buffer keeps the last
+        tokens it holds); recurrent layers (the Mamba branch too) run
+        over every column from the cache's state, pads included (no pad
+        mask, as in the reference's prefill mode).  Advances
+        ``cache.length`` by Nv + S; returns the last column's logits."""
         cfg = self.cfg
-        S = tokens.shape[1]
         start = cache.length
-        x = self._embed(params, tokens)
-        angles = self._angles(positions)
+        x = self._embed(params, tokens, vision_embeds)
+        S = x.shape[1]
+        angles, positions = self._angles_pos2d(positions)
 
         def attend(q, k, v, st):
             a = self._attention(q, k, v, positions, positions)
@@ -350,12 +378,13 @@ class Model:
         row that brings more tokens than the buffer holds keeps its last
         ones.  A recurrent layer (and the Mamba branch) runs over the
         chunk from the row's state, with an identity step at every pad.
-        ``positions`` are relative (-1 at pads, which write nowhere and
-        leave the state alone).  Advances ``cache.length`` by C and
-        returns the logits at ``last_col`` [B] (default: the last
-        column)."""
+        ``positions`` [B, C] or [3, B, C] are relative (-1 at pads, which
+        write nowhere and leave the state alone).  Advances
+        ``cache.length`` by C and returns the logits at ``last_col`` [B]
+        (default: the last column)."""
         cfg = self.cfg
         B, S = tokens.shape
+        angles, positions = self._angles_pos2d(positions)
         paged = isinstance(cache, cache_lib.PagedCache)
         first = cache.first
         start = cache.length
@@ -388,7 +417,6 @@ class Model:
             r_kv_pos = torch.cat([r_past - first[:, None], pos32], dim=1)
         mask = positions >= 0
         x = self._embed(params, tokens)
-        angles = self._angles(positions)
 
         def attend(q, k, v, st):
             k_all = torch.cat([st["k"], k.to(st["k"].dtype)], dim=1)

@@ -1,8 +1,12 @@
 // Just enough of CUDA to run a block-synchronous kernel source on the CPU:
-// each block's threads are std::threads, __syncthreads() a std::barrier,
-// __shared__ a static (one block runs at a time).  A warp's shuffles,
-// ballots and __syncwarp() go through a barrier of its 32 threads and a
-// slot per lane; cp.async copies at once (zero-filled like the card's);
+// each block's threads are fibres (ucontext) taking turns on the calling
+// thread, __syncthreads() a barrier at which a fibre yields until every
+// thread of the block has arrived, __shared__ a static (one block runs
+// at a time).  A warp's shuffles, ballots and __syncwarp() go through a
+// barrier of its 32 threads and a slot per lane.  The fibres run in
+// thread order between barriers, so the emulation checks what the
+// barriers order, not what a missing one would leave to chance.
+// cp.async copies at once (zero-filled like the card's);
 // dynamic shared memory is one buffer, filled with 0x7f bytes (a score
 // that beats every real one) before each block, so a read of a slot the
 // kernel never wrote shows up in its results.  Used by
@@ -16,15 +20,14 @@
 #pragma once
 #include <algorithm>
 #include <array>
-#include <atomic>
-#include <barrier>
 #include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <memory>
-#include <thread>
+#include <functional>
+#include <ucontext.h>
 #include <vector>
 
 #define __global__
@@ -48,13 +51,42 @@ struct alignas(16) float4 {
 struct alignas(16) int4 {
   int x, y, z, w;
 };
-inline thread_local dim3 threadIdx{0, 0, 0};
+// the running fibre's index (set before each switch into a fibre)
+inline dim3 threadIdx{0, 0, 0};
 inline dim3 blockIdx{0, 0, 0}, gridDim{1, 1, 1};
-inline std::unique_ptr<std::barrier<>> emu_barrier;
+
+// the block's fibres: each CUDA thread runs on its own stack and yields
+// to the scheduler (emu_block) while it waits at a barrier
+inline ucontext_t emu_sched;
+inline std::vector<ucontext_t> emu_fibre;
+inline std::vector<std::unique_ptr<char[]>> emu_stack;
+constexpr size_t kEmuStack = 256 * 1024;
+inline int emu_current = 0;
+inline std::function<void()> emu_body;
+inline bool emu_fibre_yielded = false;   // false: the fibre returned
+inline void emu_yield() {
+  emu_fibre_yielded = true;
+  swapcontext(&emu_fibre[emu_current], &emu_sched);
+}
+struct EmuBarrier {
+  int expected, count = 0;
+  unsigned phase = 0;
+  explicit EmuBarrier(int n) : expected(n) {}
+  void arrive_and_wait() {
+    const unsigned p = phase;
+    if (++count == expected) {   // the last to arrive releases the rest
+      count = 0;
+      ++phase;
+      return;
+    }
+    while (phase == p) emu_yield();
+  }
+};
+inline std::unique_ptr<EmuBarrier> emu_barrier;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 
 // one slot per lane and a barrier per warp of the running block
-inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
+inline std::vector<std::unique_ptr<EmuBarrier>> emu_warp_barriers;
 inline std::vector<std::array<uint64_t, 32>> emu_warp_slots;
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
@@ -95,18 +127,21 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   return m;
 }
 // 1 if pred is non-zero in any thread of the block, in every thread
-inline std::atomic<int> emu_vote{0};
+inline int emu_vote = 0;
 inline int __syncthreads_or(int pred) {
   __syncthreads();   // every thread has read the last vote
   if (threadIdx.x == 0) emu_vote = 0;
   __syncthreads();
   if (pred) emu_vote = 1;
   __syncthreads();
-  return emu_vote.load();
+  return emu_vote;
 }
-// the card's atomics are device-wide; a block's threads are std::threads
+// the card's atomics are device-wide; the fibres take turns on one
+// thread, so a plain add is atomic here
 inline int atomicAdd(int* p, int v) {
-  return std::atomic_ref<int>(*p).fetch_add(v);
+  const int old = *p;
+  *p = old + v;
+  return old;
 }
 inline unsigned __float_as_uint(float x) {
   unsigned u;
@@ -174,21 +209,42 @@ T* emu_dyn_smem() {
   return reinterpret_cast<T*>(emu_smem.data());
 }
 
-// One block of `block` threads (blockIdx already set).
+inline void emu_fibre_main() { emu_body(); }
+
+// One block of `block` threads (blockIdx already set): a fibre for each,
+// resumed in thread order until every one has returned.
 template <typename K, typename... A>
 void emu_block(int block, K kernel, A... args) {
-  emu_barrier = std::make_unique<std::barrier<>>(block);
+  emu_barrier = std::make_unique<EmuBarrier>(block);
   emu_warp_barriers.clear();
   for (int w = 0; w < (block + 31) / 32; ++w)
-    emu_warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
+    emu_warp_barriers.push_back(std::make_unique<EmuBarrier>(32));
   emu_warp_slots.assign((block + 31) / 32, {});
-  std::vector<std::thread> threads;
-  for (int t = 0; t < block; ++t)
-    threads.emplace_back([=] {
-      threadIdx.x = t;
-      kernel(args...);
-    });
-  for (auto& th : threads) th.join();
+  emu_body = [=] { kernel(args...); };
+  emu_fibre.assign(block, ucontext_t{});
+  while (emu_stack.size() < static_cast<size_t>(block))
+    emu_stack.push_back(std::make_unique<char[]>(kEmuStack));
+  std::vector<char> done(block, 0);
+  for (int t = 0; t < block; ++t) {
+    getcontext(&emu_fibre[t]);
+    emu_fibre[t].uc_stack.ss_sp = emu_stack[t].get();
+    emu_fibre[t].uc_stack.ss_size = kEmuStack;
+    emu_fibre[t].uc_link = &emu_sched;
+    makecontext(&emu_fibre[t], emu_fibre_main, 0);
+  }
+  for (int left = block; left > 0;) {
+    for (int t = 0; t < block; ++t) {
+      if (done[t]) continue;
+      emu_current = t;
+      threadIdx = dim3(t, 0, 0);
+      emu_fibre_yielded = false;
+      swapcontext(&emu_sched, &emu_fibre[t]);
+      if (!emu_fibre_yielded) {
+        done[t] = 1;
+        --left;
+      }
+    }
+  }
 }
 
 // kernel<<<grid, block, smem, stream>>>(args...) becomes

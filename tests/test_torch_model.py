@@ -171,12 +171,10 @@ def test_block_allocator_contract():
 
 
 @pytest.mark.parametrize("change", [
-    {"qk_norm": True},
     {"pos_embedding": "sinusoidal"},
-    {"use_mrope": True},
     {"is_encoder_decoder": True},
     {"pos_embedding": "learned"},
-], ids=["qk-norm", "sinusoidal-pos", "mrope", "enc-dec", "learned-pos"])
+], ids=["sinusoidal-pos", "enc-dec", "learned-pos"])
 def test_kinds_not_ported_raise(change):
     """What the port does not serve yet raises instead of running."""
     cfg = dataclasses.replace(port_smoke("xlstm-350m", max_d_model=32),

@@ -15,9 +15,9 @@ CUDA source, on the CPU.
   split's docs and above Nd, Nq off a group, D 30, and duplicate rows
   across tile and split boundaries.
 - ``csrc/topk_list.cu`` itself, compiled with g++ against
-  ``tests/cuda_emu.h`` (a block's threads are std::threads, a warp's
-  shuffles and ballots go through a barrier of its 32 threads), at every
-  group size, with spread warps, a tree of merge levels, the 4-byte copy
+  ``tests/cuda_emu.h`` (a block's threads are fibres taking turns on one
+  thread, a warp's shuffles and ballots go through a barrier of its 32
+  threads), at every group size, with spread warps, a tree of merge levels, the 4-byte copy
   path, an unaligned pointer and ties; and k 64's first 32 bitwise equal
   to ``csrc/topk.cu``'s k 32, emulated the same way.
 
