@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases card,build,archs
     python3 chip_smoke.py --phases card,build,dense
     python3 chip_smoke.py --phases card,build,qwen
+    python3 chip_smoke.py --phases card,build,whisper
     python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
@@ -199,6 +200,36 @@ Phases, in order:
            hd 128 (qwen3's paged chunk of 32, qwen2-vl's 296-query vision
            prefill), each against its plain version, timed beside it and
            SDPA (rows under each kernel's "shapes")
+  whisper  whisper-base at published width (bf16, seed 0: 6 encoder and 6
+           decoder layers, d 512, 8 heads of 64, 1500 encoder frames,
+           learned decoder positions), served text-only on the stub
+           frontend's zero frames as the reference serves it.  (a)
+           serve.py --arch whisper-base with --prompt-len 256 and serve's
+           other flags as above, peak memory.  (b) dense's paged queue
+           with the prefix cache over requests of power-of-two lengths (a
+           240-token context forked into four 16-token questions, plain
+           prompts of 64, 128 and 32 tokens: a solo wave reads its learned
+           positions at absolute positions, so only an unpadded solo run
+           shares the queue's frame), each against a solo run on the card
+           (equal, or parting at a near-tie); its own launch counts;
+           then the logits behind such tokens: two 256-token rows
+           through the forward, a wave prefill + 7 decode steps and paged
+           chunks of 32 + 7 decode steps, within WHISPER_LOGIT_TOL of the
+           teacher-forced forward's (random weights make each greedy
+           stream repeat one token, so the tokens alone say little).  (c)
+           The paged standing queue over the same requests in three
+           rounds, one straddling a round, held to the solo runs the same
+           way.  (d) Card against CPU at the smoke config (f32): every
+           serving path's greedy tokens, then the encoder, the forward,
+           prefill + decode and paged chunks + decode within 1e-4.  (e)
+           The flash kernel at the encoder's [4,1500,8,64] (non-causal),
+           a cross-attention chunk of 32 queries and the cross-attention
+           decode of 4 rows over the 1500 frames' K/V, and the paged decode
+           kernel at G 1, hd 64, all from (b)'s queue, each against its
+           plain version, timed beside it and SDPA (rows under each
+           kernel's "shapes").  (f) (b)'s queue again, synchronised
+           around every chunk, encoder pass and decode step: the
+           encoder's share of a paged chunk
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -258,7 +289,8 @@ Phases, in order:
            left-padded chunk within atol 1e-5, rtol 1e-4
   sim      examples/hierarchical_scheduling_sim.py through the port: (a)
            the paper's four-node testbed (make_paper_testbed, seed 0),
-           each node profiled at 5-30 s and timed, C(L) = k L + b
+           each node profiled at 5, 15 and 30 s (SIM_LEVELS: three of the
+           example's six levels) and timed, C(L) = k L + b
            printed; (b) the 20-slot diurnal trace (5,984 queries, SLO
            15 s) through the Coordinator with the PPO identifier (64 x 4,
            an update every 256 feedbacks) on the card: per slot the
@@ -304,7 +336,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
-              "serve", "archs", "dense", "qwen", "kernels", "parity", "sim")
+              "serve", "archs", "dense", "qwen", "whisper", "kernels",
+              "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -1593,7 +1626,7 @@ SERVE_ARGS = ["--batch", "4", "--requests", "8", "--new-tokens", "16",
 SERVE_PROMPT_LEN = {"olmo-1b": 256, "xlstm-350m": 64, "hymba-1.5b": 256,
                     "qwen2-moe-a2.7b": 256, "gemma2-9b": 256,
                     "llama3-8b": 256, "nemotron-4-15b": 256,
-                    "qwen3-moe-30b-a3b": 256}
+                    "qwen3-moe-30b-a3b": 256, "whisper-base": 256}
 # the reference's default cluster run (no --paged), and with --queue wave
 SERVE_CLI = ["--smoke", "--nodes", "2", "--slots", "3"]
 # the non-paged engine's three flash call shapes, in the kernels line
@@ -1612,20 +1645,23 @@ class FlashShapes:
     ``window`` set, only calls with that window (one layer kind's).  It
     adds no device work and no synchronisation to the calls it sees."""
 
-    def __init__(self, ops, heads=None, window=None):
+    def __init__(self, ops, heads=None, window=None, kinds=FLASH_SHAPES,
+                 kind_of=None):
         self.ops, self.orig, self.heads = ops, ops.flash_attention, heads
         self.window = window
-        self.best, self.calls = {}, dict.fromkeys(FLASH_SHAPES, 0)
+        self.best, self.calls = {}, dict.fromkeys(kinds, 0)
+        # kind_of(q, k, causal) -> one of ``kinds``, or None to pass the
+        # call by (default: the engine's three shapes above)
+        self.kind_of = kind_of or _engine_kind
 
     def install(self):
         orig = self.orig
 
         def flash(q, k, v, qp, kvp, causal=True, window=None, softcap=None):
-            Sq, Sk = q.shape[1], k.shape[1]
-            kind = "decode" if Sq == 1 else \
-                "prefill" if Sq == Sk else "chunk"
+            Sk = k.shape[1]
+            kind = self.kind_of(q, k, causal)
             kw = {"causal": causal, "window": window, "softcap": softcap}
-            if self.heads in (None, q.shape[2]) \
+            if kind is not None and self.heads in (None, q.shape[2]) \
                     and self.window in (None, window):
                 self.calls[kind] += 1
                 size = q.numel() * Sk
@@ -1638,6 +1674,12 @@ class FlashShapes:
 
     def remove(self):
         self.ops.flash_attention = self.orig
+
+
+def _engine_kind(q, k, causal):
+    """The non-paged engine's flash call shapes (``FLASH_SHAPES``)."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    return "decode" if Sq == 1 else "prefill" if Sq == Sk else "chunk"
 
 
 def _count_launches(ops, fn):
@@ -2519,11 +2561,17 @@ NEAR_TIE = 0.25
 
 def _features_logits(torch, model, params, toks, pos, cols):
     """The full-sequence forward's logits at columns ``cols`` only (the
-    head over every column of a long wave would be [B, S, 256000] f32)."""
+    head over every column of a long wave would be [B, S, 256000] f32);
+    an encoder-decoder model attends to the engines' zero frames."""
+    cfg = model.cfg
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.zeros((len(toks), cfg.encoder_seq_len, cfg.d_model),
+                             device=DEV)
     with torch.no_grad():
         feats = model.forward(params, torch.as_tensor(toks, device=DEV),
                               torch.as_tensor(pos, device=DEV),
-                              return_features=True)
+                              return_features=True, encoder_frames=frames)
         return model.head(params, feats[:, cols]).float()
 
 
@@ -2613,23 +2661,24 @@ def _dense_stream(vocab):
             (ctx + q[3], 14, 300)]
 
 
-def dense_queue(torch, ops, cfg, params, tag) -> tuple:
+def dense_queue(torch, ops, cfg, params, tag, stream=None,
+                shapes=None) -> tuple:
     """(c): the paged ``ContinuousQueue`` with the prefix cache at
-    published width (``DENSE_QUEUE``), each request held to a solo
-    ``generate_reference`` run on the card: equal, or first parting
-    where both tokens lie within ``NEAR_TIE`` of the top logit of the
-    forward over the common prefix.
+    published width (``DENSE_QUEUE``) over ``stream`` (default
+    ``_dense_stream``), each request held to a solo
+    ``generate_reference`` run on the card (``_hold_to_solo``).  Flash
+    calls are recorded by ``shapes`` (default: this arch's calls by the
+    engine's shapes).
     Returns (the path's launches, its paged decode's costliest inputs,
     its flash calls by shape)."""
-    import numpy as np
     from repro_torch.serving import (ContinuousQueue, GenerationParams,
                                      ServeEngine)
-    stream = _dense_stream(cfg.vocab_size)
+    stream = stream or _dense_stream(cfg.vocab_size)
     eng = ServeEngine(cfg, params, device=DEV, **DENSE_QUEUE)
     q = ContinuousQueue(eng, GenerationParams(max_new_tokens=DENSE_NEW))
     rec = MainPathInputs(ops)        # the paged decode's costliest call
     rec.install()
-    shapes = FlashShapes(ops, heads=cfg.num_heads)      # flash by shape
+    shapes = shapes or FlashShapes(ops, heads=cfg.num_heads)
     shapes.install()
     try:
         t0 = time.perf_counter()
@@ -2647,15 +2696,37 @@ def dense_queue(torch, ops, cfg, params, tag) -> tuple:
           f"{st.prefix_hits}, forks {st.cow_forks}")
     for name in ("paged_decode_attention", "flash_attention"):
         check(launches[name] > 0, f"dense queue {cfg.name}: no {name}")
+    equal, parted = _hold_to_solo(torch, cfg, params, [
+        (rid, outs[rid], p, b) for rid, (p, b, _) in zip(rids, stream)],
+        f"dense queue {cfg.name}")
+    log(f"dense[queue]: {cfg.name} paged queue ({len(stream)} requests, "
+        f"batch {DENSE_QUEUE['batch_size']}, chunk "
+        f"{DENSE_QUEUE['prefill_chunk']}) in {wall:.3f} s: {st.refills} "
+        f"refills, {st.prefix_hits} prefix hits, {st.cow_forks} "
+        f"copy-on-write forks; {equal} of {len(stream)} requests equal "
+        f"their solo generate_reference tokens, parted (request, token, "
+        f"the solo and the queue token's distance below the forward's top "
+        f"logit): {parted}; launches {json.dumps(launches)} {tag}")
+    return launches, rec, shapes
+
+
+def _hold_to_solo(torch, cfg, params, runs, label) -> tuple:
+    """Each (rid, tokens, prompt, budget) of ``runs`` against a solo
+    ``generate_reference`` run of its prompt on the card (max_len
+    ``DENSE_QUEUE``'s): equal, or first parting where both tokens lie
+    within ``NEAR_TIE`` of the top logit of the forward over the common
+    prefix.  Returns (how many equal, [(rid, token, the solo and the
+    queue token's distance below the top logit)] of the partings)."""
+    import numpy as np
+    from repro_torch.serving import GenerationParams, ServeEngine
     solo = ServeEngine(cfg, params, max_len=DENSE_QUEUE["max_len"],
                        batch_size=1, device=DEV)
     equal, parted = 0, []
-    for rid, (p, b, _) in zip(rids, stream):
-        ours = outs[rid]
+    for rid, ours, p, b in runs:
         want = solo.generate_reference([p], gen=GenerationParams(
             max_new_tokens=b))[0]
-        check(len(ours) == b, f"dense queue {cfg.name}: {len(ours)} tokens "
-              f"for a budget of {b}")
+        check(len(ours) == b, f"{label}: {len(ours)} tokens for a budget "
+              f"of {b}")
         if ours == want:
             equal += 1
             continue
@@ -2669,19 +2740,11 @@ def dense_queue(torch, ops, cfg, params, tag) -> tuple:
         top = float(lg.max())
         below = (top - float(lg[want[t]]), top - float(lg[ours[t]]))
         parted.append((rid, t, round(below[0], 4), round(below[1], 4)))
-        check(max(below) <= NEAR_TIE, f"dense queue {cfg.name}: request "
-              f"{rid} parts from its solo run at token {t} ({ours[t]} "
-              f"against {want[t]}), {below[1]:.4f} and {below[0]:.4f} below "
-              "the forward's top logit")
-    log(f"dense[queue]: {cfg.name} paged queue ({len(stream)} requests, "
-        f"batch {DENSE_QUEUE['batch_size']}, chunk "
-        f"{DENSE_QUEUE['prefill_chunk']}) in {wall:.3f} s: {st.refills} "
-        f"refills, {st.prefix_hits} prefix hits, {st.cow_forks} "
-        f"copy-on-write forks; {equal} of {len(stream)} requests equal "
-        f"their solo generate_reference tokens, parted (request, token, "
-        f"the solo and the queue token's distance below the forward's top "
-        f"logit): {parted}; launches {json.dumps(launches)} {tag}")
-    return launches, rec, shapes
+        check(max(below) <= NEAR_TIE, f"{label}: request {rid} parts from "
+              f"its solo run at token {t} ({ours[t]} against {want[t]}), "
+              f"{below[1]:.4f} and {below[0]:.4f} below the forward's top "
+              "logit")
+    return equal, parted
 
 
 def _standing_tokens(torch, cfg, params, dev):
@@ -2892,14 +2955,14 @@ def vl_depth(torch, cfg) -> int:
     return int((total - VL_RESERVE_BYTES - 4 * embed) // (2 * per_layer))
 
 
-def _draw(torch, cfg, what):
+def _draw(torch, cfg, what, phase="qwen"):
     """``cfg``'s weights (seed 0) on the card, with the memory it took."""
     from repro_torch.models import Model
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = Model(cfg).init_params(seed=0, device=DEV)
     torch.cuda.synchronize()
-    log(f"qwen: {what} {cfg.param_count() / 1e9:.2f}B params drawn in "
+    log(f"{phase}: {what} {cfg.param_count() / 1e9:.2f}B params drawn in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
         f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -3158,9 +3221,380 @@ def phase_qwen(torch, card, rec: dict) -> dict:
     return total
 
 
+# whisper-base (ROADMAP A4): the encoder-decoder, served text-only on the
+# stub frontend's zero frames, as the reference serves it
+WHISPER = "whisper-base"
+# (b), (c): learned positions make a left-padded solo wave read its table
+# at absolute positions and a queue row at positions counted from its
+# first token, so the requests that are held to solo runs have
+# power-of-two lengths (no bucket pad): a 240-token context (left-padded
+# by 16 to the chunk of 32) forked into four 16-token questions, and
+# plain prompts of 64, 128 and 32 tokens
+WHISPER_CTX, WHISPER_Q, WHISPER_PLAIN = 240, 16, (64, 128, 32)
+WHISPER_KINDS = ("encoder", "cross chunk", "cross decode")
+# (b): the wave's and the paged path's bf16 logits against the forward's
+# (the same kernels in another order through 6 + 6 layers): about three
+# times the 0.0156 (one bf16 ulp at the logits' size, ~2) first measured
+# on an H100, a ninth of the logits' spread (std 0.45)
+WHISPER_LOGIT_TOL = 0.05
+
+
+def _whisper_stream(vocab):
+    """(b)'s requests: (prompt, budget, prefix_len), budgets 6 to 16."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    ctx = rng.integers(5, vocab, WHISPER_CTX).tolist()
+    q = [rng.integers(5, vocab, WHISPER_Q).tolist() for _ in range(4)]
+    plain = [rng.integers(5, vocab, n).tolist() for n in WHISPER_PLAIN]
+    pl = WHISPER_CTX
+    return [(ctx + q[0], 16, pl), (plain[0], 6, 0), (plain[1], 12, 0),
+            (plain[2], 8, 0), (ctx + q[1], 16, pl), (ctx + q[2], 10, pl),
+            (ctx + q[3], 14, pl)]
+
+
+def _whisper_kind(cfg):
+    """The call kinds of whisper's own flash shapes: the encoder
+    (non-causal, Sq = Sk = Se), cross-attention over Se keys at more
+    queries (non-causal flash) or at one (the decode read); None for
+    self-attention (no buffer of these runs has Se slots)."""
+    Se = cfg.encoder_seq_len
+
+    def kind(q, k, causal):
+        Sq, Sk = q.shape[1], k.shape[1]
+        if Sk != Se:
+            return None
+        if Sq == Se and not causal:
+            return "encoder"
+        return "cross decode" if Sq == 1 else "cross chunk"
+    return kind
+
+
+def whisper_logits(torch, ops, cfg, params, tag) -> dict:
+    """(b): the logits behind the queue's tokens at published width, where
+    random weights make each greedy stream repeat one token: two rows of
+    256 tokens (no pads) through the full forward, a wave prefill with
+    decode steps at absolute positions, and paged chunks of 32 with
+    decode steps, each decode step fed the forward's next input token.
+    The prefill, the last chunk and every decode step must agree with
+    the teacher-forced forward within ``WHISPER_LOGIT_TOL``, with the
+    same argmax where the forward's top two logits are further apart
+    than that.  Returns the launches."""
+    import numpy as np
+    from repro_torch.models import Model
+    model = Model(cfg)
+    B, S, n, C = 2, 256, 8, DENSE_QUEUE["prefill_chunk"]
+    bs = DENSE_QUEUE["block_size"]
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        5, cfg.vocab_size, (B, S + n)), dtype=torch.int32, device=DEV)
+    pos = torch.arange(S + n, dtype=torch.int32, device=DEV)[None] \
+        .expand(B, S + n).contiguous()
+    frames = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model), device=DEV)
+    nb = -(-(S + n) // bs)
+
+    def run():
+        with torch.no_grad():
+            fwd = model.forward(params, toks, pos, encoder_frames=frames)
+            fwd = fwd[:, S - 1:S + n - 1].float()
+            c = model.init_cache(B, S + n, DEV)
+            wave = [model.prefill(params, toks[:, :S], pos[:, :S], c,
+                                  encoder_frames=frames)]
+            wave += [model.decode_step(params, toks[:, t:t + 1], c)
+                     for t in range(S, S + n - 1)]
+            pc = model.init_paged_cache(B, S + n, bs, B * nb, DEV)
+            pc.block_tables = torch.arange(B * nb, dtype=torch.int32,
+                                           device=DEV).reshape(B, nb)
+            for j in range(S // C):
+                chunk = model.prefill_chunk(
+                    params, toks[:, j * C:(j + 1) * C],
+                    pos[:, j * C:(j + 1) * C], pc, encoder_frames=frames)
+            paged = [chunk] + [model.decode_step(params, toks[:, t:t + 1],
+                                                 pc, nb_cap=nb)
+                               for t in range(S, S + n - 1)]
+            return fwd, torch.stack(wave, 1).float(), \
+                torch.stack(paged, 1).float()
+
+    (fwd, wave, paged), launches = _count_launches(ops, run)
+    top2 = fwd.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    errs = {}
+    for name, got in (("wave", wave), ("paged", paged)):
+        errs[name] = max_err(got, fwd)
+        check(errs[name] <= WHISPER_LOGIT_TOL, f"whisper logits: the {name} "
+              f"path is {errs[name]:.4f} from the forward's")
+        clear = gap > WHISPER_LOGIT_TOL
+        check(bool((got.argmax(-1) == fwd.argmax(-1))[clear].all()),
+              f"whisper logits: the {name} path's argmax differs where the "
+              "forward's top two are apart")
+    check(launches["paged_decode_attention"] > 0
+          and launches["flash_attention"] > 0,
+          f"whisper logits: launches {launches}")
+    distinct = len(set(fwd.argmax(-1).flatten().tolist()))
+    log(f"whisper[logits]: {B} rows x {S} tokens + {n - 1} decode steps, "
+        f"the forward's logits at the {n} positions against the wave "
+        f"prefill + decode ({errs['wave']:.4f} max |diff|) and paged "
+        f"chunks of {C} + decode ({errs['paged']:.4f}; tol "
+        f"{WHISPER_LOGIT_TOL}); the forward's top-2 "
+        f"gap {float(gap.min()):.4f} to {float(gap.max()):.4f}, logits "
+        f"spread (std) {float(fwd.std()):.4f}, {distinct} distinct argmax "
+        f"tokens of {fwd.shape[0] * fwd.shape[1]}; launches "
+        f"{json.dumps(launches)} {tag}")
+    return launches
+
+
+def whisper_standing(torch, ops, cfg, params, tag) -> dict:
+    """(c): the paged standing queue (one session for every round) over
+    (b)'s requests in three rounds: the first waits for both its
+    requests, the second only for its short one (the long one straddles
+    into the third round), the third for everything.  Each request is
+    held to a solo ``generate_reference`` run (``_hold_to_solo``).
+    Returns the path's launches."""
+    from repro_torch.serving import (ContinuousQueue, GenerationParams,
+                                     ServeEngine)
+    stream = _whisper_stream(cfg.vocab_size)
+    # (stream index, budget): request 2 (128 tokens, 16 new) straddles
+    rounds = [([(0, 16), (1, 6)], "all"), ([(2, 16), (3, 4)], "last"),
+              ([(4, 16), (5, 10), (6, 14)], "all")]
+    eng = ServeEngine(cfg, params, device=DEV, **DENSE_QUEUE)
+    q = ContinuousQueue(eng, GenerationParams(max_new_tokens=DENSE_NEW),
+                        standing=True)
+    runs, straddled = [], []
+
+    def run():
+        for reqs, wait in rounds:
+            rids = [q.submit(stream[i][0], b, prefix_len=stream[i][2])
+                    for i, b in reqs]
+            runs.extend((r, i, b) for r, (i, b) in zip(rids, reqs))
+            q.run(wait_for=rids if wait == "all" else rids[-1:])
+            straddled.extend(q.unfinished())
+        q.close()
+
+    t0 = time.perf_counter()
+    _, launches = _count_launches(ops, run)
+    wall = time.perf_counter() - t0
+    st = q.stats
+    check(st.frames == 1 and st.refills >= 3 and st.prefix_hits >= 1,
+          f"whisper standing: frames {st.frames}, refills {st.refills}, "
+          f"prefix hits {st.prefix_hits}")
+    check(launches["paged_decode_attention"] > 0
+          and launches["flash_attention"] > 0,
+          f"whisper standing: launches {launches}")
+    equal, parted = _hold_to_solo(torch, cfg, params, [
+        (r, q.result(r).tokens, stream[i][0], b) for r, i, b in runs],
+        "whisper standing")
+    log(f"whisper[standing]: the paged standing queue, {len(runs)} requests "
+        f"in {len(rounds)} rounds in {wall:.3f} s: {st.frames} frame, "
+        f"{st.refills} refills, {st.prefix_hits} prefix hits, requests "
+        f"straddling a round {sorted(set(straddled))}; {equal} of "
+        f"{len(runs)} equal their solo generate_reference tokens, parted "
+        f"(request, token, the solo and the queue token's distance below "
+        f"the forward's top logit): {parted}; launches "
+        f"{json.dumps(launches)} {tag}")
+    return launches
+
+
+def whisper_split(torch, cfg, params, tag) -> None:
+    """(f): (b)'s queue again on a fresh engine, synchronised around
+    every prefill chunk, every encoder pass inside it and every decode
+    step: the encoder's share of a paged chunk (it runs again on every
+    chunk, as in the reference)."""
+    from repro_torch.serving import (ContinuousQueue, GenerationParams,
+                                     ServeEngine)
+    eng = ServeEngine(cfg, params, device=DEV, **DENSE_QUEUE)
+    acc = {"chunk": [], "encoder": [], "decode": []}
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[name].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    model = eng.model
+    model.encode = timed("encoder", model.encode)
+    model.decode_step = timed("decode", model.decode_step)
+    eng._chunk_step = timed("chunk", eng._chunk_step)
+    q = ContinuousQueue(eng, GenerationParams(max_new_tokens=DENSE_NEW))
+    for p, b, pl in _whisper_stream(cfg.vocab_size):
+        q.submit(p, b, prefix_len=pl)
+    q.run()
+    n = len(acc["chunk"])
+    check(n > 0 and len(acc["encoder"]) == n,
+          f"whisper split: {n} chunks, {len(acc['encoder'])} encoder passes")
+    chunk_s, enc_s = sum(acc["chunk"]), sum(acc["encoder"])
+    dec = acc["decode"]
+    log(f"whisper[split]: {n} paged chunks of {DENSE_QUEUE['prefill_chunk']}"
+        f" (frame of {DENSE_QUEUE['batch_size']} rows and one-row refills, "
+        f"synchronised): {chunk_s * 1e3:.3f} ms in chunks, "
+        f"{enc_s * 1e3:.3f} ms of it in the encoder over "
+        f"{cfg.encoder_seq_len} frames ({100 * enc_s / chunk_s:.2f}%; "
+        f"{enc_s / n * 1e3:.3f} ms a pass, {chunk_s / n * 1e3:.3f} ms a "
+        f"chunk); {len(dec)} decode steps, median "
+        f"{statistics.median(dec) * 1e3:.3f} ms {tag}")
+
+
+def whisper_parity(torch) -> None:
+    """(d): the smoke config (f32) on the card and on the CPU from the
+    same weights: every serving path's greedy tokens (``smoke_parity``);
+    then the encoder alone, the forward over seeded frames with a
+    left-padded row, a prefill + 3 decode steps and two paged chunks +
+    3 decode steps (a right-padded row) within 1e-4 of the CPU's."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models import cache as cache_lib
+    rng = np.random.default_rng(0)
+    cfg = get_smoke_config(WHISPER)
+    smoke_parity(torch, cfg, WHISPER, "whisper", rng)
+    params_cpu = Model(cfg).init_params(seed=0, device="cpu", max_seq=64)
+    B, S, C = 2, 16, 8
+    gen = torch.Generator().manual_seed(5)
+    frames = torch.randn(B, cfg.encoder_seq_len, cfg.d_model, generator=gen)
+    toks = torch.as_tensor(rng.integers(5, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32)
+    pos = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
+    pos[1, :5] = -1                               # row 1 left-padded
+    steps = torch.as_tensor(rng.integers(5, cfg.vocab_size, (3, B, 1)),
+                            dtype=torch.int32)
+    first = torch.tensor([0, 5], dtype=torch.int32)
+    l_end = torch.tensor([S, 11], dtype=torch.int32)   # row 1 right-padded
+
+    def logits(params, dev):
+        model = Model(cfg)
+        f = frames.to(dev)
+        out = [model.encode(params, f),
+               model.forward(params, toks.to(dev), pos.to(dev),
+                             encoder_frames=f)]
+        cache = model.init_cache(B, S + 3, dev)
+        cache.first = first.to(dev)
+        out.append(model.prefill(params, toks.to(dev), pos.to(dev), cache,
+                                 encoder_frames=f))
+        out += [model.decode_step(params, t.to(dev), cache) for t in steps]
+        pc = model.init_paged_cache(B, 32, 8, 8, dev)
+        pc.block_tables = torch.tensor([[3, 1, 6, 0], [2, 7, 5, 4]],
+                                       dtype=torch.int32, device=dev)
+        for j in range(S // C):
+            cols = torch.arange(j * C, (j + 1) * C, dtype=torch.int32)[None]
+            cp = torch.where(cols < l_end[:, None], cols, -1)
+            last = (l_end - 1 - j * C).clamp(0, C - 1)
+            out.append(model.prefill_chunk(
+                params, toks[:, j * C:(j + 1) * C].to(dev), cp.to(dev), pc,
+                last_col=last.to(dev), encoder_frames=f))
+        pc.length = l_end.to(dev)
+        out += [model.decode_step(params, t.to(dev), pc, nb_cap=4)
+                for t in steps]
+        out += [pc.state[i][n] for i in range(cfg.num_layers)
+                for n in ("xk", "xv")]
+        return [o.cpu() for o in out]
+
+    check(cache_lib.init_row_state(cfg, 1, 8, torch.float32, "cpu")[0]
+          ["xk"].shape[1] == cfg.encoder_seq_len, "whisper: no cross K/V")
+    got = logits(_to_device(params_cpu, DEV), DEV)
+    want = logits(params_cpu, "cpu")
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    check(err <= 1e-4, f"whisper parity: card and CPU {err} apart")
+    log(f"whisper parity: smoke ({cfg.num_encoder_layers}+"
+        f"{cfg.num_layers} layers d{cfg.d_model}, {cfg.encoder_seq_len} "
+        f"frames, f32) encoder, forward, prefill + 3 decode steps, 2 paged "
+        f"chunks + 3 decode steps and the stored cross-attention K/V: card "
+        f"and CPU within {err:.2e} (tol 1e-4)")
+
+
+def whisper_kernels(torch, ops, cfg, queue, rec, card) -> None:
+    """(e): the flash kernel at whisper's three new shapes from (b)'s
+    queue (the encoder over Se frames, a cross-attention chunk of 32
+    queries and the cross-attention decode of 4 rows, each over Se keys
+    at position 0) and the paged decode kernel at G 1, hd 64 (the
+    queue's self-attention decode), each against its plain version,
+    timed beside it and SDPA; the rows join the kernels line's
+    "shapes"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    launches, r, shapes = queue
+    B, C = DENSE_QUEUE["batch_size"], DENSE_QUEUE["prefill_chunk"]
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    kv = [B, cfg.encoder_seq_len, cfg.num_kv_heads, hd]
+    rows = []
+    for kind, label in (("encoder", "whisper encoder (non-causal)"),
+                        ("cross chunk", "whisper cross-attention chunk"),
+                        ("cross decode", "whisper cross-attention decode")):
+        check(kind in shapes.best, f"whisper: no {kind} flash call recorded")
+        _, args, kw = shapes.best[kind]
+        q, k = args[0], args[1]
+        want_q = [B, {"encoder": cfg.encoder_seq_len, "cross chunk": C,
+                      "cross decode": 1}[kind], H, hd]
+        check(list(q.shape) == want_q and list(k.shape) == kv,
+              f"whisper {kind} recorded at q{list(q.shape)} k{list(k.shape)}")
+        rows.append(_flash_row(torch, F, ops, ref, args, kw, label,
+                               shapes.calls[kind], card))
+    rec.setdefault("flash_attention", {}).setdefault("shapes", []).extend(
+        rows)
+    check("paged_decode_attention" in r.best,
+          "whisper: the queue's paged decode inputs were not recorded")
+    _, args, kw = r.best["paged_decode_attention"]
+    check(list(args[0].shape) == [B, H, hd]
+          and args[1].shape[2] == cfg.num_kv_heads,
+          f"whisper paged decode recorded at q{list(args[0].shape)} "
+          f"pool{list(args[1].shape)}")
+    rec.setdefault("paged_decode_attention", {}).setdefault(
+        "shapes", []).append(_paged_row(
+            torch, F, ops, ref, args, kw, "whisper paged decode (G 1, hd 64)",
+            launches["paged_decode_attention"], card))
+
+
+def phase_whisper(torch, card, rec: dict) -> dict:
+    """whisper-base on the card at published width (bf16, seed 0; 6+6
+    layers, d 512, 1500 frames): (a) serve.py --arch whisper-base; (b)
+    the paged queue with the prefix cache against solo runs, and the
+    logits of the wave and the paged path against the forward's; (c) the
+    paged standing queue against solo runs; (d) card-vs-CPU parity at
+    the smoke config; (e) the kernels at whisper's shapes; (f) the
+    encoder's share of a paged chunk.  Returns the launches of (a)-(c)'s
+    paths together."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    tag = f"[{card['smi']}]"
+    total = {}
+
+    def add(launches):
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+
+    torch.cuda.reset_peak_memory_stats()
+    add(_serve_cli(torch, ops, serve, WHISPER, tag))
+    log(f"whisper: serve.py --arch {WHISPER} peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    free_models(torch)
+    cfg = get_config(WHISPER)
+    torch.cuda.reset_peak_memory_stats()
+    params = _draw(torch, cfg, WHISPER, "whisper")
+    shapes = FlashShapes(ops, kinds=WHISPER_KINDS, kind_of=_whisper_kind(cfg))
+    queue = dense_queue(torch, ops, cfg, params, tag,
+                        stream=_whisper_stream(cfg.vocab_size), shapes=shapes)
+    add(queue[0])
+    add(whisper_logits(torch, ops, cfg, params, tag))
+    add(whisper_standing(torch, ops, cfg, params, tag))
+    whisper_split(torch, cfg, params, tag)
+    log(f"whisper: {WHISPER} peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB over its queues")
+    del params
+    free_models(torch)
+    whisper_parity(torch)
+    whisper_kernels(torch, ops, cfg, queue, rec, card)
+    del queue, shapes
+    free_models(torch)
+    log(f"whisper: launches on the paths {json.dumps(total)}")
+    return total
+
+
 SIM_SLO = 15.0           # examples/hierarchical_scheduling_sim.py's --slo
 SIM_SLOTS = 20           # its --slots
-SIM_LEVELS = (5, 10, 15, 20, 25, 30)    # its profiling levels (s)
+# three of its six profiling levels (5 .. 30 s): profiling the 2-GPU
+# nodes at all six took ~150 s of the script's 1200 s limit
+SIM_LEVELS = (5, 15, 30)
 SIM_PARITY_SLOTS = 3
 SIM_BASELINE_SLOTS = 6
 TABLE3_QUERIES = 500     # benchmarks/table3_intra_node.py's N_QUERIES
@@ -5365,6 +5799,7 @@ def main(argv=None) -> int:
             "archs": lambda: phase_archs(torch, card, rec),
             "dense": lambda: phase_dense(torch, card, rec),
             "qwen": lambda: phase_qwen(torch, card, rec),
+            "whisper": lambda: phase_whisper(torch, card, rec),
             "kernels": lambda: phase_kernels(torch, card, captured, rec,
                                              traced),
             "parity": lambda: phase_parity(torch),

@@ -4,8 +4,12 @@ The reference keeps one pytree whose decoder leaves are stacked over
 pattern cycles: ``params["blocks"][f"s{j}_{kind}"]`` holds slot j of the
 layer pattern with a leading ``[num_layers // P]`` cycle axis, P being
 the pattern's length.  The port keeps a list of per-layer dicts: port
-layer i is slot ``i % P`` at cycle ``i // P``.  Both use the ``[d_in,
-d_out]`` matmul layout, so leaves convert without transposes.  The
+layer i is slot ``i % P`` at cycle ``i // P``.  An encoder-decoder
+model's ``params["encoder"]["blocks"]`` is stacked over its encoder
+layers in the reference and a list of per-layer dicts in the port; its
+``final_norm`` and a learned ``pos_embed`` table pass as they are.  Both
+use the ``[d_in, d_out]`` matmul layout, so leaves convert without
+transposes.  The
 reference side is handed over as nested dicts of numpy arrays; nothing
 here imports the reference.
 
@@ -70,21 +74,33 @@ def params_from_numpy(np_params: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     P = len(cfg.layer_pattern)
     out = {k: _to_torch(v, dev) for k, v in np_params.items()
-           if k != "blocks"}
+           if k not in ("blocks", "encoder")}
     out["blocks"] = [
         _to_torch(_layer(np_params["blocks"][_slot(cfg, i)], i // P), dev)
         for i in range(cfg.num_layers)]
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        out["encoder"] = {
+            "blocks": [_to_torch(_layer(enc["blocks"], i), dev)
+                       for i in range(cfg.num_encoder_layers)],
+            "final_norm": _to_torch(enc["final_norm"], dev)}
     return out
 
 
 def params_to_numpy(params: dict, cfg: ModelConfig) -> Dict[str, Any]:
     """The port's parameters -> reference-layout numpy parameters."""
     P = len(cfg.layer_pattern)
-    out = {k: _to_numpy(v) for k, v in params.items() if k != "blocks"}
+    out = {k: _to_numpy(v) for k, v in params.items()
+           if k not in ("blocks", "encoder")}
     out["blocks"] = {
         _slot(cfg, j): _stack([_to_numpy(b)
                                for b in params["blocks"][j::P]])
         for j in range(P)}
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "blocks": _stack([_to_numpy(b) for b in enc["blocks"]]),
+            "final_norm": _to_numpy(enc["final_norm"])}
     return out
 
 

@@ -31,6 +31,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "whisper-base": "whisper_base",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

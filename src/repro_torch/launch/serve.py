@@ -9,22 +9,24 @@ Counterpart of ``repro/launch/serve.py``.
         --max-len 512 --reference
     ... --arch hymba-1.5b        # or qwen2-moe-a2.7b, xlstm-350m,
                                  # llama3-8b, nemotron-4-15b,
-                                 # qwen3-moe-30b-a3b, qwen2-vl-72b
+                                 # qwen3-moe-30b-a3b, qwen2-vl-72b,
+                                 # whisper-base
     ... --smoke --device cpu     # a tiny config on the plain PyTorch path
 
 Without ``--arch`` it serves gemma2-9b, the reference's default.
 
 Every flag of the reference is accepted, plus ``--device`` (``cuda`` by
-default).  Weights are drawn from seed 0 (``Model.init_params``), the
+default).  Weights are drawn from seed 0 (``Model.init_params``, a
+learned position table of ``--max-len`` rows, as the reference's), the
 prompts from a seeded numpy generator: request i has ``prompt_len // (1 +
 i % 3)`` tokens, so the lengths straddle power-of-two buckets and the
 queue schedules across them.  ``--reference`` also times one wave of
 ``generate`` against the per-token host loop ``generate_reference`` on
 the same prompts (each warmed up once first) and reports whether their
-tokens agree.  An architecture the
-reference knows but the port does not serve yet raises
-``NotImplementedError``, naming its ROADMAP item, before anything is
-built.
+tokens agree.  The port serves all ten of the reference's
+architectures; ``check_ported`` still guards the command: an
+architecture without a port config raises ``NotImplementedError``,
+naming its ROADMAP item, before anything is built.
 """
 import argparse
 import time
@@ -88,7 +90,8 @@ def main(argv=None) -> dict:
     check_ported(args.arch)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    params = Model(cfg).init_params(seed=0, device=device)
+    params = Model(cfg).init_params(seed=0, device=device,
+                                    max_seq=args.max_len)
     eng = ServeEngine(cfg, params, max_len=args.max_len,
                       batch_size=args.batch, device=device)
     gen = GenerationParams(max_new_tokens=args.new_tokens,

@@ -4,8 +4,8 @@ either: recurrent state and the rolling K/V of the "local" and hymba
 layers.
 
 Counterpart of ``repro/models/cache.py`` for the "attn", "local",
-"hymba", "mlstm" and "slstm" slot kinds (encoder state comes with a later
-slice).
+"hymba", "mlstm" and "slstm" slot kinds and the encoder-decoder's
+cross-attention K/V (the reference's ``cache["enc"]``).
 
 Contiguous layout (``Cache``, the non-paged engine): per-row full K/V
 buffers ``[La, B, max_len, KV, hd]`` for the La "attn" layers, slot index
@@ -28,9 +28,12 @@ keeps per-row state ``state[layer]``, a dict of [B, ...] tensors: mLSTM
 a rolling buffer of ``Lw = min(window, max_len)`` slots, where slot j
 holds the latest position p with p % Lw == j (``rolling_kv_positions``),
 and a hymba layer the same K/V beside its Mamba ``h`` (f32) and ``conv``
-(model dtype).  Rolling K/V is not pooled in either cache: it is part
-of the row, so refills, forks and prefix entries copy it with the rest
-of the row's state.  A model without "attn" layers has
+(model dtype).  In an encoder-decoder model every layer's state holds
+its cross-attention K/V over the encoder's frames, ``xk`` / ``xv`` [B,
+Se, KV, hd] (model dtype), written by a prefill or chunk and read by a
+decode step.  Rolling and cross-attention K/V are not pooled in either
+cache: they are part of the row, so refills, forks and prefix entries
+copy them with the rest of the row's state.  A model without "attn" layers has
 empty pools (La = 0): the block allocator, the block tables and the
 copy-on-write decisions run all the same.  The reference consumes
 donated caches inside compiled programs; here the pools are
@@ -177,17 +180,24 @@ def num_row_blocks(max_len: int, block_size: int) -> int:
 
 def init_row_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device) -> RowState:
-    """Zeroed per-row state of every layer that is not "attn", batch
-    ``batch``: recurrent cells, a "local" layer's rolling K/V buffer
-    (``rolling_len`` slots, ``dtype``), and for a hymba layer the same
-    buffer beside its Mamba state.  A plain refill starts from
-    ``init_row_state(cfg, 1, max_len, dtype, dev)``."""
+    """Zeroed per-row state, batch ``batch``: recurrent cells, a "local"
+    layer's rolling K/V buffer (``rolling_len`` slots, ``dtype``), for a
+    hymba layer the same buffer beside its Mamba state, and in an
+    encoder-decoder model (whose layers are "attn") each layer's
+    cross-attention K/V ``xk`` / ``xv`` [B, Se, KV, hd] (``dtype``).  A
+    plain refill starts from ``init_row_state(cfg, 1, max_len, dtype,
+    dev)``."""
     out: RowState = {}
     shape = (batch, rolling_len(cfg, max_len), cfg.num_kv_heads,
              cfg.resolved_head_dim)
+    enc_shape = (batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
     for i in range(cfg.num_layers):
         kind = cfg.pattern_for_layer(i)
-        if kind == "mlstm":
+        if cfg.is_encoder_decoder:
+            out[i] = {n: torch.zeros(enc_shape, dtype=dtype, device=device)
+                      for n in ("xk", "xv")}
+        elif kind == "mlstm":
             out[i] = ssm.mlstm_init_state(cfg, batch, device)
         elif kind == "slstm":
             out[i] = ssm.slstm_init_state(cfg, batch, device)
@@ -236,7 +246,7 @@ class Cache:
     first: torch.Tensor           # [B] int32 first valid abs position
     k: torch.Tensor               # [La, B, max_len, KV, hd] ("attn")
     v: torch.Tensor               # [La, B, max_len, KV, hd]
-    state: RowState               # non-"attn" layers: [B, ...]
+    state: RowState               # per-row state: [B, ...]
 
 
 def paged_layers(cfg: ModelConfig) -> List[int]:
@@ -343,7 +353,7 @@ class PagedCache:
     block_tables: torch.Tensor    # [B, NB] int32 pool block ids, -1 free
     k: torch.Tensor               # [La, P, bs, KV, hd] ("attn" layers)
     v: torch.Tensor               # [La, P, bs, KV, hd]
-    state: RowState               # non-"attn" layers: [B, ...]
+    state: RowState               # per-row state: [B, ...]
 
     @property
     def block_size(self) -> int:

@@ -103,6 +103,18 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
                      dim=-1).to(dt)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """[n, d] f32 sinusoidal position table: row p, column 2i holds
+    sin(p / 10000^(2i/d)) and column 2i + 1 the cos of the same angle."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    out = torch.zeros((n, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 

@@ -50,8 +50,28 @@ to [3, B, L]; serving is text-only in both packages.  ``forward`` and
 positions then cover Nv + S columns, and ``prefill`` advances ``length``
 by Nv + S.
 
-Layer kinds other than these five, encoder-decoder and position
-embeddings other than RoPE or none raise ``NotImplementedError``.
+Position embeddings are RoPE, none, a learned table or sinusoidal
+(``_embed``).  A learned table (``params["pos_embed"]``, ``max_seq``
+rows) is read at each column's position clamped into the table, as the
+reference's clip does: a pad (-1) reads row 0.  The engines' frames
+therefore decide what a row sees: a wave's prefill and its decode run at
+absolute positions (a left-padded row starts at its pad count), the
+chunks and the relative decode count from the row's first token.
+Sinusoidal rows ``0 .. S-1`` are added whatever the positions, as in the
+reference, which is why ``prefill_chunk`` refuses them.
+
+An encoder-decoder config (Whisper's backbone) runs ``encode`` over the
+stub frontend's frames ``encoder_frames`` [B, Se, D] (sinusoidal
+positions, non-causal attention, a final norm) in ``forward``,
+``prefill`` and every ``prefill_chunk``, and each decoder layer adds a
+cross-attention sublayer (``lnx`` / ``xattn``, every position 0, so each
+query sees every frame) between self-attention and its MLP.  ``prefill``
+and the chunks store each layer's cross-attention K/V in the row's state
+(``xk`` / ``xv``, ``cache.init_row_state``); a decode step reads them.
+Its decoder layers must be "attn" layers, as in the one such config.
+
+Layer kinds other than these five raise ``NotImplementedError``, as does
+an encoder-decoder config with other decoder layers.
 """
 from __future__ import annotations
 
@@ -68,6 +88,7 @@ from repro_torch.models import moe
 from repro_torch.models import ssm
 
 KINDS = ("attn", "local", "hymba", "mlstm", "slstm")
+POS_KINDS = ("rope", "none", "learned", "sinusoidal")
 # kinds whose K/V is a per-row rolling buffer of the window
 ROLLING_KINDS = ("local", "hymba")
 
@@ -81,16 +102,20 @@ class Model:
         unsupported = []
         if any(kind not in KINDS for kind in cfg.layer_pattern):
             unsupported.append(f"layer_pattern={cfg.layer_pattern}")
-        if cfg.is_encoder_decoder:
-            unsupported.append("encoder-decoder")
-        if cfg.pos_embedding not in ("rope", "none"):
+        if cfg.is_encoder_decoder and set(cfg.layer_pattern) != {"attn"}:
+            unsupported.append("cross-attention beside layers other than "
+                               "'attn'")
+        if cfg.pos_embedding not in POS_KINDS:
             unsupported.append(f"pos_embedding={cfg.pos_embedding}")
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves full and sliding-window "
-                f"attention, hymba, MoE and xLSTM layers only so far "
+                f"attention, hymba, MoE and xLSTM layers and "
+                f"encoder-decoder models of 'attn' layers only "
                 f"({', '.join(unsupported)})")
         self.cfg = cfg
+        # encoder-decoder: a cross-attention sublayer in every layer
+        self.cross = cfg.is_encoder_decoder
         # capacity factor of the MoE dispatch; float(num_experts) is
         # dropless (the serving engine's default)
         self.moe_cf = moe_capacity_factor
@@ -104,11 +129,15 @@ class Model:
 
     # ------------------------------------------------------------------ init
 
-    def init_params(self, seed: int = 0, device: DeviceLike = "cuda") -> dict:
+    def init_params(self, seed: int = 0, device: DeviceLike = "cuda",
+                    max_seq: int = 2048) -> dict:
         """Random parameters at the config's shapes and dtype, drawn from a
         ``torch.Generator`` seeded with ``seed`` on ``device``.  Mamba's
         ``A_log`` and ``D`` are f32 in a bf16 model, as in the
-        reference."""
+        reference.  A learned position table has ``max_seq`` rows; an
+        encoder-decoder model adds ``lnx`` / ``xattn`` to each layer and
+        ``params["encoder"]`` = {"blocks": per-layer {ln1, attn, ln2,
+        mlp}, "final_norm"}."""
         cfg = self.cfg
         dev = resolve_device(device)
         dtype = torch_dtype(cfg)
@@ -116,6 +145,9 @@ class Model:
         gen.manual_seed(seed)
         params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype, dev)}
+        if cfg.pos_embedding == "learned":
+            params["pos_embed"] = L.embed_init(gen, max_seq, cfg.d_model,
+                                               dtype, dev)
         blocks = []
         for kind in self.kinds:
             blk = {"ln1": L.init_norm(cfg, dtype, dev)}
@@ -129,6 +161,9 @@ class Model:
                 blk["mamba"] = ssm.init_mamba(gen, cfg, dtype, dev)
                 blk["bn_a"] = L.init_norm(cfg, dtype, dev)   # branch norms
                 blk["bn_m"] = L.init_norm(cfg, dtype, dev)
+            if self.cross:
+                blk["lnx"] = L.init_norm(cfg, dtype, dev)
+                blk["xattn"] = L.init_attention(gen, cfg, dtype, dev)
             if kind in ("attn", "local", "hymba") \
                     and cfg.mlp_type != "none":
                 blk["ln2"] = L.init_norm(cfg, dtype, dev)
@@ -142,6 +177,14 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                              dtype, dev)
+        if self.cross:
+            params["encoder"] = {
+                "blocks": [{"ln1": L.init_norm(cfg, dtype, dev),
+                            "attn": L.init_attention(gen, cfg, dtype, dev),
+                            "ln2": L.init_norm(cfg, dtype, dev),
+                            "mlp": L.init_mlp(gen, cfg, dtype, dev)}
+                           for _ in range(cfg.num_encoder_layers)],
+                "final_norm": L.init_norm(cfg, dtype, dev)}
         return params
 
     def init_cache(self, batch: int, max_len: int, device: DeviceLike
@@ -160,15 +203,92 @@ class Model:
     # -------------------------------------------------------------- helpers
 
     def _embed(self, params, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None,
                vision_embeds: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
+        """Token embeddings (after ``vision_embeds``) plus the position
+        embedding at ``positions`` [B, S]: a learned table's rows at the
+        positions clamped into it (pads read row 0), or sinusoidal rows
+        0 .. S-1 whatever the positions.  RoPE and position-free configs
+        need no ``positions`` here."""
+        cfg = self.cfg
         x = params["embed"][tokens.long()]
-        if self.cfg.scale_embedding:
-            x = x * torch.tensor(self.cfg.d_model, dtype=x.dtype,
+        if cfg.scale_embedding:
+            x = x * torch.tensor(cfg.d_model, dtype=x.dtype,
                                  device=x.device).sqrt()
         if vision_embeds is not None:
             x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        if cfg.pos_embedding == "learned":
+            tbl = params["pos_embed"]
+            x = x + tbl[positions.long().clamp(0, tbl.shape[0] - 1)]
+        elif cfg.pos_embedding == "sinusoidal":
+            x = x + L.sinusoidal_positions(
+                positions.shape[-1], cfg.d_model, x.device).to(x.dtype)[None]
         return x
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over the stub frontend's frames [B, Se, D]: frames
+        plus sinusoidal positions, then per layer non-causal attention
+        and the MLP, each with its residual, then the final norm ->
+        [B, Se, D] in the model's dtype."""
+        cfg = self.cfg
+        B, S, _ = frames.shape
+        dt = torch_dtype(cfg)
+        x = frames.to(dt) + L.sinusoidal_positions(
+            S, cfg.d_model, frames.device).to(dt)[None]
+        pos = torch.arange(S, dtype=torch.int32, device=frames.device
+                           )[None].expand(B, S)
+        for p in params["encoder"]["blocks"]:
+            q, k, v = L.qkv_project(p["attn"], L.apply_norm(p["ln1"], x, cfg),
+                                    cfg, None)
+            a = L.flash_attention(q, k, v, pos, pos, causal=False)
+            x = x + L.attention_out(p["attn"], a)
+            x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+        return L.apply_norm(params["encoder"]["final_norm"], x, cfg)
+
+    def _encoder_out(self, params, frames: Optional[torch.Tensor]
+                     ) -> Optional[torch.Tensor]:
+        """``encode(frames)`` for an encoder-decoder model, else None."""
+        if not self.cross:
+            return None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder model: "
+                             "pass encoder_frames [B, Se, D]")
+        return self.encode(params, frames)
+
+    def _cross(self, p, x: torch.Tensor, enc_out: Optional[torch.Tensor],
+               st: Optional[dict]) -> torch.Tensor:
+        """The cross-attention sublayer with its residual: ``x``'s queries
+        attend to every encoder frame (all positions 0).  With
+        ``enc_out`` the layer's K/V come from the encoder output and,
+        with ``st`` (the row state), are stored as ``st["xk"]`` /
+        ``st["xv"]``; without, a decode step reads them from ``st``.  One
+        query goes through ``decode_attention``, more through non-causal
+        flash, as in the reference."""
+        cfg = self.cfg
+        h = L.apply_norm(p["lnx"], x, cfg)
+        B, Sq = h.shape[:2]
+        hd = cfg.resolved_head_dim
+        q = (h @ p["xattn"]["wq"]).reshape(B, Sq, cfg.num_heads, hd)
+        if enc_out is None:
+            k, v = st["xk"], st["xv"]
+        else:
+            Se = enc_out.shape[1]
+            k = (enc_out @ p["xattn"]["wk"]).reshape(B, Se,
+                                                     cfg.num_kv_heads, hd)
+            v = (enc_out @ p["xattn"]["wv"]).reshape(B, Se,
+                                                     cfg.num_kv_heads, hd)
+            if st is not None:
+                st["xk"].copy_(k)
+                st["xv"].copy_(v)
+        q_pos = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
+        kv_pos = torch.zeros((B, k.shape[1]), dtype=torch.int32,
+                             device=x.device)
+        if Sq == 1:
+            a = L.decode_attention(q, k, v, q_pos[:, 0], kv_pos)
+        else:
+            a = L.flash_attention(q, k, v, q_pos, kv_pos, causal=False)
+        return x + L.attention_out(p["xattn"], a)
 
     def _angles(self, positions: torch.Tensor) -> Optional[torch.Tensor]:
         cfg = self.cfg
@@ -274,16 +394,19 @@ class Model:
     def forward(self, params, tokens: torch.Tensor,
                 positions: torch.Tensor,
                 return_features: bool = False,
-                vision_embeds: Optional[torch.Tensor] = None
+                vision_embeds: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """Full-sequence forward: tokens [B,S] (after ``vision_embeds``
         [B,Nv,D] if given) at positions [B,Nv+S] or [3,B,Nv+S] -> logits
         [B,Nv+S,V] (recurrent layers start from zero state), or with
         ``return_features`` the final-normed features [B,Nv+S,D], which
-        ``head`` turns into logits (at the columns a caller needs)."""
+        ``head`` turns into logits (at the columns a caller needs).  An
+        encoder-decoder model attends to ``encoder_frames`` [B,Se,D]."""
         cfg = self.cfg
-        x = self._embed(params, tokens, vision_embeds)
         angles, positions = self._angles_pos2d(positions)
+        x = self._embed(params, tokens, positions, vision_embeds)
+        enc_out = self._encoder_out(params, encoder_frames)
 
         def attend(q, k, v, st):
             return self._attention(q, k, v, positions, positions)
@@ -305,6 +428,8 @@ class Model:
             a = L.flash_attention(q, k, v, positions, positions, causal=True,
                                   softcap=cfg.attn_logit_softcap)
             x = x + L.attention_out(p["attn"], a)
+            if self.cross:
+                x = self._cross(p, x, enc_out, None)
             x = self._mlp(p, x)
         if return_features:
             return L.apply_norm(params["final_norm"], x, cfg)
@@ -312,7 +437,8 @@ class Model:
 
     def prefill(self, params, tokens: torch.Tensor,
                 positions: torch.Tensor, cache: cache_lib.Cache,
-                vision_embeds: Optional[torch.Tensor] = None
+                vision_embeds: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """Absorb a [B, S] prompt batch (after ``vision_embeds`` [B,Nv,D]
         if given; absolute ``positions`` [B,Nv+S] or [3,B,Nv+S], -1 at
@@ -321,13 +447,16 @@ class Model:
         buffers (a "local" or hymba layer's rolling buffer keeps the last
         tokens it holds); recurrent layers (the Mamba branch too) run
         over every column from the cache's state, pads included (no pad
-        mask, as in the reference's prefill mode).  Advances
-        ``cache.length`` by Nv + S; returns the last column's logits."""
+        mask, as in the reference's prefill mode).  An encoder-decoder
+        model encodes ``encoder_frames`` and stores each layer's
+        cross-attention K/V in the row state.  Advances ``cache.length``
+        by Nv + S; returns the last column's logits."""
         cfg = self.cfg
         start = cache.length
-        x = self._embed(params, tokens, vision_embeds)
-        S = x.shape[1]
         angles, positions = self._angles_pos2d(positions)
+        x = self._embed(params, tokens, positions, vision_embeds)
+        S = x.shape[1]
+        enc_out = self._encoder_out(params, encoder_frames)
 
         def attend(q, k, v, st):
             a = self._attention(q, k, v, positions, positions)
@@ -355,13 +484,16 @@ class Model:
             j = self.pool_index[i]
             cache_lib.write_seq(cache.k[j], cache.v[j], k, v, start)
             x = x + L.attention_out(p["attn"], a)
+            if self.cross:
+                x = self._cross(p, x, enc_out, cache.state[i])
             x = self._mlp(p, x)
         cache.length = start + S
         return self._logits(params, x[:, -1])
 
     def prefill_chunk(self, params, tokens: torch.Tensor,
                       positions: torch.Tensor, cache,
-                      last_col: Optional[torch.Tensor] = None
+                      last_col: Optional[torch.Tensor] = None,
+                      encoder_frames: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
         """Absorb one [B, C] prompt chunk into the cache.
 
@@ -379,10 +511,18 @@ class Model:
         ones.  A recurrent layer (and the Mamba branch) runs over the
         chunk from the row's state, with an identity step at every pad.
         ``positions`` [B, C] or [3, B, C] are relative (-1 at pads, which
-        write nowhere and leave the state alone).  Advances
-        ``cache.length`` by C and returns the logits at ``last_col`` [B]
-        (default: the last column)."""
+        write nowhere and leave the state alone).  An encoder-decoder
+        model encodes ``encoder_frames`` again on every chunk, as the
+        reference does, and rewrites the cross-attention K/V of the row
+        state.  Advances ``cache.length`` by C and returns the logits at
+        ``last_col`` [B] (default: the last column).  Sinusoidal
+        positions raise ``NotImplementedError``: they ignore the chunk's
+        offset."""
         cfg = self.cfg
+        if cfg.pos_embedding == "sinusoidal":
+            raise NotImplementedError(
+                "sinusoidal embeddings ignore the chunk offset; chunked "
+                "prefill is unsupported for pos_embedding='sinusoidal'")
         B, S = tokens.shape
         angles, positions = self._angles_pos2d(positions)
         paged = isinstance(cache, cache_lib.PagedCache)
@@ -416,7 +556,8 @@ class Model:
                     start, Lw, tokens.device)[None]
             r_kv_pos = torch.cat([r_past - first[:, None], pos32], dim=1)
         mask = positions >= 0
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, positions)
+        enc_out = self._encoder_out(params, encoder_frames)
 
         def attend(q, k, v, st):
             k_all = torch.cat([st["k"], k.to(st["k"].dtype)], dim=1)
@@ -453,6 +594,8 @@ class Model:
             a = L.flash_attention(q, k_all, v_all, positions, kv_pos,
                                   causal=True, softcap=cfg.attn_logit_softcap)
             x = x + L.attention_out(p["attn"], a)
+            if self.cross:
+                x = self._cross(p, x, enc_out, cache.state[i])
             x = self._mlp(p, x)
         cache.length = cache.length + S
         if last_col is None:
@@ -533,13 +676,14 @@ class Model:
                                    inc=1)
 
     def _decode_layers(self, params, token, cache, pos, attend, attn, inc):
-        """The decode layer loop shared by both caches: ``attend`` serves
-        the "local" and hymba layers (their rolling buffers), ``attn(j,
-        q, k, v)`` the "attn" layers (pool or buffer ``j``); recurrent
-        cells step.
+        """The decode layer loop shared by both caches at positions ``pos``
+        [B, 1]: ``attend`` serves the "local" and hymba layers (their
+        rolling buffers), ``attn(j, q, k, v)`` the "attn" layers (pool or
+        buffer ``j``), each followed by cross-attention over the stored
+        K/V in an encoder-decoder model; recurrent cells step.
         Advances ``cache.length`` by ``inc``."""
         cfg = self.cfg
-        x = self._embed(params, token)
+        x = self._embed(params, token, pos)
         angles = self._angles(pos)
         for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
             if kind in ROLLING_KINDS:
@@ -555,6 +699,8 @@ class Model:
             q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
             a = attn(self.pool_index[i], q, k, v)
             x = x + L.attention_out(p["attn"], a)
+            if self.cross:
+                x = self._cross(p, x, None, cache.state[i])
             x = self._mlp(p, x)
         cache.length = cache.length + inc
         return self._logits(params, x[:, 0])

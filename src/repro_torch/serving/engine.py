@@ -53,6 +53,11 @@ segment is a host loop that reads the sampled tokens back once per step
 block accounting follow the reference step for step, so schedules
 (refills, forks, frames) come out the same.
 
+An encoder-decoder model (whisper-base) is served text-only, as the
+reference serves it: every prefill and every chunk (frames, refills,
+prefix prefills) feeds the stub frontend's zero frames [B, Se, D] (f32,
+on the engine's device), and the model encodes them again each time.
+
 With tracing on (``repro_torch.obs.enable``), a decode segment is one
 batched ``decode_segment`` span over the live rows' traces
 (``ContinuousSession.traces``, set by the scheduler at admission) and a
@@ -227,7 +232,8 @@ class ServeEngine:
         cache = self.model.init_cache(B, self.max_len, self.device)
         cache.first = self._tensor(first)
         logits = self.model.prefill(self.params, self._tensor(toks),
-                                    self._tensor(pos), cache)
+                                    self._tensor(pos), cache,
+                                    encoder_frames=self._frames(B))
         tok = sample_token(logits, gen,
                            step_generator(gen, seed, 0, self.device))
         kv_cap = None if self._exact_length else \
@@ -338,6 +344,15 @@ class ServeEngine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
+    def _frames(self, batch: int) -> Optional[torch.Tensor]:
+        """The stub audio frontend's frames of an encoder-decoder model:
+        zeros [batch, Se, D] f32 (None for a decoder-only model)."""
+        if not self.cfg.is_encoder_decoder:
+            return None
+        return torch.zeros((batch, self.cfg.encoder_seq_len,
+                            self.cfg.d_model), dtype=torch.float32,
+                           device=self.device)
+
     def _fresh_cache(self, first: np.ndarray, length0: int
                      ) -> cache_lib.Cache:
         """A zeroed contiguous cache at shared position ``length0`` with
@@ -383,7 +398,8 @@ class ServeEngine:
         pos = torch.where(valid, abs_pos - first[:, None],
                           torch.full_like(abs_pos, -1))
         return self.model.prefill_chunk(self.params, self._tensor(toks), pos,
-                                        cache, last_col=last_col)
+                                        cache, last_col=last_col,
+                                        encoder_frames=self._frames(B))
 
     def _scan_chunks(self, toks: np.ndarray, staging, l_end=None
                      ) -> torch.Tensor:
@@ -398,8 +414,8 @@ class ServeEngine:
 
     def _zero_row_state(self) -> cache_lib.RowState:
         """Zeroed one-row state (recurrent cells, a hymba layer's Mamba
-        state and rolling K/V): what a plain refill and a prefix prefill
-        start from."""
+        state and rolling K/V, cross-attention K/V): what a plain refill
+        and a prefix prefill start from."""
         return cache_lib.init_row_state(self.cfg, 1, self.max_len,
                                         torch_dtype(self.cfg), self.device)
 

@@ -2,7 +2,7 @@
 it imports the JAX package, entry points refuse to fall back to the CPU
 when no GPU is present, and its configs (olmo-1b, xlstm-350m, hymba-1.5b,
 qwen2-moe-a2.7b, llama3-8b, gemma2-9b, nemotron-4-15b, qwen3-moe-30b-a3b,
-qwen2-vl-72b) equal the reference's."""
+qwen2-vl-72b, whisper-base: all ten) equal the reference's."""
 import ast
 import dataclasses
 import pathlib
@@ -106,7 +106,8 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
 @pytest.mark.parametrize("arch", ["olmo-1b", "xlstm-350m", "hymba-1.5b",
                                   "qwen2-moe-a2.7b", "llama3-8b",
                                   "gemma2-9b", "nemotron-4-15b",
-                                  "qwen3-moe-30b-a3b", "qwen2-vl-72b"])
+                                  "qwen3-moe-30b-a3b", "qwen2-vl-72b",
+                                  "whisper-base"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_olmo_config_matches_reference(smoke, arch):
     if smoke:
@@ -120,4 +121,5 @@ def test_olmo_config_matches_reference(smoke, arch):
     assert port_configs.ARCH_IDS == ["olmo-1b", "xlstm-350m", "hymba-1.5b",
                                      "qwen2-moe-a2.7b", "llama3-8b",
                                      "gemma2-9b", "nemotron-4-15b",
-                                     "qwen3-moe-30b-a3b", "qwen2-vl-72b"]
+                                     "qwen3-moe-30b-a3b", "qwen2-vl-72b",
+                                     "whisper-base"]

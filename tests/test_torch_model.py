@@ -2,7 +2,8 @@
 attention) and xlstm-350m (alternating mLSTM/sLSTM, 4 layers so that
 the pattern cycles twice) smoke models (f32): parameter round trip,
 full forward, and paged chunked prefill + decode with a frozen row,
-logits, pool contents and recurrent state step by step.
+logits, pool contents and recurrent state step by step; and the gate's
+learned, sinusoidal and encoder-decoder cases on olmo-1b's smoke config.
 
 Tolerances: logits 1e-4 absolute (a few f32 matmuls and softmaxes summed
 in another order), pool K/V 1e-5, recurrent state atol 1e-5 rtol 1e-4;
@@ -172,12 +173,60 @@ def test_block_allocator_contract():
 
 @pytest.mark.parametrize("change", [
     {"pos_embedding": "sinusoidal"},
-    {"is_encoder_decoder": True},
+    {"is_encoder_decoder": True, "num_encoder_layers": 2,
+     "encoder_seq_len": 16},
     {"pos_embedding": "learned"},
 ], ids=["sinusoidal-pos", "enc-dec", "learned-pos"])
 def test_kinds_not_ported_raise(change):
-    """What the port does not serve yet raises instead of running."""
-    cfg = dataclasses.replace(port_smoke("xlstm-350m", max_d_model=32),
-                              **change)
-    with pytest.raises(NotImplementedError):
-        Model(cfg)
+    """The gate's three cases, which raised before the port served them
+    (hence the name), now held to the reference on olmo-1b's smoke config
+    changed as each case says: ``forward`` and a contiguous ``prefill``
+    of a left-padded batch (pads read a learned table's row 0) within
+    LOGIT_TOL, and the encoder-decoder with its encoder over seeded
+    frames.  What is still not served raises: chunked prefill at
+    sinusoidal positions (in both packages) and cross-attention beside
+    recurrent layers."""
+    cfg = dataclasses.replace(
+        get_smoke_config("olmo-1b", max_d_model=32, vocab=96), **change)
+    jm, model = JModel(cfg), Model(cfg)
+    jparams = jm.init_params(jax.random.PRNGKey(1), max_seq=32)
+    params = bridge.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    B, L = 2, 12
+    toks = rng.integers(5, 96, (B, L)).astype(np.int32)
+    first = np.array([0, 5], np.int32)
+    pos = np.where(np.arange(L)[None] >= first[:, None], np.arange(L)[None],
+                   -1).astype(np.int32)
+    batch = {"tokens": jnp.asarray(toks), "positions": jnp.asarray(pos)}
+    kw = {}
+    if cfg.is_encoder_decoder:
+        frames = rng.standard_normal((B, 16, cfg.d_model)).astype(np.float32)
+        batch["encoder_frames"] = jnp.asarray(frames)
+        kw["encoder_frames"] = torch.from_numpy(frames)
+    want, _ = jm.forward(jparams, batch)
+    got = model.forward(params, torch.from_numpy(toks), torch.from_numpy(pos),
+                        **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LOGIT_TOL)
+    jc = jm.init_cache(B, 24, jnp.float32)
+    jc["first"] = jnp.asarray(first)
+    want, jc = jm.prefill(jparams, batch, jc)
+    c = model.init_cache(B, 24, "cpu")
+    c.first = torch.from_numpy(first)
+    got = model.prefill(params, torch.from_numpy(toks), torch.from_numpy(pos),
+                        c, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LOGIT_TOL)
+    if cfg.pos_embedding == "sinusoidal":
+        chunk = {"tokens": batch["tokens"][:, :8],
+                 "positions": batch["positions"][:, :8]}
+        with pytest.raises(NotImplementedError, match="sinusoidal"):
+            jm.prefill_chunk(jparams, chunk, jm.init_cache(B, 24))
+        with pytest.raises(NotImplementedError, match="sinusoidal"):
+            model.prefill_chunk(params, torch.from_numpy(toks[:, :8]),
+                                torch.from_numpy(pos[:, :8]),
+                                model.init_cache(B, 24, "cpu"))
+    if cfg.is_encoder_decoder:
+        with pytest.raises(NotImplementedError, match="cross-attention"):
+            Model(dataclasses.replace(port_smoke("xlstm-350m"), **change))

@@ -19,11 +19,18 @@ and xlstm-350m):
     path: answers, contexts, sources, scores and counters;
   * ``repro_torch.launch.serve.main`` and ``cluster_serve.main`` with
     ``--queue wave`` and without ``--paged`` on ``--device cpu``, and
-    ``build_cluster`` over the reference's weights slot for slot.
+    ``build_cluster`` over the reference's weights slot for slot;
+    ``serve --arch whisper-base`` on the reference launcher's weights
+    and prompts, whose tokens it prints.
 
 Everything compared is equal exactly (greedy tokens of f32 models whose
 logits agree within 1e-4; ``test_torch_generate.py`` holds the engine's
 near-tie margins)."""
+import ast
+import contextlib
+import io
+import re
+import sys
 import warnings
 
 import jax
@@ -330,12 +337,42 @@ def test_serve_main_runs(arch, capsys):
 
 
 def test_serve_unported_arch_raises_before_building(monkeypatch):
-    def boom(*args, **kw):
-        raise AssertionError("a model was built")
-
-    monkeypatch.setattr(serve, "Model", boom)
+    """``serve --arch whisper-base --smoke``, the last arch to be ported
+    (the test keeps its name from before), runs on ``--device cpu`` on
+    the reference launcher's weights (``init_params(PRNGKey(0),
+    max_seq=--max-len)``) and prompts: 8 requests in 3 waves, the two it
+    prints the reference launcher's tokens.  ``check_ported`` still
+    raises, naming A4, for an arch without a port config."""
+    from repro.launch import serve as j_launch_serve
     with pytest.raises(NotImplementedError, match="A4"):
-        serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
+        serve.check_ported("no-such-arch")
+    arch = "whisper-base"
+    cfg = get_smoke_config(arch)
+    np_params = jax.tree_util.tree_map(np.asarray, JModel(cfg).init_params(
+        jax.random.PRNGKey(0), max_seq=128))
+    key = jax.random.PRNGKey(1)
+    prompts = [[int(t) for t in jax.random.randint(
+        jax.random.fold_in(key, i), (max(1, 16 // (1 + i % 3)),), 5,
+        cfg.vocab_size)] for i in range(8)]
+
+    class Bridged(serve.Model):
+        def init_params(self, seed=0, device="cuda", max_seq=2048):
+            assert (seed, max_seq) == (0, 128)
+            return bridge.params_from_numpy(np_params, self.cfg, device)
+
+    monkeypatch.setattr(serve, "Model", Bridged)
+    monkeypatch.setattr(serve, "make_prompts", lambda n, L, vocab: prompts)
+    got = serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    assert got["tokens"] == 128 and got["waves"] == 3
+    assert all(len(o) == 16 for o in got["outputs"])
+    buf = io.StringIO()
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--smoke"])
+    with contextlib.redirect_stdout(buf):
+        j_launch_serve.main()
+    printed = re.findall(r"req(\d): (\[.*\])", buf.getvalue())
+    assert [int(i) for i, _ in printed] == [0, 1]
+    assert [ast.literal_eval(t) for _, t in printed] == got["outputs"][:2]
+    assert "generated 128 tokens for 8 requests" in buf.getvalue()
 
 
 @pytest.mark.parametrize("queue", ["wave", "continuous"])
