@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases card,build,dense
     python3 chip_smoke.py --phases card,build,qwen
     python3 chip_smoke.py --phases card,build,whisper
+    python3 chip_smoke.py --phases card,build,train
     python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
@@ -230,6 +231,28 @@ Phases, in order:
            kernel's "shapes").  (f) (b)'s queue again, synchronised
            around every chunk, encoder pass and decode step: the
            encoder's share of a paged chunk
+  train    the training path (src/repro_torch/train, launch/train.py,
+           launch/train_tiny.py, cluster_serve --ckpt).  (a)
+           csrc/flash_attention_bwd.cu against autograd of the plain
+           version on the card at olmo-1b's training shape (q = k
+           [4,256,16,128] causal, bf16), at [2,128,16,256] over 8 KV
+           heads with window 64 and softcap 50 (bf16) and at a small f32
+           shape with invalid kv slots and G 2; each timed beside the
+           plain backward and SDPA's (no softcap form) with its bound.
+           (b) launch/train.py --arch olmo-1b --steps 6 --batch 4 --seq
+           256 --ckpt through its main at published width (bf16, remat
+           on): every launch count at 0 just before and read just after,
+           16 layers x (forward + its recompute) flash forwards and 16
+           flash_attention_bwd a step, no plain attention run; finite
+           losses, step ms, tokens/s, peak memory; the checkpoint loads
+           back into equal params.  (c) The same model, one fixed batch,
+           8 steps: the loss falls.  (d) Card against CPU at the smoke
+           configs (f32): one train step of olmo-1b, gemma2-9b (window
+           16) and qwen2-moe-a2.7b, loss, aux, every gradient leaf and
+           the updated params.  (e) launch/train_tiny.py at its defaults
+           on the card, then cluster_serve --smoke --nodes 2 --slots 2
+           with --ckpt (node 0 serves the trained weights, node 1 draws
+           its own) and without: each slot's mean quality side by side
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -336,8 +359,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
-              "serve", "archs", "dense", "qwen", "whisper", "kernels",
-              "parity", "sim")
+              "serve", "archs", "dense", "qwen", "whisper", "train",
+              "kernels", "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -355,6 +378,11 @@ KERNEL_META = {
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:93"),
+    # no Pallas backward: the gradient of the reference's jnp attention,
+    # which its train step differentiates
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/layers.py:161"),
     "retrieval_topk": (
         "src/repro_torch/kernels/csrc/topk.cu",
         "src/repro/kernels/topk_retrieval.py:72"),
@@ -3590,6 +3618,426 @@ def phase_whisper(torch, card, rec: dict) -> dict:
     return total
 
 
+# ------------------------------------------------------------------ train
+
+TRAIN_ARCH = "olmo-1b"      # launch/train.py's default arch, train_tiny's
+# (a): the backward kernel's cases: (label, B, S, H, KV, hd, dtype,
+# causal, window, softcap, invalid kv slots)
+TRAIN_BWD_CASES = (
+    ("olmo-1b training", 4, 256, 16, 16, 128, "bfloat16", True, None, None,
+     False),
+    ("hd 256 G 2 window 64 softcap 50", 2, 128, 16, 8, 256, "bfloat16",
+     True, 64, 50.0, False),
+    ("f32 invalid kv slots G 2", 2, 80, 4, 2, 64, "float32", True, None,
+     None, True),
+)
+# bf16: the kernel's f32 gradients rounded to bf16, against the plain
+# backward in f32 on the same bf16 inputs, also apart by the forward's
+# bf16 P inside O (delta = rowsum(dO * O)); f32: the same f32 math in
+# another order
+BWD_TOL_BF16 = 2e-2       # of the largest |gradient|
+BWD_TOL_F32 = 1e-4
+# (b): the launcher at published width, bf16, remat on
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--steps", "6", "--batch", "4", "--seq",
+             "256"]
+TRAIN_FIXED_STEPS = 8     # (c)
+TRAIN_PARITY_ARCHS = ("olmo-1b", "gemma2-9b", "qwen2-moe-a2.7b")   # (d)
+TRAIN_PARITY_LR = 1e-3
+TINY_CLI = ["--smoke", "--nodes", "2", "--slots", "2"]    # (e)
+
+
+def bwd_work(q, k, q_pos, kv_pos, causal=True, window=None):
+    """Bytes and flops of one backward call: q, O, dO read and dq
+    written, k, v read and dk, dv written, the row lse read; 10*hd flops
+    per head per valid (query, key) pair (S and dP recomputed, dV, dK and
+    dQ accumulated: five products)."""
+    _, fwd_flops = flash_work(q, k, q_pos, kv_pos, causal, window)
+    B, Sq, H, _ = q.shape
+    nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+              + 4 * B * H * Sq + 4 * (q_pos.numel() + kv_pos.numel()))
+    return nbytes, fwd_flops * 10 // 4
+
+
+def _bwd_case(torch, gen, B, S, H, KV, hd, dtype, invalid):
+    """q, k, v, dO [B,S,...] on the card in ``dtype`` and positions: q = k
+    aligned; with ``invalid`` row 0 left-padded by 7 (pad queries at -1)
+    and every 5th key slot of row 1 invalid (-1).  dO is 0 on a query row
+    that sees no valid key (unspecified rows compare nothing)."""
+    dt = getattr(torch, dtype)
+    r = lambda *s: torch.randn(*s, generator=gen, device=DEV).to(dt)
+    q, k, v = r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd)
+    do = r(B, S, H, hd)
+    pos = torch.arange(S, dtype=torch.int32, device=DEV).repeat(B, 1)
+    qp, kvp = pos.clone(), pos.clone()
+    if invalid:
+        qp[0] -= 7
+        kvp[0] -= 7
+        kvp[1, ::5] = -1
+        qp[qp < 0] = -1
+        kvp[kvp < 0] = -1
+    return q, k, v, do, qp.contiguous(), kvp.contiguous()
+
+
+def _live(torch, qp, kvp, causal, window):
+    kp, qq = kvp[:, None, :], qp[:, :, None]
+    ok = (kp >= 0).expand(-1, qp.shape[1], -1)
+    if causal:
+        ok = ok & (kp <= qq)
+    if window:
+        ok = ok & (qq - kp < window)
+    return ok.any(-1)                                         # [B, S]
+
+
+def _sdpa_bwd(torch, F, q, k, v, do, qp, kvp, causal, window):
+    """Yardstick: SDPA's backward on the same function (None with a
+    softcap, which SDPA has no form for): is_causal for aligned causal
+    inputs, else the position mask as a bool mask, GQA by repeating the
+    KV heads.  Times the backward of one forward kept alive."""
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for x in (k, v))
+    aligned = causal and not window and bool((qp == kvp).all()) \
+        and bool((kvp >= 0).all())
+    if aligned:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        kp, qq = kvp[:, None, :], qp[:, :, None]
+        mask = kp >= 0
+        if causal:
+            mask = mask & (kp <= qq)
+        if window:
+            mask = mask & (qq - kp < window)
+        mask = mask | ~mask.any(-1, keepdim=True)   # no all-masked row
+        o = F.scaled_dot_product_attention(qt, kt, vt,
+                                           attn_mask=mask[:, None])
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def train_kernels(torch, F, ops, ref, rec, card) -> None:
+    """(a): flash_attention_bwd.cu against autograd of the plain version
+    at the three shapes, timed beside it and SDPA's backward."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(30)
+    rows = []
+    for (label, B, S, H, KV, hd, dtype, causal, window, cap,
+         invalid) in TRAIN_BWD_CASES:
+        q, k, v, do, qp, kvp = _bwd_case(torch, gen, B, S, H, KV, hd, dtype,
+                                         invalid)
+        kw = {"causal": causal, "window": window, "softcap": cap}
+        live = _live(torch, qp, kvp, causal, window)
+        do = do * live[:, :, None, None].to(do.dtype)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=DEV)
+        out = ops._flash_launch(q, k, v, qp, kvp, causal, window, cap,
+                                lse=lse)
+        got = ops.flash_attention_bwd(q, k, v, qp, kvp, out, do, lse, **kw)
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           qp, kvp, do.float(), **kw)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w, m in zip(("dq", "dk", "dv"), got, want,
+                                 (live, None, None)):
+            check(g.dtype == q.dtype and bool(torch.isfinite(g).all()),
+                  f"bwd {label}: {name} non-finite or of dtype {g.dtype}")
+            g, w = g.float(), w.float()
+            if m is not None:
+                g, w = g[m], w[m]
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            tol = BWD_TOL_F32 if dtype == "float32" \
+                else BWD_TOL_BF16 * scale
+            check(err <= tol, f"bwd {label}: {name} max|err| {err:.3e} > "
+                  f"{tol:.3e} (max|grad| {scale:.3e})")
+            errs.append((name, err, tol, scale))
+        again = ops.flash_attention_bwd(q, k, v, qp, kvp, out, do, lse, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"bwd {label}: two calls differ (the kernel has no atomics)")
+        t_k = bench_ms(lambda: ops.flash_attention_bwd(q, k, v, qp, kvp, out,
+                                                       do, lse, **kw))
+        t_p = bench_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, qp, kvp,
+                                                           do, **kw))
+        t_l = None if cap else bench_ms(_sdpa_bwd(torch, F, q, k, v, do, qp,
+                                                  kvp, causal, window))
+        nbytes, flops = bwd_work(q, k, qp, kvp, causal, window)
+        bnd, by = bound_ms(nbytes, flops, dtype)
+        err = max(e for _, e, _, _ in errs)
+        log(f"  flash_attention_bwd [{label}] q{tuple(q.shape)} "
+            f"k{tuple(k.shape)} {dtype}: "
+            + ", ".join(f"{n} max|err| {e:.3e} (tol {t:.3e}, max|grad| "
+                        f"{s:.3e})" for n, e, t, s in errs)
+            + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA backward "
+            + ("n/a (softcap)" if t_l is None else f"{t_l:.4f} ms")
+            + f", bound {bnd:.5f} ms ({by}, {nbytes} bytes, {flops} flops) "
+            f"[{card['smi']}]")
+        rows.append({"shape": label, "q": list(q.shape), "k": list(k.shape),
+                     "dtype": dtype, "max_abs_err": err, "ms": t_k,
+                     "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
+                     "library_ms": t_l})
+        del q, k, v, do, out, lse, got, want, again
+    main = rows[0]
+    rec["flash_attention_bwd"] = {key: main[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    rec["flash_attention_bwd"]["shapes"] = rows
+
+
+def train_launcher(torch, ops, ref, tag) -> dict:
+    """(b): launch/train.py at olmo-1b's published width through its
+    main; its launches, and the plain versions' calls (none)."""
+    import numpy as np
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint
+    path = ROOT / "build" / "train_ckpt" / "olmo_1b.npz"
+    plain = {"calls": 0}
+
+    def counted(fn):
+        def wrapped(*a, **kw):
+            plain["calls"] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    orig = (ref.flash_attention_ref, ref.flash_attention_bwd_ref)
+    ref.flash_attention_ref, ref.flash_attention_bwd_ref = map(counted, orig)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out, launches = _count_launches(
+            ops, lambda: train.main(TRAIN_CLI + ["--ckpt", str(path)]))
+    finally:
+        ref.flash_attention_ref, ref.flash_attention_bwd_ref = orig
+    wall = time.perf_counter() - t0
+    cfg, steps = out["cfg"], int(TRAIN_CLI[TRAIN_CLI.index("--steps") + 1])
+    n_attn = sum(kind == "attn" for kind in
+                 (cfg.pattern_for_layer(i) for i in range(cfg.num_layers)))
+    want = {"flash_attention": 2 * n_attn * steps,      # forward + recompute
+            "flash_attention_bwd": n_attn * steps}
+    check(all(np.isfinite(out["losses"])), f"train: losses {out['losses']}")
+    check(plain["calls"] == 0, f"train: {plain['calls']} plain attention "
+          "calls on the card path")
+    check({k: c for k, c in launches.items() if c} == want,
+          f"train: launches {launches}, want {want}")
+    params = sum(t.numel() for t in tree_leaves(out["params"]))
+    t1 = time.perf_counter()
+    back = checkpoint.load(str(path), out["params"], cfg)
+    load_s = time.perf_counter() - t1
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(back), tree_leaves(out["params"]))),
+        "train: the checkpoint does not load back into equal params")
+    size = path.stat().st_size
+    path.unlink()
+    log(f"train[b]: launch/train.py {' '.join(TRAIN_CLI)} --ckpt: "
+        f"{params / 1e9:.3f}B params ({cfg.dtype}, remat on), losses "
+        f"{[round(x, 4) for x in out['losses']]}; step {out['step_ms']:.1f} "
+        f"ms (median of steps 1-{steps - 1}), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {out['peak_gib'] or 0:.2f} GiB; {wall:.1f} s with the "
+        f"checkpoint ({size / 2 ** 30:.2f} GiB written, loaded back equal "
+        f"in {load_s:.1f} s); launches {json.dumps(launches)} (plain "
+        f"attention calls 0) {tag}")
+    del out, back
+    free_models(torch)
+    return launches
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a parameter tree, in order."""
+    from repro_torch.train import optimizer
+    return optimizer.tree_leaves(tree)
+
+
+def train_fixed_batch(torch, tag) -> None:
+    """(c): the published-width model from seed 0, one fixed batch (4 x
+    256, seed 1234), 8 steps at lr 1e-3 with remat: the loss falls."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg)
+    params = model.init_params(seed=0, device=DEV, max_seq=256)
+    opt = init_opt_state(params)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1234)
+    toks = torch.randint(0, cfg.vocab_size, (4, 257), generator=gen,
+                         device=DEV)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "positions": torch.arange(256, dtype=torch.int32,
+                                       device=DEV).expand(4, 256)}
+    step = make_train_step(model, lr=1e-3, remat=True)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_FIXED_STEPS):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    wall = time.perf_counter() - t0
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train[c]: the fixed-batch loss did not fall: {losses}")
+    log(f"train[c]: one fixed batch, {TRAIN_FIXED_STEPS} steps at lr 1e-3: "
+        f"losses {[round(x, 4) for x in losses]} (fell "
+        f"{100 * (1 - losses[-1] / losses[0]):.1f}%), {wall:.1f} s {tag}")
+    del params, opt
+    free_models(torch)
+
+
+def _parity_step(torch, cfg, params, batch):
+    """One value_and_grad and one train step of the smoke model: (total,
+    loss, aux, grad leaves, updated param leaves) on the CPU."""
+    from repro_torch.models import Model
+    from repro_torch.train import train_step as ts
+    model = Model(cfg)
+    (t, (l, a)), grads = ts.value_and_grad(ts.make_loss_fn(model), params,
+                                           batch)
+    new, _, _ = ts.make_train_step(model, lr=TRAIN_PARITY_LR, remat=False)(
+        params, ts.init_opt_state(params), batch)
+    cpu = lambda tree: [x.float().cpu() for x in tree_leaves(tree)]
+    return float(t), float(l), float(a), cpu(grads), cpu(new)
+
+
+def train_parity(torch, tag) -> None:
+    """(d): one train step at the smoke configs (f32) on the card and on
+    the CPU from the same weights and batch: loss and aux within 1e-5,
+    every gradient leaf within 1e-4 of its largest magnitude (f32 sums
+    in another order: the CPU tests' bound against the reference), the
+    updated params within 1e-5, or within 2 lr where the gradient is
+    inside that bound (Adam's first step moves a param by ~lr * sign(g),
+    so a near-zero gradient may flip)."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = get_smoke_config(arch)
+        if arch == "gemma2-9b":
+            cfg = dataclasses.replace(cfg, sliding_window=16)
+        params = Model(cfg).init_params(seed=0, device="cpu", max_seq=64)
+        rng = np.random.default_rng(3)
+        B, S = 2, 48
+        toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 "loss_mask": (rng.random((B, S)) < 0.8).astype(np.int64),
+                 "positions": np.tile(np.arange(S, dtype=np.int32), (B, 1))}
+        res = {}
+        for dev in ("card", "cpu"):
+            d = DEV if dev == "card" else "cpu"
+            b = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+            res[dev] = _parity_step(torch, cfg, _to_device(params, d), b)
+        (tg, lg, ag, gg, pg), (tc, lc, ac, gc_, pc) = res["card"], res["cpu"]
+        check(max(abs(tg - tc), abs(lg - lc), abs(ag - ac)) <= 1e-5,
+              f"train[d] {arch}: losses card {tg, lg, ag} cpu {tc, lc, ac}")
+        g_err, p_err = 0.0, 0.0
+        for i, (g1, g2, p1, p2) in enumerate(zip(gg, gc_, pg, pc)):
+            tol = max(1e-6, 1e-4 * float(g2.abs().max()))
+            e = float((g1 - g2).abs().max())
+            check(e <= tol, f"train[d] {arch}: grad leaf {i} {e:.3e} > "
+                  f"{tol:.3e}")
+            g_err = max(g_err, e / max(float(g2.abs().max()), 1e-30))
+            allowed = torch.where(g2.abs() <= tol,
+                                  torch.full_like(g2, 2 * TRAIN_PARITY_LR
+                                                  + 1e-6),
+                                  torch.full_like(g2, 1e-5))
+            d = (p1 - p2).abs()
+            check(bool((d <= allowed).all()),
+                  f"train[d] {arch}: param leaf {i} differs by "
+                  f"{float(d.max()):.3e}")
+            p_err = max(p_err, float(d.max()))
+        log(f"train[d]: {arch} smoke ({cfg.num_layers} layers d{cfg.d_model}"
+            f", f32) card vs CPU: loss {lg:.6f} / {lc:.6f}, aux {ag:.3e} / "
+            f"{ac:.3e}, {len(gg)} gradient leaves within {g_err:.3e} of "
+            f"their max (tol 1e-4), updated params within {p_err:.3e} {tag}")
+
+
+def _slot_quality(out: str) -> list:
+    return [float(m) for m in re.findall(r"^slot +\d+: .*?quality=([0-9.]+)",
+                                          out, flags=re.M)]
+
+
+def train_tiny_serve(torch, ops, tag) -> dict:
+    """(e): launch/train_tiny.py at its defaults on the card, then
+    cluster_serve --smoke --nodes 2 --slots 2 with and without its
+    checkpoint; returns the launches of the three runs."""
+    from repro_torch.launch import cluster_serve, train_tiny
+    out_path = ROOT / "build" / "train_tiny" / "tiny_lm.npz"
+    t0 = time.perf_counter()
+    tiny, launches = _count_launches(
+        ops, lambda: train_tiny.main(["--out", str(out_path)]))
+    wall = time.perf_counter() - t0
+    n_attn = tiny["cfg"].num_layers
+    steps = tiny["losses"][-1][0] + 1
+    want = {"flash_attention": n_attn * steps,
+            "flash_attention_bwd": n_attn * steps}
+    check({k: c for k, c in launches.items() if c} == want,
+          f"train_tiny: launches {launches}, want {want}")
+    losses = tiny["losses"]
+    check(losses[-1][1] < losses[0][1], f"train_tiny: loss {losses}")
+    log(f"train[e]: train_tiny.py ({steps} steps of 16 x 192, "
+        f"{tiny['cfg'].name} d{tiny['cfg'].d_model} vocab "
+        f"{tiny['cfg'].vocab_size}) in {wall:.1f} s: loss "
+        f"{losses[0][1]:.4f} -> {losses[-1][1]:.4f}; launches "
+        f"{json.dumps(launches)} {tag}")
+    total = dict(launches)
+    quality = {}
+    for name, extra in (("random", []), ("trained", ["--ckpt",
+                                                     str(out_path)])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                _, got = _count_launches(
+                    ops, lambda: cluster_serve.main(TINY_CLI + extra))
+        finally:
+            sys.stdout.write(buf.getvalue())
+        text = buf.getvalue()
+        check("summary:" in text, f"cluster_serve {extra}: no summary")
+        if extra:
+            check("node 0 [olmo-1b]: loaded trained weights" in text
+                  and "node 1 [xlstm-350m]: ckpt arch/shape mismatch" in text,
+                  "cluster_serve --ckpt: node 0 did not load the trained "
+                  "weights, or node 1 did")
+        quality[name] = _slot_quality(text)
+        summary = re.search(r"quality=([0-9.]+)", text.split("summary:")[1])
+        quality[name].append(float(summary.group(1)))
+        for k, c in got.items():
+            total[k] = total.get(k, 0) + c
+        log(f"train[e]: cluster_serve {' '.join(TINY_CLI + extra)} in "
+            f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(got)}")
+    check(len(quality["random"]) == len(quality["trained"]) == 3,
+          f"train[e]: slot lines {quality}")
+    log("train[e]: mean quality per slot (slot 0, slot 1, summary), "
+        f"untrained weights {quality['random']}, with --ckpt "
+        f"{quality['trained']} {tag}")
+    for f in out_path.parent.glob("tiny_lm*"):
+        f.unlink()
+    free_models(torch)
+    return total
+
+
+def phase_train(torch, card, rec: dict) -> dict:
+    """The training path on the card: (a) the backward kernel against its
+    plain version, (b) launch/train.py at olmo-1b's published width, (c)
+    a fixed batch's loss falls, (d) card = CPU at the smoke configs, (e)
+    train_tiny and cluster_serve --ckpt.  Returns (b)'s and (e)'s
+    launches together."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    tag = f"[{card['smi']}]"
+    t0 = time.perf_counter()
+    train_kernels(torch, F, ops, ref, rec, card)
+    t_a = time.perf_counter()
+    total = train_launcher(torch, ops, ref, tag)
+    t_b = time.perf_counter()
+    train_fixed_batch(torch, tag)
+    t_c = time.perf_counter()
+    train_parity(torch, tag)
+    t_d = time.perf_counter()
+    for k, c in train_tiny_serve(torch, ops, tag).items():
+        total[k] = total.get(k, 0) + c
+    log(f"train: seconds by part (a) {t_a - t0:.1f}, (b) {t_b - t_a:.1f}, "
+        f"(c) {t_c - t_b:.1f}, (d) {t_d - t_c:.1f}, (e) "
+        f"{time.perf_counter() - t_d:.1f}; launches on the paths "
+        f"{json.dumps(total)}")
+    return total
+
+
 SIM_SLO = 15.0           # examples/hierarchical_scheduling_sim.py's --slo
 SIM_SLOTS = 20           # its --slots
 # three of its six profiling levels (5 .. 30 s): profiling the 2-GPU
@@ -5800,6 +6248,7 @@ def main(argv=None) -> int:
             "dense": lambda: phase_dense(torch, card, rec),
             "qwen": lambda: phase_qwen(torch, card, rec),
             "whisper": lambda: phase_whisper(torch, card, rec),
+            "train": lambda: phase_train(torch, card, rec),
             "kernels": lambda: phase_kernels(torch, card, captured, rec,
                                              traced),
             "parity": lambda: phase_parity(torch),

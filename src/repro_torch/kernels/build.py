@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES: Dict[str, str] = {
     "paged_attention": "paged_attention.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "topk": "topk.cu",
     "topk_list": "topk_list.cu",
     "topk_select": "topk_select.cu",

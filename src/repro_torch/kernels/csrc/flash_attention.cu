@@ -57,6 +57,11 @@
 // thread block per (16 query rows, head, row), 16-key tiles, the same
 // skip of dead tiles.  Shared rows are padded to hd+1 floats.
 //
+// With a non-null `lse` (the training path) each kernel also writes the
+// row's log-sum-exp m + log(l) of its scaled, capped, masked scores
+// [B, H, Sq] f32, which flash_attention_bwd.cu's backward reads; serving
+// passes null, and the output does not depend on it.
+//
 // Output is deterministic: fixed summation and merge orders, no atomics.
 
 #include <climits>
@@ -82,9 +87,9 @@ constexpr int kThreads = 128;
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ q_pos,
-             const int* __restrict__ kv_pos, float* __restrict__ out, int Sq,
-             int Sk, int H, int KV, int hd, float scale, int causal,
-             int window, float softcap) {
+             const int* __restrict__ kv_pos, float* __restrict__ out,
+             float* __restrict__ lse, int Sq, int Sk, int H, int KV, int hd,
+             float scale, int causal, int window, float softcap) {
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -177,11 +182,14 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     out[(((size_t)b * Sq + q0 + r) * H + h) * hd + d] =
         acc_s[i] / fmaxf(l_s[r], 1e-30f);
   }
+  if (lse != nullptr)
+    for (int r = tid; r < nrows; r += kThreads)
+      lse[((size_t)b * H + h) * Sq + q0 + r] = m_s[r] + logf(l_s[r]);
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* q_pos, const void* kv_pos, void* out,
-                       int B, int Sq, int Sk, int H, int KV, int hd,
+                       void* lse, int B, int Sq, int Sk, int H, int KV, int hd,
                        int causal, int window, float softcap,
                        cudaStream_t stream) {
   const int ld = hd + 1;
@@ -195,8 +203,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   flash_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_pos), static_cast<float*>(out), Sq, Sk, H,
-      KV, hd, 1.f / sqrtf(static_cast<float>(hd)), causal, window, softcap);
+      static_cast<const int*>(kv_pos), static_cast<float*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, KV, hd,
+      1.f / sqrtf(static_cast<float>(hd)), causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -236,8 +245,9 @@ __global__ void __launch_bounds__((MmaCfg<HD, kSplit>::NW * 32))
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ q_pos,
                  const int* __restrict__ kv_pos, bf16* __restrict__ out,
-                 int Sq, int Sk, int H, int KV, int hd, float scale,
-                 int causal, int window, float softcap, int vec) {
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 int hd, float scale, int causal, int window, float softcap,
+                 int vec) {
   using C = MmaCfg<HD, kSplit>;
   constexpr int QW = C::QW, KW = C::KW, BK = C::BK, LD = C::LD;
   constexpr int NT = C::NT, KS = C::KS, ON = C::ON, CH = HD / 8;
@@ -505,6 +515,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               __float2bfloat16(o[n][2 + e] / fmaxf(l1, 1e-30f));
       }
     }
+    if (lse != nullptr && t4 == 0) {
+      float* lr = lse + ((size_t)b * H + h) * Sq;
+      if (q0 + g < Sq) lr[q0 + g] = m0 + logf(l0);
+      if (q0 + g + 8 < Sq) lr[q0 + g + 8] = m1 + logf(l1);
+    }
   } else {
     // merge the warps' (m, l, O) in warp order, through the kv buffers
     __syncthreads();
@@ -541,6 +556,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       out[(((size_t)b * Sq + q0 + r) * H + h) * hd + d] =
           __float2bfloat16(acc / fmaxf(lt, 1e-30f));
+      if (lse != nullptr && d == 0)
+        lse[((size_t)b * H + h) * Sq + q0 + r] = mt + logf(lt);
     }
   }
 }
@@ -548,8 +565,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD, bool kSplit>
 cudaError_t launch_mma_hd(const void* q, const void* k, const void* v,
                           const void* q_pos, const void* kv_pos, void* out,
-                          int B, int Sq, int Sk, int H, int KV, int hd,
-                          int causal, int window, float softcap,
+                          void* lse, int B, int Sq, int Sk, int H, int KV,
+                          int hd, int causal, int window, float softcap,
                           cudaStream_t stream) {
   using C = MmaCfg<HD, kSplit>;
   cudaError_t err = rt::allow_smem(flash_mma_kernel<HD, kSplit>, C::kSmem);
@@ -560,22 +577,23 @@ cudaError_t launch_mma_hd(const void* q, const void* k, const void* v,
   flash_mma_kernel<HD, kSplit><<<grid, C::NW * 32, C::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_pos), static_cast<bf16*>(out), Sq, Sk, H,
-      KV, hd, 1.f / sqrtf(static_cast<float>(hd)), causal, window, softcap,
-      vec);
+      static_cast<const int*>(kv_pos), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, KV, hd,
+      1.f / sqrtf(static_cast<float>(hd)), causal, window, softcap, vec);
   return cudaGetLastError();
 }
 
 template <bool kSplit>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* q_pos, const void* kv_pos, void* out,
-                       int B, int Sq, int Sk, int H, int KV, int hd,
+                       void* lse, int B, int Sq, int Sk, int H, int KV, int hd,
                        int causal, int window, float softcap,
                        cudaStream_t st) {
 #define RT_FLASH_HD(N)                                                     \
   if (hd <= N)                                                             \
-    return launch_mma_hd<N, kSplit>(q, k, v, q_pos, kv_pos, out, B, Sq, Sk, \
-                                    H, KV, hd, causal, window, softcap, st);
+    return launch_mma_hd<N, kSplit>(q, k, v, q_pos, kv_pos, out, lse, B,   \
+                                    Sq, Sk, H, KV, hd, causal, window,     \
+                                    softcap, st);
   RT_FLASH_HD(16)
   RT_FLASH_HD(32)
   RT_FLASH_HD(64)
@@ -587,23 +605,23 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// window <= 0: no window; softcap <= 0: no softcap.  Returns a
-// cudaError_t code (0 = ok).
+// window <= 0: no window; softcap <= 0: no softcap; lse null: no row
+// log-sum-exp.  Returns a cudaError_t code (0 = ok).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* q_pos, const void* kv_pos,
-                               void* out, int B, int Sq, int Sk, int H,
+                               void* out, void* lse, int B, int Sq, int Sk, int H,
                                int KV, int hd, int causal, int window,
                                float softcap, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == RT_F32)
-    return launch_f32(q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, KV, hd,
-                      causal, window, softcap, st);
+    return launch_f32(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Sk, H, KV,
+                      hd, causal, window, softcap, st);
   if (dtype == RT_BF16) {
     if (Sq <= 16)
-      return launch_mma<true>(q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, KV,
-                              hd, causal, window, softcap, st);
-    return launch_mma<false>(q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, KV,
-                             hd, causal, window, softcap, st);
+      return launch_mma<true>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Sk, H,
+                              KV, hd, causal, window, softcap, st);
+    return launch_mma<false>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Sk, H,
+                             KV, hd, causal, window, softcap, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

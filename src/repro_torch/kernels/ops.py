@@ -8,6 +8,13 @@ Each wrapper adds one to ``launches[<name>]`` where it launches its
 kernel, and nowhere else, so a run can show which kernels it went
 through; each route of the two top-k functions counts under its entry
 point's name, the name ``topk_route`` and ``ivf_route`` return.
+
+``flash_attention`` is differentiable: on CUDA tensors that need a
+gradient (and with grad mode on) it runs the forward kernel through
+``FlashAttention``, an autograd function whose backward is
+``csrc/flash_attention_bwd.cu`` (counted as ``flash_attention_bwd``);
+otherwise it launches exactly what serving launches.  CPU tensors
+differentiate the plain version by autograd.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from repro_torch.kernels import build, ref
 
 launches: Dict[str, int] = {"paged_decode_attention": 0,
                             "flash_attention": 0,
+                            "flash_attention_bwd": 0,
                             "retrieval_topk": 0,
                             "ivf_retrieval_topk": 0,
                             "retrieval_topk_list": 0,
@@ -32,7 +40,9 @@ _SIGNATURES = {
     ("paged_attention", "paged_decode_attention"):
         [_VP] * 9 + [_I] * 8 + [_F, _I, _VP],
     ("flash_attention", "flash_attention"):
-        [_VP] * 6 + [_I] * 8 + [_F, _I, _VP],
+        [_VP] * 7 + [_I] * 8 + [_F, _I, _VP],
+    ("flash_attention_bwd", "flash_attention_bwd"):
+        [_VP] * 12 + [_I] * 8 + [_F, _I, _VP],
     ("topk", "retrieval_topk"): [_VP] * 6 + [_I] * 6 + [_VP],
     ("ivf_topk", "ivf_retrieval_topk"): [_VP] * 8 + [_I] * 9 + [_VP],
     ("topk_list", "retrieval_topk_list"): [_VP] * 8 + [_I] * 8 + [_VP],
@@ -178,10 +188,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """Position-masked attention, [B,Sq,H,hd] x [B,Sk,KV,hd]^2 with
-    q_pos [B,Sq], kv_pos [B,Sk] (< 0 = invalid slot) -> [B,Sq,H,hd]."""
+    q_pos [B,Sq], kv_pos [B,Sk] (< 0 = invalid slot) -> [B,Sq,H,hd].
+    Differentiable in q, k and v (see the module docstring)."""
     if _on_cpu(q, k, v, q_pos, kv_pos):
         return ref.flash_attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
                                        window=window, softcap=softcap)
+    _check_flash(q, k, v, q_pos, kv_pos)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window,
+                                    softcap)
+    return _flash_launch(q, k, v, q_pos, kv_pos, causal, window, softcap)
+
+
+def _check_flash(q, k, v, q_pos, kv_pos) -> None:
+    """The flash kernels' checks of CUDA inputs."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     _require(q.dtype in _DTYPE_CODE, f"q dtype {q.dtype} not f32/bf16")
@@ -197,16 +218,89 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(q_pos.dtype == torch.int32 and kv_pos.dtype == torch.int32,
              "positions must be int32")
     _contiguous(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
+
+
+def _flash_launch(q, k, v, q_pos, kv_pos, causal, window, softcap,
+                  lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the forward kernel on checked CUDA inputs; with ``lse``
+    ([B,H,Sq] f32) it also writes each row's log-sum-exp there."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     rc = _fn("flash_attention", "flash_attention")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(q_pos), _ptr(kv_pos), _ptr(out),
+        None if lse is None else _ptr(lse),
         B, Sq, Sk, H, KV, hd, int(bool(causal)), int(window or 0),
         float(softcap or 0.0), _DTYPE_CODE[q.dtype], _stream(q))
     _check_rc(rc, "flash_attention")
     launches["flash_attention"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``csrc/flash_attention.cu`` forward (writing the row log-sum-exp)
+    and ``csrc/flash_attention_bwd.cu`` backward, on checked CUDA
+    inputs; the positions and options take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap):
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        out = _flash_launch(q, k, v, q_pos, kv_pos, causal, window, softcap,
+                            lse=lse)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.opts = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_pos, kv_pos, out,
+                                         dout.contiguous(), lse, *ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention(q, k, v, q_pos, kv_pos)`` for
+    the output gradient ``dout`` [B,Sq,H,hd], given the forward's
+    ``out`` and row log-sum-exp ``lse`` [B,H,Sq] f32.  CPU tensors take
+    the plain version (autograd of ``ref.flash_attention_ref``, which
+    needs neither ``out`` nor ``lse``); CUDA tensors launch
+    ``csrc/flash_attention_bwd.cu``.  Gradients of a query row with no
+    valid key are unspecified."""
+    if _on_cpu(q, k, v, q_pos, kv_pos, out, dout, lse):
+        return ref.flash_attention_bwd_ref(q, k, v, q_pos, kv_pos, dout,
+                                           causal=causal, window=window,
+                                           softcap=softcap)
+    _check_flash(q, k, v, q_pos, kv_pos)
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    _require(out.shape == q.shape and dout.shape == q.shape
+             and out.dtype == q.dtype and dout.dtype == q.dtype,
+             "out and dout must match q's shape and dtype")
+    _require(lse.shape == (B, H, Sq) and lse.dtype == torch.float32,
+             "lse [B,H,Sq] float32 expected")
+    _contiguous(out=out, dout=dout, lse=lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty_like(lse)
+    rc = _fn("flash_attention_bwd", "flash_attention_bwd")(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(q_pos), _ptr(kv_pos), _ptr(out),
+        _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
+        B, Sq, Sk, H, KV, hd, int(bool(causal)), int(window or 0),
+        float(softcap or 0.0), _DTYPE_CODE[q.dtype], _stream(q))
+    _check_rc(rc, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 def flash_attention_aligned(q: torch.Tensor, k: torch.Tensor,

@@ -86,6 +86,25 @@ def flash_attention_ref(
     return o.to(q.dtype)
 
 
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, kv_pos: torch.Tensor, dout: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_ref`` for the output gradient
+    ``dout``, by autograd of the unblocked version: the plain version of
+    ``csrc/flash_attention_bwd.cu``.  A query with no valid key has a
+    uniform softmax here, which feeds dv; the kernel leaves such rows
+    out, so they are unspecified and callers do not compare them."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, q_pos, kv_pos, causal=causal,
+                                  window=window, softcap=softcap)
+        grads = torch.autograd.grad(out, leaves, dout)
+    return grads[0], grads[1], grads[2]
+
+
 def topk_ref(queries: torch.Tensor, docs: torch.Tensor, k: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact inner-product top-k: (scores [Nq,k] f32, idx [Nq,k] int32).

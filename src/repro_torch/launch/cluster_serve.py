@@ -15,19 +15,25 @@ per-slot measured latency, quality and drops.
     ... --no-inter-node          # capacity-unaware routing ablation
     ... --trace spike --arrival-rate 40   # open-loop saturation replay
     ... --index ivf --nprobe 3   # ANN retrieval instead of the flat scan
+    ... --ckpt experiments/tiny_lm.npz   # trained generator weights
 
 Every flag of the reference is accepted, with its default: without
 ``--paged`` the nodes serve through the non-paged engine, and ``--queue
 wave`` runs synchronous waves.  Nodes cycle through the reference's
 ``NODE_ARCHS`` (olmo-1b, xlstm-350m, hymba-1.5b, qwen2-moe-a2.7b), so
-``--nodes 4`` serves one node of each.  What the port does not serve yet
-raises ``NotImplementedError`` before anything is built: ``--ckpt``
-(ROADMAP A6), and a node of an architecture the port has no config for
-(A4).  ``build_cluster(models=...)`` takes each node's ``(cfg, params)``
-in place of the drawn weights.
+``--nodes 4`` serves one node of each.  ``--ckpt`` takes a
+``launch/train_tiny`` checkpoint (or the reference's
+``examples/train_tiny.py`` one: the format is shared): the tokenizer
+comes from its ``_vocab.json``, and every node whose architecture and
+shapes match it serves the trained weights; the others print the
+reference's mismatch line and draw their weights.  A node of an
+architecture the port has no config for raises ``NotImplementedError``
+before anything is built (A4).  ``build_cluster(models=...)`` takes each
+node's ``(cfg, params)`` in place of the drawn weights.
 """
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -44,17 +50,30 @@ from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.retrieval.cache import SemanticQueryCache
 from repro_torch.retrieval.encoder import TextEncoder
+from repro_torch.train import checkpoint
 
 # heterogeneous architectures, cycled across nodes (the reference's)
 NODE_ARCHS = ("olmo-1b", "xlstm-350m", "hymba-1.5b", "qwen2-moe-a2.7b")
 
+# launch/train_tiny.py checkpoint geometry (see its make_dataset/main)
+CKPT_D_MODEL = 256
 
-def check_ported(n_nodes: int, archs=NODE_ARCHS, *, ckpt=None) -> None:
+
+def _load_ckpt_params(ckpt: str, arch: str, vocab: int, max_len: int,
+                      device="cuda"):
+    """Try restoring a ``train_tiny`` checkpoint into this arch; returns
+    (cfg, params) or None when the architecture/shape doesn't match."""
+    cfg = get_smoke_config(arch, max_d_model=CKPT_D_MODEL, vocab=vocab)
+    like = Model(cfg).init_params(seed=0, device=device, max_seq=max_len)
+    try:
+        return cfg, checkpoint.load(ckpt, like, cfg)
+    except (KeyError, ValueError):
+        return None
+
+
+def check_ported(n_nodes: int, archs=NODE_ARCHS) -> None:
     """Raise ``NotImplementedError``, naming its ROADMAP item, for what
     the port cannot serve yet."""
-    if ckpt:
-        raise NotImplementedError("--ckpt: loading trained checkpoints is "
-                                  "not ported yet (ROADMAP A6)")
     missing = sorted({archs[n % len(archs)] for n in range(n_nodes)}
                      - set(ARCH_IDS))
     if missing:
@@ -78,17 +97,23 @@ def build_cluster(n_nodes: int, *, smoke: bool = True, entities: int = 8,
     Returns (nodes, workload-ready qas, tokenizer, encoder, identifier,
     coverage matrix).  Node n serves ``models[n]`` = (cfg, params) when
     ``models`` is given, else a smoke config of its architecture with
-    weights drawn from seed ``seed + n``; ``federated`` attaches a shared
+    weights drawn from seed ``seed + n``.  ``ckpt`` loads ``train_tiny``
+    weights (and their vocab) into every node whose architecture and
+    shapes match the checkpoint; ``federated`` attaches a shared
     ``FederatedRetriever`` to all nodes."""
-    check_ported(n_nodes, archs, ckpt=ckpt)
+    check_ported(n_nodes, archs)
     if models is not None and len(models) != n_nodes:
         raise ValueError(f"models has {len(models)} entries for "
                          f"{n_nodes} nodes")
     dev = resolve_device(device)
     docs, qas = generate_corpus(entities, seed=seed)
-    tok = Tokenizer.build([d.text for d in docs]
-                          + [qa.question for qa in qas]
-                          + ["context question answer <sep>"])
+    if ckpt:
+        with open(os.path.splitext(ckpt)[0] + "_vocab.json") as f:
+            tok = Tokenizer(json.load(f))
+    else:
+        tok = Tokenizer.build([d.text for d in docs]
+                              + [qa.question for qa in qas]
+                              + ["context question answer <sep>"])
     encoder = TextEncoder(seed=seed)
     n_domains = len(DOMAINS)
     primaries = [[d for d in range(n_domains) if d % n_nodes == n]
@@ -97,9 +122,18 @@ def build_cluster(n_nodes: int, *, smoke: bool = True, entities: int = 8,
     nodes = []
     for n in range(n_nodes):
         arch = archs[n % len(archs)]
+        loaded = _load_ckpt_params(ckpt, arch, len(tok), max_len, dev) \
+            if ckpt and models is None else None
         if models is not None:
             cfg, params = models[n]
+        elif loaded is not None:
+            cfg, params = loaded
+            print(f"node {n} [{arch}]: loaded trained weights from {ckpt}",
+                  flush=True)
         else:
+            if ckpt:
+                print(f"node {n} [{arch}]: ckpt arch/shape mismatch — "
+                      f"random init", flush=True)
             cfg = get_smoke_config(arch,
                                    max_d_model=d_model if smoke else 128,
                                    vocab=len(tok))
@@ -164,7 +198,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache", action="store_true",
                     help="per-node semantic query cache")
     ap.add_argument("--ckpt", default=None,
-                    help="trained checkpoint (not ported: ROADMAP A6)")
+                    help="trained checkpoint (launch/train_tiny.py's .npz)")
     ap.add_argument("--queue", default="continuous",
                     choices=["continuous", "standing", "wave"],
                     help="per-node request scheduler: continuous "
@@ -218,7 +252,7 @@ def main(argv=None) -> None:
         args.queue = "standing"
     if args.arrival_rate is not None:
         args.per_slot = max(1, round(args.arrival_rate * args.slot_s))
-    check_ported(args.nodes, ckpt=args.ckpt)
+    check_ported(args.nodes)
     device = resolve_device(args.device)
 
     rec = obs.enable() if args.trace_out else None
@@ -242,7 +276,7 @@ def main(argv=None) -> None:
             federated=args.federated, fanout=args.fanout,
             queue=args.queue, prefill_chunk=args.prefill_chunk,
             paged=args.paged, block_size=args.block_size,
-            admission=args.admission, device=device)
+            admission=args.admission, ckpt=args.ckpt, device=device)
         print("corpus coverage per node:\n", np.round(cov, 2), flush=True)
         if args.federated:
             fed = nodes[0].federation

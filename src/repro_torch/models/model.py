@@ -16,7 +16,8 @@ and a Mamba SSM on the same normed input, fuses them as ``0.5 *
 Entry points (pure functions of the parameter dict, except that the
 cache's buffers or pools, per-row state and ``length`` are updated):
 
-  forward(params, tokens, positions, vision_embeds)   -> logits [B,S,V]
+  forward(params, tokens, positions, vision_embeds,
+          return_aux, remat)                          -> logits [B,S,V]
   prefill(params, tokens, positions, cache,
           vision_embeds)                              -> last logits [B,V]
   prefill_chunk(params, tokens, positions, cache)     -> last logits [B,V]
@@ -70,14 +71,22 @@ and the chunks store each layer's cross-attention K/V in the row's state
 (``xk`` / ``xv``, ``cache.init_row_state``); a decode step reads them.
 Its decoder layers must be "attn" layers, as in the one such config.
 
+``forward`` is differentiable for every kind (the training path,
+``repro_torch.train``): with ``return_aux`` it also returns the MoE
+layers' summed load-balance loss, and with ``remat`` each decoder layer
+runs under ``torch.utils.checkpoint`` (its activations recomputed in the
+backward pass).  The serving entry points write caches in place and are
+not differentiated.
+
 Layer kinds other than these five raise ``NotImplementedError``, as does
 an encoder-decoder config with other decoder layers.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -303,12 +312,20 @@ class Model:
         return self._angles(positions), \
             positions if positions.dim() == 2 else positions[0]
 
-    def _mlp(self, p, x: torch.Tensor) -> torch.Tensor:
-        """The MLP (or MoE) sublayer with its residual."""
+    def _mlp(self, p, x: torch.Tensor,
+             aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """The MLP (or MoE) sublayer with its residual.  A MoE layer
+        appends its load-balance loss to ``aux`` when one is given."""
         if "moe" in p:
             h = L.apply_norm(p["ln2"], x, self.cfg)
-            return x + moe.apply_moe(p["moe"], h, self.cfg,
-                                     capacity_factor=self.moe_cf)
+            if aux is None:
+                return x + moe.apply_moe(p["moe"], h, self.cfg,
+                                         capacity_factor=self.moe_cf)
+            y, a = moe.apply_moe(p["moe"], h, self.cfg,
+                                 capacity_factor=self.moe_cf,
+                                 return_aux=True)
+            aux.append(a)
+            return x + y
         if "mlp" not in p:
             return x
         return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, self.cfg),
@@ -318,13 +335,17 @@ class Model:
         return self.head(params, L.apply_norm(params["final_norm"], x,
                                               self.cfg))
 
+    def lm_head(self, params) -> torch.Tensor:
+        """The LM head [D, V]: the embedding's transpose when tied."""
+        return params["embed"].T if self.cfg.tie_embeddings \
+            else params["lm_head"]
+
     def head(self, params, feats: torch.Tensor) -> torch.Tensor:
         """Logits of final-normed features (``forward(...,
         return_features=True)``): the LM head (the embedding's transpose
         when tied), then the final softcap in f32 if the config has one."""
         cfg = self.cfg
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = feats @ head
+        logits = feats @ self.lm_head(params)
         if cfg.final_logit_softcap:
             logits = cfg.final_logit_softcap * torch.tanh(
                 logits.float() / cfg.final_logit_softcap)
@@ -349,7 +370,8 @@ class Model:
 
     def _hymba(self, p, x: torch.Tensor, st: Optional[dict], angles,
                attend, mask: Optional[torch.Tensor] = None,
-               step: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
+               step: bool = False, aux: Optional[list] = None
+               ) -> Tuple[torch.Tensor, Optional[dict]]:
         """One hymba layer: attention and Mamba branches on the same
         ``ln1`` output, fused as ``0.5 * (bn_a(attn) + bn_m(mamba))``,
         then the MLP sublayer.  ``attend(q, k, v, st)`` reads (and
@@ -369,21 +391,23 @@ class Model:
         x = x + 0.5 * (L.apply_norm(p["bn_a"], ao, cfg)
                        + L.apply_norm(p["bn_m"], mo, cfg))
         new = None if st is None else dict(st, **mstate)
-        return self._mlp(p, x), new
+        return self._mlp(p, x, aux), new
 
     def _rolling(self, kind: str, p, x: torch.Tensor, st: Optional[dict],
                  angles, attend, mask: Optional[torch.Tensor] = None,
-                 step: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
+                 step: bool = False, aux: Optional[list] = None
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """A layer whose K/V is a rolling buffer in ``st``: a hymba layer
         (``_hymba``), or a "local" one: windowed attention through
         ``attend(q, k, v, st)`` (which reads and writes ``st``'s buffer),
-        then the MLP sublayer.  Returns (x, the layer's new state)."""
+        then the MLP sublayer (a MoE one appends its load-balance loss to
+        ``aux``).  Returns (x, the layer's new state)."""
         if kind == "hymba":
-            return self._hymba(p, x, st, angles, attend, mask, step)
+            return self._hymba(p, x, st, angles, attend, mask, step, aux)
         h = L.apply_norm(p["ln1"], x, self.cfg)
         q, k, v = L.qkv_project(p["attn"], h, self.cfg, angles)
         x = x + L.attention_out(p["attn"], attend(q, k, v, st))
-        return self._mlp(p, x), st
+        return self._mlp(p, x, aux), st
 
     def _rolling_len(self, cache) -> int:
         """Slots of the rolling K/V buffers in ``cache``."""
@@ -395,18 +419,45 @@ class Model:
                 positions: torch.Tensor,
                 return_features: bool = False,
                 vision_embeds: Optional[torch.Tensor] = None,
-                encoder_frames: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                encoder_frames: Optional[torch.Tensor] = None,
+                return_aux: bool = False, remat: bool = False):
         """Full-sequence forward: tokens [B,S] (after ``vision_embeds``
         [B,Nv,D] if given) at positions [B,Nv+S] or [3,B,Nv+S] -> logits
         [B,Nv+S,V] (recurrent layers start from zero state), or with
         ``return_features`` the final-normed features [B,Nv+S,D], which
         ``head`` turns into logits (at the columns a caller needs).  An
-        encoder-decoder model attends to ``encoder_frames`` [B,Se,D]."""
+        encoder-decoder model attends to ``encoder_frames`` [B,Se,D].
+        With ``return_aux`` it returns (that output, the MoE layers'
+        summed load-balance loss, an f32 scalar: 0 without MoE layers),
+        as the reference's training forward does.  ``remat`` checkpoints
+        each decoder layer (``torch.utils.checkpoint``, non-reentrant):
+        the same values, activations recomputed in the backward pass."""
         cfg = self.cfg
         angles, positions = self._angles_pos2d(positions)
         x = self._embed(params, tokens, positions, vision_embeds)
         enc_out = self._encoder_out(params, encoder_frames)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for kind, p in zip(self.kinds, params["blocks"]):
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    self._train_layer, kind, p, x, angles, positions,
+                    enc_out, use_reentrant=False)
+            else:
+                x, a = self._train_layer(kind, p, x, angles, positions,
+                                         enc_out)
+            aux = aux + a
+        out = L.apply_norm(params["final_norm"], x, cfg) \
+            if return_features else self._logits(params, x)
+        return (out, aux) if return_aux else out
+
+    def _train_layer(self, kind: str, p, x: torch.Tensor, angles,
+                     positions: torch.Tensor,
+                     enc_out: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One decoder layer of ``forward`` (no cache): (x, the layer's
+        load-balance loss, 0 unless it is a MoE layer)."""
+        cfg = self.cfg
+        aux: List[torch.Tensor] = []
 
         def attend(q, k, v, st):
             return self._attention(q, k, v, positions, positions)
@@ -414,26 +465,25 @@ class Model:
         def attend_fill(q, k, v, st):   # pad columns reach the Mamba branch
             return L.fill_pad_queries(attend(q, k, v, st), v, positions)
 
-        for kind, p in zip(self.kinds, params["blocks"]):
-            if kind in ROLLING_KINDS:
-                x, _ = self._rolling(kind, p, x, None, angles,
-                                     attend_fill if kind == "hymba"
-                                     else attend)
-                continue
+        if kind in ROLLING_KINDS:
+            x, _ = self._rolling(kind, p, x, None, angles,
+                                 attend_fill if kind == "hymba" else attend,
+                                 aux=aux)
+        elif kind != "attn":
+            x = x + self._cell(p, kind, L.apply_norm(p["ln1"], x, cfg),
+                               None)[0]
+        else:
             h = L.apply_norm(p["ln1"], x, cfg)
-            if kind != "attn":
-                x = x + self._cell(p, kind, h, None)[0]
-                continue
             q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
             a = L.flash_attention(q, k, v, positions, positions, causal=True,
                                   softcap=cfg.attn_logit_softcap)
             x = x + L.attention_out(p["attn"], a)
             if self.cross:
                 x = self._cross(p, x, enc_out, None)
-            x = self._mlp(p, x)
-        if return_features:
-            return L.apply_norm(params["final_norm"], x, cfg)
-        return self._logits(params, x)
+            x = self._mlp(p, x, aux)
+        total = sum(aux) if aux else torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+        return x, total
 
     def prefill(self, params, tokens: torch.Tensor,
                 positions: torch.Tensor, cache: cache_lib.Cache,

@@ -30,7 +30,9 @@ Semantics held to the reference:
     atomics: the sum is a fixed sequence of adds;
   * the shared expert's sigmoid gate is computed in f32 and cast to x's
     dtype.
-The load-balance loss is a training quantity and is not computed.
+With ``return_aux`` the layer also returns the Switch load-balance
+loss: (mean router probability · fraction of top-1 choices) summed over
+experts, times E and ``router_aux_loss_coef``, as the reference's.
 """
 from __future__ import annotations
 
@@ -75,10 +77,27 @@ def capacity(S: int, k: int, E: int, capacity_factor: float) -> int:
 def route(params, x: torch.Tensor, k: int):
     """(top_idx [B,S,k] int64, gates [B,S,k] in x's dtype): the top-k
     router logits, ties to the lower expert id."""
+    return _route(params, x, k)[:2]
+
+
+def _route(params, x: torch.Tensor, k: int):
+    """``route``'s (top_idx, gates) and the f32 router logits [B,S,E]."""
     logits = (x @ params["router"]).float()
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     gates = torch.softmax(vals[..., :k], dim=-1).to(x.dtype)
-    return idx[..., :k], gates
+    return idx[..., :k], gates, logits
+
+
+def load_balance_loss(logits: torch.Tensor, top_idx: torch.Tensor,
+                      coef: float) -> torch.Tensor:
+    """The Switch auxiliary loss (f32 scalar) of router logits [B,S,E]
+    and the top-k choices [B,S,k]: the mean router probability of each
+    expert times the fraction of tokens whose top-1 choice it is, summed,
+    times E and ``coef``."""
+    E = logits.shape[-1]
+    me = torch.softmax(logits, dim=-1).mean((0, 1))
+    ce = F.one_hot(top_idx[..., 0], E).float().mean((0, 1))
+    return (me * ce).sum() * E * coef
 
 
 def capacity_keep(top_idx: torch.Tensor, E: int, C: int) -> torch.Tensor:
@@ -134,12 +153,13 @@ def _experts_grouped(params, xa: torch.Tensor, e: torch.Tensor,
 
 
 def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
-              capacity_factor: float = 1.25) -> torch.Tensor:
-    """x [B,S,D] -> y [B,S,D] (routed experts + shared expert)."""
+              capacity_factor: float = 1.25, return_aux: bool = False):
+    """x [B,S,D] -> y [B,S,D] (routed experts + shared expert), or with
+    ``return_aux`` (y, the load-balance loss, an f32 scalar)."""
     m = cfg.moe
     B, S, D = x.shape
     k, E = m.num_experts_per_tok, m.num_experts
-    top_idx, gates = route(params, x, k)
+    top_idx, gates, logits = _route(params, x, k)
     keep = capacity_keep(top_idx, E, capacity(S, k, E, capacity_factor))
     n = B * S * k
     xa = x[:, :, None].expand(B, S, k, D).reshape(n, D)
@@ -161,4 +181,6 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
         sp = params["shared"]
         gate = torch.sigmoid((x @ sp["gate"]).float()).to(x.dtype)
         y = y + _swiglu(x, sp["wg"], sp["wi"], sp["wo"]) * gate
+    if return_aux:
+        return y, load_balance_loss(logits, top_idx, m.router_aux_loss_coef)
     return y

@@ -147,13 +147,11 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
             m = mask[:, sl].transpose(0, 1)[:, :, None, None]
             dA = torch.where(m, dA, torch.ones_like(dA))
             dBx = torch.where(m, dBx, torch.zeros_like(dBx))
-        hs = torch.empty_like(dA)
-        for t in range(dA.shape[0]):
-            torch.mul(h, dA[t], out=hs[t])
-            hs[t].add_(dBx[t])
-            h = hs[t]
-        ys.append(torch.einsum("tbis,bts->bti", hs, Cm[:, sl]))
-    h = h.clone()
+        hs = []
+        for t in range(dA.shape[0]):   # out of place: autograd follows it
+            h = h * dA[t] + dBx[t]
+            hs.append(h)
+        ys.append(torch.einsum("tbis,bts->bti", torch.stack(hs), Cm[:, sl]))
     y = torch.cat(ys, dim=1) + params["D"] * x32
     out = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
     # conv history for decode continuation: always [B, W-1, inner]

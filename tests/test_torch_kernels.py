@@ -180,12 +180,14 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     x = torch.randn(1, 4, 2, 8)
     pos = torch.arange(4, dtype=torch.int32)[None]
     ops.flash_attention(x, x, x, pos, pos)
+    ops.flash_attention_bwd(x, x, x, pos, pos, x, x, torch.zeros(1, 2, 4))
     ops.retrieval_topk(torch.randn(2, 8), torch.randn(5, 8), 2)
     ops.ivf_retrieval_topk(torch.randn(2, 8), torch.randn(3, 4, 8),
                            torch.arange(12, dtype=torch.int32).view(3, 4),
                            torch.zeros(2, 1, dtype=torch.int32), 2)
     assert ops.launches == {"paged_decode_attention": 0,
-                            "flash_attention": 0, "retrieval_topk": 0,
+                            "flash_attention": 0,
+                            "flash_attention_bwd": 0, "retrieval_topk": 0,
                             "ivf_retrieval_topk": 0,
                             "retrieval_topk_list": 0,
                             "retrieval_topk_select": 0,

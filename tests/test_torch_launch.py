@@ -6,9 +6,10 @@ one slot when the port is handed the reference's weights through
 ``--device cpu`` (their traces pass ``tools/trace_report.py --check`` and
 the metrics self-probe prints OK), four nodes (the reference's whole
 node cycle: olmo-1b, xlstm-350m, hymba-1.5b, qwen2-moe-a2.7b) built and
-serving a slot as the reference's do, and the flag the port does not
-serve yet (``--ckpt``) raising ``NotImplementedError`` before anything is
-built."""
+serving a slot as the reference's do, ``--ckpt`` (ported with training)
+reaching ``build_cluster``, and the flag the port does not serve yet
+(``launch.train --production-mesh``, ROADMAP A7) raising
+``NotImplementedError`` before anything is built."""
 import pathlib
 import subprocess
 import sys
@@ -25,6 +26,7 @@ from repro.launch import cluster_serve as j_serve  # noqa: E402
 from repro_torch import bridge, obs  # noqa: E402
 from repro_torch.core.cluster import Query  # noqa: E402
 from repro_torch.launch import cluster_serve  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the README quickstart's cluster command (README.md, CI docs-check)
@@ -121,16 +123,38 @@ def test_main_runs_the_documented_commands(argv, tmp_path, capsys):
     assert not obs.enabled() and not obs.metrics_enabled()
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--paged", "--ckpt", "tiny.npz"], "A6"),
-], ids=["ckpt"])
-def test_unported_flags_raise_before_building(extra, item, monkeypatch):
-    def boom(*args, **kw):
-        raise AssertionError("build_cluster ran")
+class _Reached(Exception):
+    """``build_cluster`` was called (with these keyword arguments)."""
 
-    monkeypatch.setattr(cluster_serve, "build_cluster", boom)
-    with pytest.raises(NotImplementedError, match=item):
+
+@pytest.mark.parametrize("launcher,extra,item", [
+    ("cluster_serve", ["--paged", "--ckpt", "tiny.npz"], None),
+    ("train", ["--production-mesh"], "A7"),
+], ids=["ckpt", "production-mesh"])
+def test_unported_flags_raise_before_building(launcher, extra, item,
+                                              monkeypatch):
+    """A flag the port does not serve yet raises ``NotImplementedError``,
+    naming its ROADMAP item, before anything is built.  ``--ckpt`` (A6,
+    which raised here until training was ported) now raises nothing: the
+    launcher hands its path to ``build_cluster``."""
+    seen = {}
+
+    def reached(*args, **kw):
+        seen.update(kw)
+        raise _Reached
+
+    def boom(*args, **kw):
+        raise AssertionError("the model was built")
+
+    if launcher == "train":
+        monkeypatch.setattr(train, "Model", boom)
+        with pytest.raises(NotImplementedError, match=item):
+            train.main(["--smoke", "--device", "cpu"] + extra)
+        return
+    monkeypatch.setattr(cluster_serve, "build_cluster", reached)
+    with pytest.raises(_Reached):
         cluster_serve.main(["--smoke", "--device", "cpu"] + extra)
+    assert seen["ckpt"] == "tiny.npz" and seen["paged"]
     assert not obs.metrics_enabled()
 
 

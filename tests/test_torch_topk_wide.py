@@ -96,7 +96,8 @@ def test_k_below_one_raises(fn, k):
 def test_launch_counts_name_each_route():
     assert {"retrieval_topk", "ivf_retrieval_topk", "retrieval_topk_list",
             "retrieval_topk_select", "ivf_retrieval_topk_select"} == \
-        set(ops.launches) - {"paged_decode_attention", "flash_attention"}
+        set(ops.launches) - {"paged_decode_attention", "flash_attention",
+                             "flash_attention_bwd"}
     ops.launches["retrieval_topk_select"] = 3
     ops.launches["retrieval_topk_list"] = 4
     ops.launches["ivf_retrieval_topk_select"] = 2
