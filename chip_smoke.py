@@ -236,9 +236,11 @@ Phases, in order:
            csrc/flash_attention_bwd.cu against autograd of the plain
            version on the card at olmo-1b's training shape (q = k
            [4,256,16,128] causal, bf16), at [2,128,16,256] over 8 KV
-           heads with window 64 and softcap 50 (bf16) and at a small f32
-           shape with invalid kv slots and G 2; each timed beside the
-           plain backward and SDPA's (no softcap form) with its bound.
+           heads with window 64 and softcap 50 (bf16), at a small f32
+           shape with invalid kv slots and G 2, and at whisper-base's
+           encoder ([4,1500,8,64], not causal, bf16); each timed beside
+           the plain backward and SDPA's (no softcap form) with its
+           bound.
            (b) launch/train.py --arch olmo-1b --steps 6 --batch 4 --seq
            256 --ckpt through its main at published width (bf16, remat
            on): every launch count at 0 just before and read just after,
@@ -652,19 +654,23 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line or \
                     "Compiling entry" in line:
                 log(f"  ptxas[{name}] {line.strip()}")
-    # tensor-core instructions in each bf16 flash kernel's machine code
-    per_fn, fn = {}, None
-    for line in build.sass("flash_attention").splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            per_fn[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            per_fn[fn] += 1
-    mma = {f: n for f, n in per_fn.items() if "flash_mma_kernel" in f}
-    for f, n in mma.items():
-        log(f"  sass[flash_attention] {n} HMMA in {f}")
-    check(bool(mma) and all(n > 0 for n in mma.values()),
-          f"the bf16 flash kernels carry no HMMA instruction: {per_fn}")
+    # tensor-core instructions in each bf16 flash kernel's machine code:
+    # the forward's, and the backward's at its 5 head dims
+    for lib, kernel, count in (("flash_attention", "flash_mma_kernel", None),
+                               ("flash_attention_bwd", "bwd_mma_kernel", 5)):
+        per_fn, fn = {}, None
+        for line in build.sass(lib).splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                per_fn[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                per_fn[fn] += 1
+        mma = {f: n for f, n in per_fn.items() if kernel in f}
+        for f, n in mma.items():
+            log(f"  sass[{lib}] {n} HMMA in {f}")
+        check(bool(mma) and count in (None, len(mma))
+              and all(n > 0 for n in mma.values()),
+              f"the bf16 {lib} kernels carry no HMMA instruction: {per_fn}")
     # the top-k and IVF scan kernels' instruction mix: f32 FFMA, shared
     # loads (LDS.128 are the float4 reads of the register tile), cp.async
     for lib, scan in (("topk", "topk_scan_kernel"),
@@ -3630,6 +3636,10 @@ TRAIN_BWD_CASES = (
      True, 64, 50.0, False),
     ("f32 invalid kv slots G 2", 2, 80, 4, 2, 64, "float32", True, None,
      None, True),
+    # whisper-base's encoder at published width (1500 frames, 8 heads of
+    # 64, not causal): no tile skip, hd 64, a tail of 1500 mod 64 rows
+    ("whisper-base encoder", 4, 1500, 8, 8, 64, "bfloat16", False, None,
+     None, False),
 )
 # bf16: the kernel's f32 gradients rounded to bf16, against the plain
 # backward in f32 on the same bf16 inputs, also apart by the forward's
@@ -3691,16 +3701,21 @@ def _live(torch, qp, kvp, causal, window):
 def _sdpa_bwd(torch, F, q, k, v, do, qp, kvp, causal, window):
     """Yardstick: SDPA's backward on the same function (None with a
     softcap, which SDPA has no form for): is_causal for aligned causal
-    inputs, else the position mask as a bool mask, GQA by repeating the
-    KV heads.  Times the backward of one forward kept alive."""
+    inputs, no mask where every pair counts (not causal, no window, no
+    invalid key), else the position mask as a bool mask, GQA by
+    repeating the KV heads.  Times the backward of one forward kept
+    alive."""
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).detach().requires_grad_(True)
     kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2).detach()
               .requires_grad_(True) for x in (k, v))
     aligned = causal and not window and bool((qp == kvp).all()) \
         and bool((kvp >= 0).all())
+    every = not causal and not window and bool((kvp >= 0).all())
     if aligned:
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    elif every:
+        o = F.scaled_dot_product_attention(qt, kt, vt)
     else:
         kp, qq = kvp[:, None, :], qp[:, :, None]
         mask = kp >= 0
@@ -3718,7 +3733,8 @@ def _sdpa_bwd(torch, F, q, k, v, do, qp, kvp, causal, window):
 
 def train_kernels(torch, F, ops, ref, rec, card) -> None:
     """(a): flash_attention_bwd.cu against autograd of the plain version
-    at the three shapes, timed beside it and SDPA's backward."""
+    at the shapes of TRAIN_BWD_CASES, timed beside it and SDPA's
+    backward."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(30)
     rows = []
@@ -3783,9 +3799,11 @@ def train_kernels(torch, F, ops, ref, rec, card) -> None:
     rec["flash_attention_bwd"]["shapes"] = rows
 
 
-def train_launcher(torch, ops, ref, tag) -> dict:
+def train_launcher(torch, ops, ref, tag, bwd_ms) -> dict:
     """(b): launch/train.py at olmo-1b's published width through its
-    main; its launches, and the plain versions' calls (none)."""
+    main; its launches, and the plain versions' calls (none).  The
+    backward's ms a step is its launches a step times ``bwd_ms``, (a)'s
+    kernel time at this shape."""
     import numpy as np
     from repro_torch.launch import train
     from repro_torch.train import checkpoint
@@ -3827,10 +3845,13 @@ def train_launcher(torch, ops, ref, tag) -> dict:
         "train: the checkpoint does not load back into equal params")
     size = path.stat().st_size
     path.unlink()
+    per_step = launches["flash_attention_bwd"] // steps
     log(f"train[b]: launch/train.py {' '.join(TRAIN_CLI)} --ckpt: "
         f"{params / 1e9:.3f}B params ({cfg.dtype}, remat on), losses "
         f"{[round(x, 4) for x in out['losses']]}; step {out['step_ms']:.1f} "
-        f"ms (median of steps 1-{steps - 1}), {out['tokens_per_s']:.0f} "
+        f"ms (median of steps 1-{steps - 1}), of it the backward kernel "
+        f"{per_step} x {bwd_ms:.4f} = {per_step * bwd_ms:.2f} ms (launches "
+        f"a step x (a)'s kernel ms), {out['tokens_per_s']:.0f} "
         f"tokens/s, peak {out['peak_gib'] or 0:.2f} GiB; {wall:.1f} s with the "
         f"checkpoint ({size / 2 ** 30:.2f} GiB written, loaded back equal "
         f"in {load_s:.1f} s); launches {json.dumps(launches)} (plain "
@@ -4023,7 +4044,8 @@ def phase_train(torch, card, rec: dict) -> dict:
     t0 = time.perf_counter()
     train_kernels(torch, F, ops, ref, rec, card)
     t_a = time.perf_counter()
-    total = train_launcher(torch, ops, ref, tag)
+    total = train_launcher(torch, ops, ref, tag,
+                           rec["flash_attention_bwd"]["ms"])
     t_b = time.perf_counter()
     train_fixed_batch(torch, tag)
     t_c = time.perf_counter()

@@ -274,8 +274,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out`` and row log-sum-exp ``lse`` [B,H,Sq] f32.  CPU tensors take
     the plain version (autograd of ``ref.flash_attention_ref``, which
     needs neither ``out`` nor ``lse``); CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu``.  Gradients of a query row with no
-    valid key are unspecified."""
+    ``csrc/flash_attention_bwd.cu``: f32 its FFMA kernels
+    (``dkdv_kernel``, ``dq_kernel``), bf16 its tensor-core kernel
+    (``bwd_mma_kernel``), each after the row sums of ``dout * out``; a
+    refused launch raises.  Gradients of a query row with no valid key
+    are unspecified."""
     if _on_cpu(q, k, v, q_pos, kv_pos, out, dout, lse):
         return ref.flash_attention_bwd_ref(q, k, v, q_pos, kv_pos, dout,
                                            causal=causal, window=window,

@@ -16,7 +16,10 @@
 // Also used by tests/test_torch_topk_select.py (csrc/topk_select.cu:
 // shared-memory atomics, block-wide votes, scans) and
 // tests/test_torch_ivf_select.py (csrc/ivf_select.cu and csrc/ivf_topk.cu:
-// three-dimensional grids, __ffs).
+// three-dimensional grids, __ffs), and tests/test_torch_flash_grad.py
+// (csrc/flash_attention_bwd.cu: the tensor-core primitives ldmatrix,
+// mma.sync m16n8k16 and the bf16 packing, held to the PTX ISA's fragment
+// tables by tests/test_torch_mma_emu.py).
 #pragma once
 #include <algorithm>
 #include <array>
@@ -85,9 +88,11 @@ struct EmuBarrier {
 inline std::unique_ptr<EmuBarrier> emu_barrier;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 
-// one slot per lane and a barrier per warp of the running block
+// one slot per lane and a barrier per warp of the running block; six
+// 32-bit registers per lane for the tensor-core fragments (mma)
 inline std::vector<std::unique_ptr<EmuBarrier>> emu_warp_barriers;
 inline std::vector<std::array<uint64_t, 32>> emu_warp_slots;
+inline std::vector<std::array<uint32_t, 32 * 6>> emu_warp_regs;
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
 }
@@ -200,7 +205,100 @@ inline void cp_async4(void* dst, const void* src, int src_bytes) {
 inline void cp_async_commit() {}
 template <int N>
 void cp_async_wait() {}
+
+// ---- the tensor-core primitives of csrc/common.cuh, warp-collective:
+// each lane posts its operand (an address, or its fragment registers) in
+// the warp's slots, and after the warp barrier reads the others'.  b16
+// values travel as raw bits; a bf16 is the high half of an f32.
+inline float emu_bf16(uint32_t bits16) {
+  const uint32_t u = (bits16 & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// f32 -> bf16 bits, round to nearest even (NaN kept quiet)
+inline uint32_t emu_to_bf16(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+// two f32 -> one register of two bf16, `lo` in the low half
+inline uint32_t pack_bf16(float lo, float hi) {
+  return emu_to_bf16(lo) | (emu_to_bf16(hi) << 16);
+}
+// ldmatrix .m8n8.x4.b16: lane 8i + r gives the address of row r of
+// matrix i; lane l receives in register i the two b16 at row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i (the low half the
+// lower column).  With .trans each matrix is read transposed: row
+// 2 (l % 4) and 2 (l % 4) + 1, column l / 4.
+inline void emu_ldmatrix(uint32_t r[4], const void* p, bool trans) {
+  auto& slots = emu_warp_slots[threadIdx.x / 32];
+  const int lane = static_cast<int>(threadIdx.x % 32);
+  slots[lane] = reinterpret_cast<uintptr_t>(p);
+  __syncwarp();
+  auto row = [&](int src) {
+    return reinterpret_cast<const uint16_t*>(
+        static_cast<uintptr_t>(slots[src]));
+  };
+  for (int i = 0; i < 4; ++i) {
+    uint32_t lo, hi;
+    if (trans) {
+      lo = row(8 * i + 2 * (lane % 4))[lane / 4];
+      hi = row(8 * i + 2 * (lane % 4) + 1)[lane / 4];
+    } else {
+      lo = row(8 * i + lane / 4)[2 * (lane % 4)];
+      hi = row(8 * i + lane / 4)[2 * (lane % 4) + 1];
+    }
+    r[i] = lo | (hi << 16);
+  }
+  __syncwarp();
+}
+inline void ldmatrix_x4(uint32_t r[4], const void* p) {
+  emu_ldmatrix(r, p, false);
+}
+inline void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
+  emu_ldmatrix(r, p, true);
+}
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, D = A B + C.
+// With g = lane / 4, t = lane % 4, lane l holds A [16 x 16] as a0 = row
+// g, columns 2t, 2t+1; a1 = row g+8, the same columns; a2 = row g,
+// columns 2t+8, 2t+9; a3 = row g+8, those; B [16 x 8] as b0 = rows 2t,
+// 2t+1 of column g, b1 = rows 2t+8, 2t+9; C and D as c0, c1 = row g,
+// columns 2t, 2t+1 and c2, c3 = row g+8.  Each product of two bf16 is
+// exact in f32; the sums are f32, in k order after C.
+inline void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
+                           uint32_t b1) {
+  auto& regs = emu_warp_regs[threadIdx.x / 32];
+  const int lane = static_cast<int>(threadIdx.x % 32);
+  uint32_t* mine = &regs[lane * 6];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b0;
+  mine[5] = b1;
+  __syncwarp();
+  // the b16 at (row, k) of A and at (k, col) of B, from their owners
+  auto A = [&](int row, int k) {
+    const int reg = (row >= 8) + 2 * (k >= 8);
+    const uint32_t v = regs[((row % 8) * 4 + (k % 8) / 2) * 6 + reg];
+    return emu_bf16(k % 2 ? v >> 16 : v);
+  };
+  auto B = [&](int k, int col) {
+    const uint32_t v = regs[(col * 4 + (k % 8) / 2) * 6 + 4 + (k >= 8)];
+    return emu_bf16(k % 2 ? v >> 16 : v);
+  };
+  const int g = lane / 4, t = lane % 4;
+  float d[4];
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >= 2), col = 2 * t + e % 2;
+    float acc = c[e];
+    for (int k = 0; k < 16; ++k) acc += A(row, k) * B(k, col);
+    d[e] = acc;
+  }
+  __syncwarp();
+  for (int e = 0; e < 4; ++e) c[e] = d[e];
+}
 }  // namespace rt
+inline float __expf(float x) { return std::exp(x); }
 
 // extern __shared__ memory of the running block
 inline std::vector<float4> emu_smem;
@@ -220,6 +318,7 @@ void emu_block(int block, K kernel, A... args) {
   for (int w = 0; w < (block + 31) / 32; ++w)
     emu_warp_barriers.push_back(std::make_unique<EmuBarrier>(32));
   emu_warp_slots.assign((block + 31) / 32, {});
+  emu_warp_regs.assign((block + 31) / 32, {});
   emu_body = [=] { kernel(args...); };
   emu_fibre.assign(block, ucontext_t{});
   while (emu_stack.size() < static_cast<size_t>(block))

@@ -11,6 +11,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro_torch.kernels import build, ops  # noqa: E402
 
 _KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",

@@ -20,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_train import one_thread  # noqa: E402,F401  (autouse)
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
 from repro.core.cluster import Query as JQuery  # noqa: E402

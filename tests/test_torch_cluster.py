@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.cluster import LiveEdgeNode as JNode  # noqa: E402
 from repro.cluster import enable_federation as j_enable  # noqa: E402
 from repro.cluster.federation import FederatedRetriever as JFed  # noqa: E402

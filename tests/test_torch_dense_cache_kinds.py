@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from test_torch_dense import ARCHS, dense_pair  # noqa: E402
 
 from repro.serving import GenerationParams as JGen  # noqa: E402

@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 import test_torch_hybrid as hybrid_t  # noqa: E402
 from test_torch_dense import ARCHS, HD256, dense_pair  # noqa: E402
 

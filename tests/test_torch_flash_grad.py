@@ -10,13 +10,22 @@
     is 0 on both sides and their dq is not compared.  Tolerance 2e-5
     absolute (f32, the same math blocked in another order).
   * ``csrc/flash_attention_bwd.cu`` itself, compiled with g++ against
-    ``tests/cuda_emu.h`` (a bf16 stand-in added to its ``common.cuh``),
-    against the plain backward at tiny shapes: f32 within 2e-5, bf16
-    inputs within 2e-2 of max|grad| (the outputs round to bf16); then
-    through ``ops.flash_attention_bwd``'s CUDA branch (the wrapper's
-    argument order and checks) and through ``ops.FlashAttention``, the
-    autograd function the model's training path takes on the card, with
-    the forward's ``lse`` computed by the plain route.
+    ``tests/cuda_emu.h`` (a bf16 stand-in added to its ``common.cuh``;
+    the emulation's ldmatrix, mma.sync and bf16 packing are held to the
+    PTX fragment tables in ``test_torch_mma_emu.py``), against the plain
+    backward at tiny shapes (``EMU_CASES``): f32 inputs run the FFMA
+    kernels, within 2e-5; bf16 inputs run the tensor-core kernels as
+    written, within 2e-2 of max|grad| (P and dS round to bf16 for their
+    products, the outputs to bf16).  The cases: GQA 2 with a window, a
+    softcap and a left pad at hd 24 (padded to 32 along the
+    contraction); non-causal at hd 8 over 70 keys; hd 128 over 72
+    positions (past one 64-row tile) with GQA 2, a window and a left
+    pad; hd 256 over 68 (the dK/dV columns split between warp pairs)
+    with GQA 2, a window, a softcap and a left pad.  Then through
+    ``ops.flash_attention_bwd``'s CUDA branch (the wrapper's argument
+    order and checks) and through ``ops.FlashAttention``, the autograd
+    function the model's training path takes on the card, with the
+    forward's ``lse`` computed by the plain route.
 """
 import ctypes
 import math
@@ -30,7 +39,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_train import one_thread  # noqa: E402,F401  (autouse)
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 from repro.models.layers import flash_attention as jflash  # noqa: E402
 
@@ -151,12 +160,12 @@ def emulated(tmp_path_factory):
     src.write_text(_emulated_source(
         (build.CSRC / build.SOURCES["flash_attention_bwd"]).read_text()))
     lib = tmp / "libflash_attention_bwd.so"
-    res = subprocess.run(
+    proc = subprocess.run(
         [gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
          "-Wno-unknown-pragmas", f"-I{tmp}",
          f"-I{build.CSRC.parents[3] / 'tests'}", "-o", str(lib), str(src)],
         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
+    assert proc.returncode == 0, proc.stderr
     fn = ctypes.CDLL(str(lib)).flash_attention_bwd
     fn.argtypes = ops._SIGNATURES[("flash_attention_bwd",
                                    "flash_attention_bwd")]
@@ -185,6 +194,13 @@ EMU_CASES = {
     # shapes past one 32-row tile in both axes, hd off the padded width
     "gqa2-window-softcap": (2, 40, 45, 4, 2, 24, True, 16, 5.0, (3, 0)),
     "noncausal-hd8": (1, 20, 70, 2, 1, 8, False, None, None, (0,)),
+    # past one 64-row tile (the bf16 kernels' dK/dV query tile and dQ
+    # block): hd 128 with K/V and Q/dO held as fragments, hd 256 with the
+    # dK/dV columns split between two warps and 32-key tiles
+    "hd128-gqa2-window-leftpad": (2, 72, 72, 4, 2, 128, True, 40, None,
+                                  (5, 0)),
+    "hd256-gqa2-window-softcap-leftpad": (1, 68, 68, 2, 1, 256, True, 24,
+                                          50.0, (3,)),
 }
 
 
@@ -231,6 +247,37 @@ def test_cuda_source_emulated_matches_plain(emulated, name, dtype):
     if dtype == torch.float32:   # no atomics: the same bits every call
         again = _run_emulated(emulated, case, q, k, v, do, qp, kp, out, lse)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# 200 positions (4 query and key tiles of 64, the last of 8) under a
+# window of 16: most tile pairs are dead; 7 tile flags of 32 positions,
+# so the last tile's second flag lies past the row; hd 20 is not a
+# multiple of 8, so the tiles load element by element
+DEAD_CASE = (1, 200, 200, 2, 1, 20, True, 16, None, (0,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dead_tiles_skipped_are_exact(emulated, dtype):
+    """Skipping the dead tiles drops no live pair: the gradients are the
+    plain backward's within tolerance, and the same bits every call."""
+    case = DEAD_CASE
+    causal, window, cap = case[6:9]
+    q, k, v, do, qp, kp, live = _kernel_inputs(case, dtype)
+    out = ref.flash_attention_ref(q, k, v, qp, kp, causal, window,
+                                  cap).contiguous()
+    lse = _plain_lse(q, k, qp, kp, causal, window, cap)
+    got = _run_emulated(emulated, case, q, k, v, do, qp, kp, out, lse)
+    again = _run_emulated(emulated, case, q, k, v, do, qp, kp, out, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), qp,
+                                       kp, do.float(), causal, window, cap)
+    for g, w, m in zip(got, want, (torch.from_numpy(live), None, None)):
+        g, w = g.float(), w.float()
+        if m is not None:
+            g, w = g[m], w[m]
+        tol = TOL if dtype == torch.float32 else 2e-2 * float(w.abs().max())
+        assert float((g - w).abs().max()) <= tol
 
 
 @pytest.fixture

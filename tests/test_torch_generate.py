@@ -31,6 +31,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.configs import get_smoke_config  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro.models import cache as jcache  # noqa: E402

@@ -37,6 +37,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 import test_torch_serving as serving_t  # noqa: E402
 import test_torch_standing as standing_t  # noqa: E402
 import test_torch_wave as wave_t  # noqa: E402

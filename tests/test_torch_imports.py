@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.configs import get_config, get_smoke_config  # noqa: E402
 
 from repro_torch import configs as port_configs  # noqa: E402

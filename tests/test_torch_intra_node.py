@@ -9,6 +9,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.core import cluster as jcluster  # noqa: E402
 
 from repro_torch.core import cluster  # noqa: E402

@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.data.corpus import generate_corpus as j_corpus  # noqa: E402
 from repro.data.partition import partition_edge_data as j_partition  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402

@@ -37,6 +37,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.kernels.topk_retrieval import ivf_topk_pallas  # noqa: E402
 
 from repro_torch.kernels import build, ops, ref  # noqa: E402

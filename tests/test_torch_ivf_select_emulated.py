@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from test_torch_ivf_select import (  # noqa: E402,F401  (emulated: fixture)
     TOL, _case, _ids_agree, _lists, _plain, _run_narrow, _run_select,
     _unit, emulated)

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.paged_attention import \

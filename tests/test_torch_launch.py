@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.core.cluster import Query as JQuery  # noqa: E402
 from repro.launch import cluster_serve as j_serve  # noqa: E402
 

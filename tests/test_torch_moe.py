@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 import test_torch_hybrid as hybrid_t  # noqa: E402
 
 from repro.configs import get_smoke_config  # noqa: E402

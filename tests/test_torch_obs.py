@@ -10,6 +10,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.obs import metrics as j_metrics  # noqa: E402
 from repro.obs import slo as j_slo  # noqa: E402
 from repro.obs.timeseries import TimeSeriesStore as JStore  # noqa: E402

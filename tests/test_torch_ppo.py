@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.core import ppo as jppo  # noqa: E402
 from repro.core.identifier import OnlineQueryIdentifier as JIdent  # noqa: E402
 

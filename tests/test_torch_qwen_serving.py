@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from test_torch_qwen import ARCHS, qwen_pair  # noqa: E402
 
 from repro.serving import GenerationParams as JGen  # noqa: E402

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.configs import get_smoke_config  # noqa: E402
 from repro.data.corpus import generate_corpus as j_corpus  # noqa: E402
 from repro.data.tokenizer import Tokenizer as JTokenizer  # noqa: E402

@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from test_torch_cluster import SLO, _nodes, world  # noqa: E402,F401
 
 from repro.cluster import ClusterRuntime as JRuntime  # noqa: E402

@@ -9,6 +9,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.cluster.replay import ReplayReport as JReport  # noqa: E402
 from repro.cluster.replay import autoscale_knobs as j_knobs  # noqa: E402
 from repro.cluster.runtime import ClusterSlotMetrics as JMetrics  # noqa: E402

@@ -30,6 +30,8 @@ from _hyp import given, settings, st
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.cluster import ClusterRuntime as JRuntime  # noqa: E402
 from repro.configs import edge_pool as jpool  # noqa: E402
 from repro.core import baselines as jbase  # noqa: E402

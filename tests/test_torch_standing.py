@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from test_torch_cluster import SLO, _nodes, _slots, world  # noqa: E402,F401
 
 from repro.configs import get_smoke_config  # noqa: E402

@@ -7,6 +7,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.metrics import text as jtext  # noqa: E402
 
 from repro_torch import metrics  # noqa: E402

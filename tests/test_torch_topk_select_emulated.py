@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.kernels.topk_retrieval import topk_pallas  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402

@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from test_torch_cluster import SLO, _nodes, world  # noqa: E402,F401
 from test_torch_runtime import ARCHS, _idents, _pin  # noqa: E402
 

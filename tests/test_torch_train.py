@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from repro.configs import get_smoke_config  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro.train import checkpoint as jckpt  # noqa: E402
@@ -36,19 +38,6 @@ from repro_torch.launch import train, train_tiny  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.train import checkpoint, optimizer  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread while the module runs: the suite runs files in
-    parallel worker processes, where torch's default of one thread per
-    core oversubscribes the CPU many times over (a train step of these
-    small models then takes minutes instead of a second).  Restored
-    after the module, so other files in the worker keep the default."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -23,7 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_train import one_thread  # noqa: E402,F401  (autouse)
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 from repro.configs import get_smoke_config  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402

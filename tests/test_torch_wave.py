@@ -39,6 +39,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_thread  # noqa: E402,F401  (autouse)
+
 from test_torch_cluster import SLO, _nodes, _slots, world  # noqa: E402,F401
 from test_torch_rag import corpus  # noqa: E402,F401
 
