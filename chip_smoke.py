@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases card,build,qwen
     python3 chip_smoke.py --phases card,build,whisper
     python3 chip_smoke.py --phases card,build,train
+    python3 chip_smoke.py --phases card,build,distributed
     python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
     python3 chip_smoke.py --phases card,build,kernels --topk-sweep
@@ -255,6 +256,38 @@ Phases, in order:
            on the card, then cluster_serve --smoke --nodes 2 --slots 2
            with --ckpt (node 0 serves the trained weights, node 1 draws
            its own) and without: each slot's mean quality side by side
+  distributed
+           the distributed layer (src/repro_torch/distributed,
+           launch/mesh.py) at published widths from seeded inputs, in a
+           world of one (NCCL, this process) and of two (gloo, two
+           spawned ranks meeting through a FileStore, every tensor on
+           cuda:0: NCCL refuses two ranks on one device, and no
+           interconnect is crossed).  (a) distributed_topk over a
+           1,048,576 x 256 f32 corpus (1 GiB) split in rank order, 32
+           queries, k 5: one retrieval_topk launch per rank and call
+           (counts at 0 just before the call, read just after; the
+           plain version must not run), ids equal to one
+           ops.retrieval_topk call over the whole corpus and scores
+           within 1e-6 relative.  (b) flash_decode_seq_sharded over
+           gemma2-9b's global attention in long_500k's layout (H 16, KV
+           8, hd 256, softcap 50; B 1, S 524,288 bf16: K and V 4 GiB),
+           queries in the last and in the first shard, against
+           layers.decode_attention over the whole cache within 2e-2 of
+           max|o|.  (c) apply_moe_expert_parallel on one
+           qwen3-moe-30b-a3b layer (128 experts top-8, d 2048, expert
+           ff 768, bf16; x [4,32,2048]), each rank holding its E/P
+           experts, dropless (capacity factor 128) and at 1.25, against
+           moe.apply_moe: y within 2^-6 max(1, max|y|) (bf16 partial
+           sums in another order), aux within 1e-5.  Host ms per call
+           for each, by world and rank.  (d) launch.train
+           --production-mesh in this world of one raises the world-size
+           error before the model is built: device memory allocated and
+           its peak unchanged.  (e) make_train_step(mesh=), the
+           data-parallel step that flag runs, 2 steps of
+           qwen2-moe-a2.7b's smoke config (f32; its aux loss a product
+           of batch means) on a fixed batch of 4 x 32 over the world's
+           data ranks: losses and aux within 1e-5 of the one-process
+           step's, params within 1e-4 of their max
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -330,7 +363,7 @@ Phases, in order:
            policy on fresh testbeds with (a)'s capacities, card against
            CPU: equal up to the first PPO update, then routed on the
            card's probabilities with the policies held as the runtime
-           parity holds them; (d) the first 6 slots under the Random
+           parity holds them; (d) the first 3 slots under the Random
            and LinUCB routers and the oracle (Table II's shape; the
            oracle's quality beats random's by more than 0.02), and node
            3 under the OCO schedule and the four fixed deployments at
@@ -362,7 +395,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
               "serve", "archs", "dense", "qwen", "whisper", "train",
-              "kernels", "parity", "sim")
+              "distributed", "kernels", "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -4060,13 +4093,424 @@ def phase_train(torch, card, rec: dict) -> dict:
     return total
 
 
+# ------------------------------------------------------------ distributed
+
+DIST_DOCS = 1 << 20      # (a) 1,048,576 docs x 256 f32: a 1 GiB corpus
+DIST_DIM = 256
+DIST_QUERIES = 32
+DIST_K = 5
+DIST_DECODE_ARCH = "gemma2-9b"   # (b) its global attention, long_500k
+DIST_SEQ = 524_288               # long_500k's sequence, batch 1
+DIST_DECODE_TOL = 2e-2           # of max|o|: bf16 output, bf16 P in the
+                                 # reference's kernel, partials merged
+DIST_MOE_ARCH = "qwen3-moe-30b-a3b"   # (c) one MoE layer
+DIST_MOE_X = (4, 32)
+DIST_CFS = (128.0, 1.25)         # dropless (num_experts), and the default
+DIST_MOE_TOL = 2.0 ** -6         # of max(1, max|y|): bf16 sums reordered
+DIST_REPS = 5                    # timed calls a case, after a warm one
+DIST_TRAIN_ARCH = "qwen2-moe-a2.7b"   # (e) its aux loss: batch means
+DIST_TRAIN_STEPS = 2
+
+
+def _dist_corpus(torch, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    q = torch.randn((DIST_QUERIES, DIST_DIM), generator=gen, device=dev)
+    docs = torch.randn((DIST_DOCS, DIST_DIM), generator=gen, device=dev)
+    return q, docs
+
+
+def _dist_cache(torch, dev):
+    """(cfg, q [1,1,H,hd], K, V [1,S,KV,hd] bf16, the two query
+    positions: inside the last shard and inside the first)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DIST_DECODE_ARCH)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    kw = dict(generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((1, 1, H, hd), **kw)
+    k = torch.randn((1, DIST_SEQ, KV, hd), **kw)
+    v = torch.randn((1, DIST_SEQ, KV, hd), **kw)
+    return cfg, q, k, v, (DIST_SEQ - 1000, 1000)
+
+
+def _dist_moe(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(DIST_MOE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    params = moe.init_moe(gen, cfg, torch.bfloat16, dev)
+    x = torch.randn(DIST_MOE_X + (cfg.d_model,), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    return cfg, params, x
+
+
+def dist_train(torch, mesh) -> tuple:
+    """(e): DIST_TRAIN_STEPS train steps of DIST_TRAIN_ARCH's smoke
+    config (f32) on one fixed seeded batch of 4 x 32, data-parallel over
+    ``mesh`` (one process when None): ([(loss, aux) a step], the final
+    params on the CPU)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import tree_leaves
+    dev = torch.device(DEV)
+    cfg = get_smoke_config(DIST_TRAIN_ARCH)
+    model = Model(cfg)
+    params = model.init_params(seed=0, device=dev, max_seq=64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "positions": torch.arange(32, dtype=torch.int32,
+                                       device=dev).expand(4, 32)}
+    step = ts.make_train_step(model, lr=1e-3, remat=False, mesh=mesh)
+    opt = ts.init_opt_state(params)
+    metrics = []
+    for _ in range(DIST_TRAIN_STEPS):
+        params, opt, m = step(params, opt, batch)
+        metrics.append((float(m["loss"]), float(m["aux_loss"])))
+    return metrics, [t.detach().cpu() for t in tree_leaves(params)]
+
+
+def _dist_ms(torch, dist, world: int, fn) -> float:
+    """Median host ms of one call of ``fn`` over DIST_REPS calls (after a
+    warm one), every rank starting each call together and synchronising
+    its device after it: collectives included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DIST_REPS):
+        if world > 1:
+            dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dist_rank(torch, world: int, rank: int) -> dict:
+    """(a)-(c) and (e) on one rank of the initialised default group
+    (``world`` ranks, every tensor on cuda:0); its results on the CPU."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives, expert_parallel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    dev = torch.device(DEV)
+    out = {}
+    line = mesh_lib.make_mesh((world,), ("data",), DEV)
+    # (a) this rank's corpus shard, rows in rank order
+    q, docs = _dist_corpus(torch, dev)
+    n = DIST_DOCS // world
+    shard = docs[rank * n:(rank + 1) * n].clone()
+    del docs
+    plain, plain_calls = ref.topk_ref, []
+
+    def counted(*args):
+        plain_calls.append(args)
+        return plain(*args)
+
+    ref.topk_ref = counted
+    ops.reset_launches()
+    s, i = collectives.distributed_topk(q, shard, DIST_K, line)
+    torch.cuda.synchronize()
+    out["topk_launches"] = {k: c for k, c in ops.launches.items() if c}
+    ref.topk_ref = plain
+    check(not plain_calls, f"distributed[a] rank {rank}/{world}: the plain "
+          "top-k ran")
+    check(out["topk_launches"] == {"retrieval_topk": 1},
+          f"distributed[a] rank {rank}/{world}: launches "
+          f"{out['topk_launches']}, want one retrieval_topk")
+    out["topk"] = (s.cpu(), i.cpu())
+    out["topk_ms"] = _dist_ms(torch, dist, world, lambda: (
+        collectives.distributed_topk(q, shard, DIST_K, line)))
+    del shard
+    # (b) this rank's span of the sequence-sharded cache
+    cfg, qd, k, v, positions = _dist_cache(torch, dev)
+    n = DIST_SEQ // world
+    ks = k[:, rank * n:(rank + 1) * n].clone()
+    vs = v[:, rank * n:(rank + 1) * n].clone()
+    del k, v
+    torch.cuda.empty_cache()
+    qps = [torch.tensor([p], dtype=torch.int32, device=dev)
+           for p in positions]
+    decode = lambda qp: collectives.flash_decode_seq_sharded(
+        qd, ks, vs, qp, line, softcap=cfg.attn_logit_softcap)
+    out["decode"] = [decode(qp).cpu() for qp in qps]
+    out["decode_ms"] = _dist_ms(torch, dist, world, lambda: decode(qps[0]))
+    del ks, vs
+    torch.cuda.empty_cache()
+    # (c) this rank's E/P experts, the router whole
+    ep = mesh_lib.make_mesh((1, world), ("data", "model"),
+                            DEV)
+    cfg, params, x = _dist_moe(torch, dev)
+    local = expert_parallel.local_experts(params, cfg, ep)
+    del params
+    torch.cuda.empty_cache()
+    out["experts_held"] = int(local["wi"].shape[0])
+    out["expert_bytes"] = sum(local[n].numel() * local[n].element_size()
+                              for n in ("wi", "wg", "wo"))
+    out["moe_ms"] = {}
+    with torch.no_grad():
+        for cf in DIST_CFS:
+            run = lambda: expert_parallel.apply_moe_expert_parallel(
+                local, x, cfg, ep, capacity_factor=cf)
+            y, aux = run()
+            out[("moe", cf)] = (y.cpu(), float(aux))
+            out["moe_ms"][cf] = _dist_ms(torch, dist, world, run)
+    del local
+    # (e) the data-parallel step of launch.train --production-mesh
+    dp = mesh_lib.make_mesh((world, 1), ("data", "model"), DEV)
+    t = time.perf_counter()
+    out["train"] = dist_train(torch, dp)
+    out["train_s"] = time.perf_counter() - t
+    return out
+
+
+def _dist_child(rank: int, world: int, tmp: str) -> None:
+    """A spawned gloo rank of (a)-(c) and (e), on cuda:0; its results
+    saved."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(f"{tmp}/store{world}", world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    out = dist_rank(torch, world, rank)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_check(torch, runs: dict, tag: str) -> None:
+    """Every rank's (a)-(c) against the unsharded computations, (e)
+    against the one-process step."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers, moe
+    dev = torch.device(DEV)
+    each = [(w, r, o) for w, ranks in runs.items()
+            for r, o in enumerate(ranks)]
+    # (a) one ops.retrieval_topk over the whole corpus, and the plain
+    # version over it; the kernel on every rank's shard (the shapes the
+    # path launched it at) against the plain version on that shard
+    q, docs = _dist_corpus(torch, dev)
+    s_ref, i_ref = (t.cpu() for t in ops.retrieval_topk(q, docs, DIST_K))
+    s_pl, i_pl = (t.cpu() for t in ref.topk_ref(q, docs, DIST_K))
+    for w in runs:
+        n = DIST_DOCS // w
+        for r in range(w):
+            _topk_check(torch, ops, ref, q, docs[r * n:(r + 1) * n], DIST_K,
+                        f"distributed[a] world {w} rank {r}'s shard")
+    t_whole = bench_ms(lambda: ops.retrieval_topk(q, docs, DIST_K))
+    t_plain = bench_ms(lambda: ref.topk_ref(q, docs, DIST_K))
+    t_lib = bench_ms(lambda: torch.topk(q @ docs.T, DIST_K))
+    bnd, by = bound_ms(*topk_work(q, docs, DIST_K), "float32")
+    del q, docs
+    for w, r, o in each:
+        s, i = o["topk"]
+        rel = float(((s - s_ref).abs() / s_ref.abs().clamp(min=1e-30)).max())
+        check(torch.equal(i, i_ref), f"distributed[a] world {w} rank {r}: "
+              "ids differ from the unsharded top-k")
+        check(rel <= 1e-6, f"distributed[a] world {w} rank {r}: scores "
+              f"{rel:.3e} relative > 1e-6")
+        err_pl = max_err(s, s_pl)
+        check(_ids_agree(torch, s_pl, i, i_pl, 1e-5) and err_pl <= 1e-5,
+              f"distributed[a] world {w} rank {r}: against the plain top-k "
+              f"over the whole corpus: ids differ or scores {err_pl:.3e} > "
+              "1e-5")
+        log(f"distributed[a]: world {w} rank {r}: top-{DIST_K} of "
+            f"{DIST_QUERIES} queries over {DIST_DOCS // w} of {DIST_DOCS} "
+            f"docs x {DIST_DIM} f32: ids equal to the unsharded call, "
+            f"scores within {rel:.3e} relative (tol 1e-6); against the "
+            f"plain top-k over the whole corpus ids equal "
+            f"{int((i == i_pl).sum())}/{i.numel()}, scores max|err| "
+            f"{err_pl:.3e} (tol 1e-5); launches on the "
+            f"path {json.dumps(o['topk_launches'])}, no plain call; "
+            f"{o['topk_ms']:.4f} ms a call (host, median of {DIST_REPS}, "
+            f"the all_gather and merge included) {tag}")
+    log(f"distributed[a]: over all {DIST_DOCS} docs (device, cold L2): "
+        f"one retrieval_topk {t_whole:.4f} ms, plain {t_plain:.4f} ms, "
+        f"topk(q@d.T) {t_lib:.4f} ms, bound {bnd:.5f} ms ({by}) {tag}")
+    # (b) layers.decode_attention over the whole cache
+    cfg, q, k, v, positions = _dist_cache(torch, dev)
+    kvpos = torch.arange(DIST_SEQ, dtype=torch.int32, device=dev)[None]
+    for j, p in enumerate(positions):
+        qp = torch.tensor([p], dtype=torch.int32, device=dev)
+        want = layers.decode_attention(q, k, v, qp, kvpos,
+                                       softcap=cfg.attn_logit_softcap).cpu()
+        tol = DIST_DECODE_TOL * float(want.float().abs().max())
+        for w, r, o in each:
+            err = max_err(o["decode"][j], want)
+            check(err <= tol, f"distributed[b] world {w} rank {r} position "
+                  f"{p}: {err:.3e} > {tol:.3e}")
+            log(f"distributed[b]: world {w} rank {r}: q_position {p} (shard "
+                f"{p // (DIST_SEQ // w)} of {w}), max|err| {err:.3e} "
+                f"against decode_attention over the whole cache (tol "
+                f"{tol:.3e} = {DIST_DECODE_TOL:g} max|o|)"
+                + (f"; {o['decode_ms']:.4f} ms a call (host, the all-reduces "
+                   "included)" if j == 0 else "") + f" {tag}")
+    qp = torch.tensor([positions[0]], dtype=torch.int32, device=dev)
+    t_ref = bench_ms(lambda: layers.decode_attention(
+        q, k, v, qp, kvpos, softcap=cfg.attn_logit_softcap))
+    log(f"distributed[b]: {DIST_DECODE_ARCH} global attention H "
+        f"{cfg.num_heads} KV {cfg.num_kv_heads} hd {cfg.resolved_head_dim} "
+        f"softcap {cfg.attn_logit_softcap:g}, B 1 S {DIST_SEQ} bf16 (K and "
+        f"V {2 * k.numel() * k.element_size() / 2 ** 30:.2f} GiB); "
+        f"decode_attention (the flash kernel at Sq 1) over the whole cache "
+        f"{t_ref:.4f} ms (device, cold L2) {tag}")
+    del q, k, v, kvpos
+    torch.cuda.empty_cache()
+    # (c) moe.apply_moe with every expert
+    cfg, params, x = _dist_moe(torch, dev)
+    m = cfg.moe
+    top_idx, _ = moe.route(params, x, m.num_experts_per_tok)
+    with torch.no_grad():
+        for cf in DIST_CFS:
+            y, aux = moe.apply_moe(params, x, cfg, capacity_factor=cf,
+                                   return_aux=True)
+            keep = moe.capacity_keep(top_idx, m.num_experts, moe.capacity(
+                x.shape[1], m.num_experts_per_tok, m.num_experts, cf))
+            dropped = 1.0 - float(keep.float().mean())
+            t_plain = bench_ms(lambda: moe.apply_moe(
+                params, x, cfg, capacity_factor=cf))
+            y = y.cpu()
+            tol = DIST_MOE_TOL * max(1.0, float(y.float().abs().max()))
+            for w, r, o in each:
+                gy, ga = o[("moe", cf)]
+                err = max_err(gy, y)
+                check(err <= tol and abs(ga - float(aux)) <= 1e-5,
+                      f"distributed[c] world {w} rank {r} cf {cf}: y "
+                      f"{err:.3e} (tol {tol:.3e}), aux {ga} vs "
+                      f"{float(aux)}")
+                check(o["experts_held"] == m.num_experts // w,
+                      f"distributed[c] rank {r}/{w} holds "
+                      f"{o['experts_held']} experts")
+                log(f"distributed[c]: world {w} rank {r}: capacity factor "
+                    f"{cf:g} ({100 * dropped:.2f}% of assignments dropped), "
+                    f"{o['experts_held']} of {m.num_experts} experts held "
+                    f"({o['expert_bytes'] / 2 ** 30:.3f} GiB): y max|err| "
+                    f"{err:.3e} (tol {tol:.3e}), aux {ga:.6f} vs "
+                    f"{float(aux):.6f}; {o['moe_ms'][cf]:.4f} ms a call "
+                    f"(host, the all-reduce included) {tag}")
+            log(f"distributed[c]: moe.apply_moe with all {m.num_experts} "
+                f"experts, x {list(x.shape)} bf16, capacity factor {cf:g}: "
+                f"{t_plain:.4f} ms (device, cold L2) {tag}")
+    del params, x
+    torch.cuda.empty_cache()
+    # (e) the one-process step
+    want, want_p = dist_train(torch, None)
+    for w, r, o in each:
+        got, got_p = o["train"]
+        for (l, a), (wl, wa) in zip(got, want):
+            check(abs(l - wl) <= 1e-5 and abs(a - wa) <= 1e-5,
+                  f"distributed[e] world {w} rank {r}: loss, aux {l, a} "
+                  f"vs one process {wl, wa}")
+        p_err = 0.0
+        for g, p in zip(got_p, want_p):
+            e = float((g - p).abs().max())
+            check(e <= 1e-4 * max(1.0, float(p.abs().max())),
+                  f"distributed[e] world {w} rank {r}: a param {e:.3e} off")
+            p_err = max(p_err, e)
+        log(f"distributed[e]: world {w} rank {r}: {DIST_TRAIN_STEPS} "
+            f"data-parallel steps of {DIST_TRAIN_ARCH} smoke (f32), batch "
+            f"4 x 32 over {w} data rank(s): losses "
+            f"{[round(l, 6) for l, _ in got]} (one process "
+            f"{[round(l, 6) for l, _ in want]}), aux "
+            f"{[round(a, 6) for _, a in got]} ({[round(a, 6) for _, a in want]}), "
+            f"params within {p_err:.3e} after the steps (tol 1e-4 of max); "
+            f"{o['train_s']:.2f} s {tag}")
+
+
+def dist_flag(torch, tag: str) -> None:
+    """(d): launch.train --production-mesh in this world of one raises
+    the world-size error before the model is built, allocating nothing
+    on the card."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    check(not dist.is_initialized(), "a process group is still up")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    real, built = train.Model, []
+
+    def model(*args, **kw):
+        built.append(args)
+        return real(*args, **kw)
+
+    train.Model = model
+    msg = None
+    try:
+        train.main(["--production-mesh"])
+    except RuntimeError as e:       # the error is the result
+        msg = str(e)
+    finally:
+        train.Model = real
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    check(msg is not None and "world of 256 ranks" in msg
+          and "this world has 1 " in msg,
+          f"distributed[d]: --production-mesh gave {msg!r}")
+    check(not built and peak == before == after,
+          f"distributed[d]: model built {bool(built)}, memory {before} -> "
+          f"peak {peak}, after {after}")
+    log(f"distributed[d]: launch.train --production-mesh in a world of one: "
+        f"{msg!r}; the model not built, device memory {before} B before, "
+        f"peak {peak} B, {after} B after {tag}")
+
+
+def phase_distributed(torch, card) -> dict:
+    """(a)-(c) and (e) in a world of one (NCCL, this process) and of two
+    (gloo, spawned), checked against the unsharded computations and the
+    one-process step; (d) the production-mesh flag.  Returns (a)'s top-k
+    launches, every rank's."""
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    tag = f"[{card['smi']}]"
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store1", 1), rank=0, world_size=1)
+        runs[1] = [dist_rank(torch, 1, 0)]
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        # the children import this file and find the kernels built
+        mp.spawn(_dist_child, args=(2, tmp), nprocs=2, join=True)
+        runs[2] = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                   for r in range(2)]
+    t2 = time.perf_counter()
+    dist_check(torch, runs, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    dist_flag(torch, tag)
+    launches = sum(o["topk_launches"]["retrieval_topk"]
+                   for ranks in runs.values() for o in ranks)
+    log(f"distributed: seconds: world 1 {t1 - t0:.1f}, world 2 (spawn "
+        f"included) {t2 - t1:.1f}, checks {t3 - t2:.1f}, (d) "
+        f"{time.perf_counter() - t3:.1f}; the phase "
+        f"{time.perf_counter() - t0:.1f}; retrieval_topk launches on the "
+        f"paths {launches}")
+    return {"retrieval_topk": launches}
+
+
 SIM_SLO = 15.0           # examples/hierarchical_scheduling_sim.py's --slo
 SIM_SLOTS = 20           # its --slots
 # three of its six profiling levels (5 .. 30 s): profiling the 2-GPU
 # nodes at all six took ~150 s of the script's 1200 s limit
 SIM_LEVELS = (5, 15, 30)
 SIM_PARITY_SLOTS = 3
-SIM_BASELINE_SLOTS = 6
+# three slots a router: six took ~65 s of a host-bound 296 s phase
+SIM_BASELINE_SLOTS = 3
 TABLE3_QUERIES = 500     # benchmarks/table3_intra_node.py's N_QUERIES
 TABLE3_SLOTS = 2
 TABLE3_KINDS = ("small", "mid", "mixed1", "mixed2")
@@ -6271,6 +6715,7 @@ def main(argv=None) -> int:
             "qwen": lambda: phase_qwen(torch, card, rec),
             "whisper": lambda: phase_whisper(torch, card, rec),
             "train": lambda: phase_train(torch, card, rec),
+            "distributed": lambda: phase_distributed(torch, card),
             "kernels": lambda: phase_kernels(torch, card, captured, rec,
                                              traced),
             "parity": lambda: phase_parity(torch),

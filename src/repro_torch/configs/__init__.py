@@ -6,6 +6,7 @@ Usage::
     from repro_torch.configs import get_config, get_smoke_config
     cfg = get_config("olmo-1b")
     tiny = get_smoke_config("olmo-1b")     # 2 layers, d_model<=256
+    shape_applicable(cfg, INPUT_SHAPES["long_500k"])   # the 500k policy
 """
 from __future__ import annotations
 
@@ -47,3 +48,11 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str, **kw) -> ModelConfig:
     return get_config(arch_id).reduced(**kw)
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    """Whether an (arch, input-shape) pair runs, per the long_500k policy:
+    ``long_500k`` only for configs that support long context."""
+    if shape.name == "long_500k":
+        return cfg.supports_long_context
+    return True

@@ -15,18 +15,31 @@ config trains with ``remat`` (each layer's activations recomputed in the
 backward pass), the smoke config without, as in the reference.  It
 prints the reference's step lines, then the median step time, tokens per
 second and peak device memory; ``--ckpt`` saves the trained parameters
-(``train.checkpoint``, the reference's format).  ``--production-mesh``
-needs the distributed port (ROADMAP A7) and raises
-``NotImplementedError`` before anything is built.
+(``train.checkpoint``, the reference's format).
+
+``--production-mesh`` runs the data-parallel step
+(``train_step.make_train_step(mesh=)``) over the 16x16 ("data",
+"model") mesh of ``launch.mesh.make_production_mesh``: 256 ranks started
+by ``torchrun``, whose environment initialises the default group (NCCL
+on the card, gloo with ``--device cpu``).  Each data rank takes its 1/16
+of every global batch; the `model` ranks run the same rows; rank 0
+prints and saves.  Any other world size raises before the model is
+built, naming it:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
+        --device cpu --production-mesh        # the world-size error
 """
 import argparse
+import os
 import statistics
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import Model
 from repro_torch.train import checkpoint
 from repro_torch.train.optimizer import cosine_schedule
@@ -45,7 +58,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh (not ported: ROADMAP A7)")
+                    help="16x16 mesh (requires 256 ranks, from torchrun)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default, needs a GPU) or cpu")
     return ap
@@ -56,15 +69,37 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def production_mesh(dev: torch.device):
+    """The 16x16 mesh over the default group, initialised from
+    ``torchrun``'s environment (WORLD_SIZE, RANK, MASTER_ADDR, ...; NCCL
+    on the card, gloo on the CPU).  A world of any other size raises
+    first, naming it: nothing is initialised or allocated then."""
+    want = mesh_lib.production_shape()
+    n = dist.get_world_size() if dist.is_initialized() \
+        else int(os.environ.get("WORLD_SIZE", "1"))
+    if n != want.size:
+        raise RuntimeError(
+            f"--production-mesh needs a world of {want.size} ranks (the "
+            f"{'x'.join(map(str, want.shape))} {want.axis_names} mesh); "
+            f"this world has {n} (start it with torchrun "
+            f"--nproc-per-node ... so that WORLD_SIZE is {want.size})")
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method="env://")
+    return mesh_lib.make_production_mesh(device_type=dev.type)
+
+
 def main(argv=None) -> dict:
     """Run the launcher; returns {"losses", "step_ms", "tokens_per_s",
     "peak_gib" (None on the CPU), "params"} for callers that drive it."""
     args = _parser().parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: the distributed train step is not ported "
-            "yet (ROADMAP A7)")
     dev = resolve_device(args.device)
+    mesh = production_mesh(dev) if args.production_mesh else None
+    lead = mesh is None or dist.get_rank() == 0
+    if mesh is not None and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg)
     params = model.init_params(seed=0, device=dev, max_seq=args.seq)
@@ -72,7 +107,7 @@ def main(argv=None) -> dict:
     lr = cosine_schedule(args.lr, warmup=max(2, args.steps // 10),
                          total=args.steps)
     step_fn = make_train_step(model, lr=lr, remat=not args.smoke,
-                              microbatch=args.microbatch)
+                              microbatch=args.microbatch, mesh=mesh)
     B, S = args.batch, args.seq
     pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     gen = torch.Generator(device=dev)
@@ -91,19 +126,20 @@ def main(argv=None) -> dict:
         _sync(dev)
         times.append(time.perf_counter() - ts)
         losses.append(float(m["loss"]))
-        if step % 5 == 0 or step == args.steps - 1:
+        if lead and (step % 5 == 0 or step == args.steps - 1):
             print(f"step {step:4d}  loss {losses[-1]:.4f}  "
                   f"({time.perf_counter()-t0:.1f}s)", flush=True)
     # the first step also builds the kernels: the median of the rest
     step_s = statistics.median(times[1:] if len(times) > 1 else times)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
         if dev.type == "cuda" else None
-    print(f"train: {cfg.name} {args.steps} steps of {B}x{S} on {dev}: "
-          f"step {step_s * 1e3:.1f} ms (median; first "
-          f"{times[0] * 1e3:.1f} ms), {B * S / step_s:.0f} tokens/s, peak "
-          + (f"{peak:.2f} GiB" if peak is not None else "n/a (cpu)"),
-          flush=True)
-    if args.ckpt:
+    if lead:
+        print(f"train: {cfg.name} {args.steps} steps of {B}x{S} on {dev}: "
+              f"step {step_s * 1e3:.1f} ms (median; first "
+              f"{times[0] * 1e3:.1f} ms), {B * S / step_s:.0f} tokens/s, "
+              "peak " + (f"{peak:.2f} GiB" if peak is not None
+                         else "n/a (cpu)"), flush=True)
+    if args.ckpt and lead:
         checkpoint.save(args.ckpt, params, cfg)
         print("saved", args.ckpt, flush=True)
     return {"losses": losses, "step_ms": step_s * 1e3,

@@ -78,6 +78,13 @@ runs under ``torch.utils.checkpoint`` (its activations recomputed in the
 backward pass).  The serving entry points write caches in place and are
 not differentiated.
 
+``Model(ep_mesh=...)`` runs the MoE layers expert-parallel over the
+mesh's `model` axis (``distributed.expert_parallel``, forward only) on
+params that hold this rank's experts only: ``init_params`` keeps them
+so, and ``expert_parallel.local_model_params`` cuts a whole tree;
+``batch_mesh`` (set by the data-parallel train step) averages the MoE
+load-balance loss's router statistics over the mesh's batch axes.
+
 Layer kinds other than these five raise ``NotImplementedError``, as does
 an encoder-decoder config with other decoder layers.
 """
@@ -90,6 +97,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import expert_parallel
 from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import layers as L
@@ -107,7 +115,8 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, moe_capacity_factor: float = 1.25):
+    def __init__(self, cfg: ModelConfig, moe_capacity_factor: float = 1.25,
+                 ep_mesh=None, batch_mesh=None):
         unsupported = []
         if any(kind not in KINDS for kind in cfg.layer_pattern):
             unsupported.append(f"layer_pattern={cfg.layer_pattern}")
@@ -128,6 +137,15 @@ class Model:
         # capacity factor of the MoE dispatch; float(num_experts) is
         # dropless (the serving engine's default)
         self.moe_cf = moe_capacity_factor
+        # expert parallelism: a DeviceMesh runs MoE layers with the expert
+        # stacks split over its `model` axis (forward only; needs E %
+        # model == 0, see distributed/expert_parallel.py); None = whole
+        # experts on every rank
+        self.ep_mesh = ep_mesh
+        # a DeviceMesh whose (pod, data) axes split the batch into equal
+        # row shards (the data-parallel train step): the MoE load-balance
+        # loss then averages its router statistics over them
+        self.batch_mesh = batch_mesh
         self.kinds = [cfg.pattern_for_layer(i) for i in range(cfg.num_layers)]
         # layer -> index into the K/V pools, for the "attn" layers
         self.pool_index = {i: j for j, i in
@@ -146,7 +164,8 @@ class Model:
         reference.  A learned position table has ``max_seq`` rows; an
         encoder-decoder model adds ``lnx`` / ``xattn`` to each layer and
         ``params["encoder"]`` = {"blocks": per-layer {ln1, attn, ln2,
-        mlp}, "final_norm"}."""
+        mlp}, "final_norm"}.  With ``ep_mesh`` each MoE layer keeps this
+        rank's experts: the whole draw's slice."""
         cfg = self.cfg
         dev = resolve_device(device)
         dtype = torch_dtype(cfg)
@@ -178,6 +197,9 @@ class Model:
                 blk["ln2"] = L.init_norm(cfg, dtype, dev)
                 if cfg.moe is not None:
                     blk["moe"] = moe.init_moe(gen, cfg, dtype, dev)
+                    if self.ep_mesh is not None:
+                        blk["moe"] = expert_parallel.local_experts(
+                            blk["moe"], cfg, self.ep_mesh)
                 else:
                     blk["mlp"] = L.init_mlp(gen, cfg, dtype, dev)
             blocks.append(blk)
@@ -318,13 +340,20 @@ class Model:
         appends its load-balance loss to ``aux`` when one is given."""
         if "moe" in p:
             h = L.apply_norm(p["ln2"], x, self.cfg)
-            if aux is None:
+            if self.ep_mesh is not None:
+                y, a = expert_parallel.apply_moe_expert_parallel(
+                    p["moe"], h, self.cfg, self.ep_mesh,
+                    capacity_factor=self.moe_cf, batch_mesh=self.batch_mesh)
+            elif aux is None:
                 return x + moe.apply_moe(p["moe"], h, self.cfg,
                                          capacity_factor=self.moe_cf)
-            y, a = moe.apply_moe(p["moe"], h, self.cfg,
-                                 capacity_factor=self.moe_cf,
-                                 return_aux=True)
-            aux.append(a)
+            else:
+                y, a = moe.apply_moe(p["moe"], h, self.cfg,
+                                     capacity_factor=self.moe_cf,
+                                     return_aux=True,
+                                     batch_mesh=self.batch_mesh)
+            if aux is not None:
+                aux.append(a)
             return x + y
         if "mlp" not in p:
             return x

@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed._compat import (all_reduce, all_reduce_sum_grad,
+                                             axis_size)
 from repro_torch.models.layers import dense_init
 
 MOE_GATHER_MAX = 16        # assignments up to which weights are gathered
@@ -89,14 +91,28 @@ def _route(params, x: torch.Tensor, k: int):
 
 
 def load_balance_loss(logits: torch.Tensor, top_idx: torch.Tensor,
-                      coef: float) -> torch.Tensor:
+                      coef: float, batch_mesh=None) -> torch.Tensor:
     """The Switch auxiliary loss (f32 scalar) of router logits [B,S,E]
     and the top-k choices [B,S,k]: the mean router probability of each
     expert times the fraction of tokens whose top-1 choice it is, summed,
-    times E and ``coef``."""
+    times E and ``coef``.
+
+    ``batch_mesh``: the batch is one of equal row shards over the mesh's
+    (pod, data) axes.  The loss is a product of batch means, so the mean
+    of the shards' losses (or their gradients) is not the whole batch's:
+    both statistics are averaged over those axes first, the router
+    probabilities with a differentiable sum, so every shard computes the
+    whole batch's loss and its gradient flows back to each shard's rows."""
     E = logits.shape[-1]
     me = torch.softmax(logits, dim=-1).mean((0, 1))
     ce = F.one_hot(top_idx[..., 0], E).float().mean((0, 1))
+    if batch_mesh is not None:
+        n = 1
+        for a in ("pod", "data"):
+            me = all_reduce_sum_grad(me, batch_mesh, a)
+            ce = all_reduce(ce, "sum", batch_mesh, a)
+            n *= axis_size(batch_mesh, a)
+        me, ce = me / n, ce / n
     return (me * ce).sum() * E * coef
 
 
@@ -152,18 +168,19 @@ def _experts_grouped(params, xa: torch.Tensor, e: torch.Tensor,
     return out
 
 
-def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
-              capacity_factor: float = 1.25, return_aux: bool = False):
-    """x [B,S,D] -> y [B,S,D] (routed experts + shared expert), or with
-    ``return_aux`` (y, the load-balance loss, an f32 scalar)."""
-    m = cfg.moe
+def routed(params, x: torch.Tensor, top_idx: torch.Tensor,
+           gates: torch.Tensor, keep: torch.Tensor, lo: int = 0
+           ) -> torch.Tensor:
+    """The routed experts' output [B,S,D]: each token's sum of ``gate *
+    expert_out`` over its kept assignments (top_idx, gates, keep
+    [B,S,k]), from zero, in increasing expert id, in x's dtype.
+    ``params`` holds experts ``lo .. lo + len(wi) - 1``; an assignment
+    outside them must not be kept."""
     B, S, D = x.shape
-    k, E = m.num_experts_per_tok, m.num_experts
-    top_idx, gates, logits = _route(params, x, k)
-    keep = capacity_keep(top_idx, E, capacity(S, k, E, capacity_factor))
+    k = top_idx.shape[-1]
     n = B * S * k
     xa = x[:, :, None].expand(B, S, k, D).reshape(n, D)
-    e = top_idx.reshape(n)
+    e = (top_idx - lo).clamp(0, params["wi"].shape[0] - 1).reshape(n)
     if n <= MOE_GATHER_MAX:
         ye = _experts_gathered(params, xa, e)
     else:
@@ -171,16 +188,37 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
     ye = ye.reshape(B, S, k, D)
     contrib = torch.where(keep[..., None], ye, torch.zeros_like(ye)) \
         * gates[..., None]
-    # each token's sum in increasing expert id, from zero, in x's dtype
     perm = torch.argsort(top_idx, dim=-1)
     contrib = torch.gather(contrib, 2, perm[..., None].expand(-1, -1, -1, D))
     y = torch.zeros_like(x)
     for j in range(k):
         y = y + contrib[:, :, j]
+    return y
+
+
+def shared_expert(params, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert's SwiGLU times its sigmoid gate (computed in
+    f32, cast to x's dtype)."""
+    sp = params["shared"]
+    gate = torch.sigmoid((x @ sp["gate"]).float()).to(x.dtype)
+    return _swiglu(x, sp["wg"], sp["wi"], sp["wo"]) * gate
+
+
+def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
+              capacity_factor: float = 1.25, return_aux: bool = False,
+              batch_mesh=None):
+    """x [B,S,D] -> y [B,S,D] (routed experts + shared expert), or with
+    ``return_aux`` (y, the load-balance loss, an f32 scalar; its router
+    statistics averaged over ``batch_mesh``'s batch axes when given)."""
+    m = cfg.moe
+    S = x.shape[1]
+    k, E = m.num_experts_per_tok, m.num_experts
+    top_idx, gates, logits = _route(params, x, k)
+    keep = capacity_keep(top_idx, E, capacity(S, k, E, capacity_factor))
+    y = routed(params, x, top_idx, gates, keep)
     if m.num_shared_experts:
-        sp = params["shared"]
-        gate = torch.sigmoid((x @ sp["gate"]).float()).to(x.dtype)
-        y = y + _swiglu(x, sp["wg"], sp["wi"], sp["wo"]) * gate
+        y = y + shared_expert(params, x)
     if return_aux:
-        return y, load_balance_loss(logits, top_idx, m.router_aux_loss_coef)
+        return y, load_balance_loss(logits, top_idx, m.router_aux_loss_coef,
+                                    batch_mesh)
     return y

@@ -15,11 +15,12 @@ operators, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed._compat import all_reduce, axis_rank, axis_size
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import (adamw_init, adamw_update,
                                          tree_leaves, tree_map)
@@ -185,17 +186,79 @@ def _split(key: str, a: torch.Tensor, n: int):
     return a.chunk(n, dim=dim)
 
 
+def batch_rank(mesh) -> Tuple[int, int]:
+    """(this rank's index among the batch shards, their count): the
+    (pod, data) axes of ``mesh`` in row-major order; `model` ranks share
+    an index."""
+    idx, n = 0, 1
+    for a in ("pod", "data"):
+        size = axis_size(mesh, a)
+        idx, n = idx * size + axis_rank(mesh, a), n * size
+    return idx, n
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of a global batch: batch shard i of n takes the
+    contiguous rows ``i*B/n .. (i+1)*B/n - 1`` (axis 1 of M-RoPE
+    positions [3, B, S])."""
+    i, n = batch_rank(mesh)
+    B = batch["labels"].shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} does not split over {n} data ranks")
+    return {k: _split(k, a, n)[i] for k, a in batch.items()}
+
+
+def mean_over_batch_ranks(tree, mesh):
+    """Each leaf's mean over the batch shards (pod, then data): the
+    leaves flattened into one f32 buffer, one sum a batch axis, cast
+    back to each leaf's dtype."""
+    leaves = tree_leaves(tree)
+    _, n = batch_rank(mesh)
+    flat = torch.cat([t.float().reshape(-1) for t in leaves])
+    for a in ("pod", "data"):
+        all_reduce(flat, "sum", mesh, a)
+    flat = flat / n
+    out, at = [], 0
+    for t in leaves:
+        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
+
+
 def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
-                    remat: bool = True, microbatch: int = 1) -> Callable:
+                    remat: bool = True, microbatch: int = 1,
+                    mesh=None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with metrics {"loss", "aux_loss", "total_loss"} (f32
     scalars).  ``microbatch`` > 1 splits the batch into that many
     gradient-accumulation steps (f32 sums, divided by their count),
     which bounds live activation memory to one microbatch.  ``remat``
-    checkpoints each decoder layer."""
+    checkpoints each decoder layer.
+
+    ``mesh`` (a ``DeviceMesh`` with a `data` axis, and maybe `pod` and
+    `model`) runs the step data-parallel: every rank is handed the same
+    GLOBAL batch and takes its batch shard's rows (``shard_batch``); the
+    gradients and the loss are averaged over the batch shards before
+    AdamW, so params and optimizer state stay equal on every rank, and
+    `model` ranks run the same rows.  The MoE load-balance loss averages
+    its router statistics over the shards (``Model(batch_mesh=)``), so
+    it is the whole batch's and so is its gradient.  The step then gives
+    the one-process step's losses and parameters (with ``microbatch`` 1;
+    a microbatch is then a shard's slice, not the global batch's).  A
+    ``loss_mask`` is refused there: the mean of the shards' masked means
+    is not the batch's."""
+    if mesh is not None:
+        model = Model(model.cfg, model.moe_cf, ep_mesh=model.ep_mesh,
+                      batch_mesh=mesh)
     loss_fn = make_loss_fn(model, remat=remat)
 
     def train_step(params, opt_state, batch):
+        if mesh is not None:
+            if batch.get("loss_mask") is not None:
+                raise ValueError("the data-parallel step takes no "
+                                 "loss_mask")
+            batch = shard_batch(batch, mesh)
         if microbatch == 1:
             (total, (loss, aux)), grads = value_and_grad(loss_fn, params,
                                                          batch)
@@ -217,6 +280,10 @@ def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
             grads = tree_map(lambda g: g / microbatch, grads)
             total, loss, aux = (total / microbatch, loss / microbatch,
                                 aux / microbatch)
+        if mesh is not None:
+            # aux is the whole batch's on every shard already
+            grads, loss = mean_over_batch_ranks((grads, loss), mesh)
+            total = loss + aux
         params, opt_state = adamw_update(grads, opt_state, params, lr=lr,
                                          weight_decay=weight_decay)
         metrics = {"loss": loss, "aux_loss": aux, "total_loss": total}

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: importing it pulls in no JAX, no file of
-it imports the JAX package, entry points refuse to fall back to the CPU
+"""The PyTorch port stands alone: importing it pulls in no JAX and starts
+no process group, no file of it imports the JAX package, entry points refuse to fall back to the CPU
 when no GPU is present, and its configs (olmo-1b, xlstm-350m, hymba-1.5b,
 qwen2-moe-a2.7b, llama3-8b, gemma2-9b, nemotron-4-15b, qwen3-moe-30b-a3b,
 qwen2-vl-72b, whisper-base: all ten) equal the reference's."""
@@ -38,7 +38,11 @@ def test_import_leaves_jax_out():
     mods = _port_modules()
     for m in ("repro_torch.serving.engine", "repro_torch.launch",
               "repro_torch.launch.cluster_serve", "repro_torch.obs.trace",
-              "repro_torch.obs.recorder", "repro_torch.obs.export"):
+              "repro_torch.obs.recorder", "repro_torch.obs.export",
+              "repro_torch.distributed.collectives",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.expert_parallel",
+              "repro_torch.launch.mesh"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -46,6 +50,9 @@ def test_import_leaves_jax_out():
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'repro' or m.startswith('repro.'))\n"
+            "import torch.distributed as dist\n"
+            "if dist.is_available() and dist.is_initialized():\n"
+            "    bad.append('a process group')\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

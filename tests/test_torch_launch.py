@@ -7,9 +7,10 @@ one slot when the port is handed the reference's weights through
 the metrics self-probe prints OK), four nodes (the reference's whole
 node cycle: olmo-1b, xlstm-350m, hymba-1.5b, qwen2-moe-a2.7b) built and
 serving a slot as the reference's do, ``--ckpt`` (ported with training)
-reaching ``build_cluster``, and the flag the port does not serve yet
-(``launch.train --production-mesh``, ROADMAP A7) raising
-``NotImplementedError`` before anything is built."""
+reaching ``build_cluster``, and ``launch.train --production-mesh``
+(ported with the distributed layer) refusing a world of one, naming its
+size and the 256 ranks the 16x16 mesh needs, before the model is
+built."""
 import pathlib
 import subprocess
 import sys
@@ -129,16 +130,17 @@ class _Reached(Exception):
     """``build_cluster`` was called (with these keyword arguments)."""
 
 
-@pytest.mark.parametrize("launcher,extra,item", [
-    ("cluster_serve", ["--paged", "--ckpt", "tiny.npz"], None),
-    ("train", ["--production-mesh"], "A7"),
+@pytest.mark.parametrize("launcher,extra", [
+    ("cluster_serve", ["--paged", "--ckpt", "tiny.npz"]),
+    ("train", ["--production-mesh"]),
 ], ids=["ckpt", "production-mesh"])
-def test_unported_flags_raise_before_building(launcher, extra, item,
-                                              monkeypatch):
-    """A flag the port does not serve yet raises ``NotImplementedError``,
-    naming its ROADMAP item, before anything is built.  ``--ckpt`` (A6,
-    which raised here until training was ported) now raises nothing: the
-    launcher hands its path to ``build_cluster``."""
+def test_unported_flags_raise_before_building(launcher, extra, monkeypatch):
+    """The flags that raised ``NotImplementedError`` until their slices
+    were ported.  ``--ckpt`` (A6) now hands its path to
+    ``build_cluster``.  ``--production-mesh`` (A7a) runs the data-parallel
+    step over the 16x16 mesh: in a world of one it raises the world-size
+    error, naming 1 and the 256 ranks it needs, before the model is built
+    or a process group started."""
     seen = {}
 
     def reached(*args, **kw):
@@ -149,9 +151,13 @@ def test_unported_flags_raise_before_building(launcher, extra, item,
         raise AssertionError("the model was built")
 
     if launcher == "train":
+        import torch.distributed as dist
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
         monkeypatch.setattr(train, "Model", boom)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(RuntimeError,
+                           match=r"world of 256 ranks.*this world has 1 "):
             train.main(["--smoke", "--device", "cpu"] + extra)
+        assert not dist.is_initialized()
         return
     monkeypatch.setattr(cluster_serve, "build_cluster", reached)
     with pytest.raises(_Reached):
