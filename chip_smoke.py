@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases card,build,qwen
     python3 chip_smoke.py --phases card,build,whisper
     python3 chip_smoke.py --phases card,build,train
+    python3 chip_smoke.py --phases card,build,train,dryrun
     python3 chip_smoke.py --phases card,build,distributed
     python3 chip_smoke.py --phases card,build,sim
     python3 chip_smoke.py --profile       # + the slice's device time by kernel
@@ -256,6 +257,18 @@ Phases, in order:
            on the card, then cluster_serve --smoke --nodes 2 --slots 2
            with --ckpt (node 0 serves the trained weights, node 1 draws
            its own) and without: each slot's mean quality side by side
+  dryrun   the dry-run tooling (launch/specs.py, roofline.py, dryrun.py)
+           on fake CPU tensors: no kernel is launched and nothing is
+           allocated on the card.  (a) python -m
+           repro_torch.launch.dryrun --arch olmo-1b --shape train_4k in a
+           child process, on a fake world of 256 ranks and the 16x16
+           mesh: status OK, flops and an all-reduce counted; its record's
+           line and counts printed.  (b) build_step and roofline.analyze
+           at train (b)'s shape (olmo-1b, 4 x 256, remat) on a 1x1 mesh:
+           compute_s and memory_s against H100 constants and the traced
+           per-rank peak, beside train (b)'s measured median step and
+           peak when the train phase ran in the same call, and the
+           roofline's share of the step, max(compute_s, memory_s) / step
   distributed
            the distributed layer (src/repro_torch/distributed,
            launch/mesh.py) at published widths from seeded inputs, in a
@@ -395,7 +408,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ALL_PHASES = ("card", "build", "slice", "cluster", "runtime", "launcher",
               "serve", "archs", "dense", "qwen", "whisper", "train",
-              "distributed", "kernels", "parity", "sim")
+              "dryrun", "distributed", "kernels", "parity", "sim")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -3687,6 +3700,7 @@ TRAIN_FIXED_STEPS = 8     # (c)
 TRAIN_PARITY_ARCHS = ("olmo-1b", "gemma2-9b", "qwen2-moe-a2.7b")   # (d)
 TRAIN_PARITY_LR = 1e-3
 TINY_CLI = ["--smoke", "--nodes", "2", "--slots", "2"]    # (e)
+TRAIN_MEASURED = {}   # (b)'s median step ms and peak GiB, for dryrun (b)
 
 
 def bwd_work(q, k, q_pos, kv_pos, causal=True, window=None):
@@ -3879,6 +3893,7 @@ def train_launcher(torch, ops, ref, tag, bwd_ms) -> dict:
     size = path.stat().st_size
     path.unlink()
     per_step = launches["flash_attention_bwd"] // steps
+    TRAIN_MEASURED.update(step_ms=out["step_ms"], peak_gib=out["peak_gib"])
     log(f"train[b]: launch/train.py {' '.join(TRAIN_CLI)} --ckpt: "
         f"{params / 1e9:.3f}B params ({cfg.dtype}, remat on), losses "
         f"{[round(x, 4) for x in out['losses']]}; step {out['step_ms']:.1f} "
@@ -4091,6 +4106,108 @@ def phase_train(torch, card, rec: dict) -> dict:
         f"{time.perf_counter() - t_d:.1f}; launches on the paths "
         f"{json.dumps(total)}")
     return total
+
+
+# ----------------------------------------------------------------- dryrun
+
+DRYRUN_PAIR = ("olmo-1b", "train_4k")   # (a): on the 16x16 fake world
+
+
+def phase_dryrun(torch, card) -> dict:
+    """The dry-run tooling (launch/{specs,roofline,dryrun}): (a)
+    ``python -m repro_torch.launch.dryrun`` for one pair in a child
+    process, on a fake world of 256 ranks; (b) ``build_step`` and
+    ``roofline.analyze`` at the train phase's own shape on a 1x1 mesh,
+    its roofline terms beside the train phase's measured step when that
+    phase ran in this call.  Everything runs on fake CPU tensors: no
+    kernel is launched and nothing is allocated on the card."""
+    import os
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline, specs
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.mesh import MeshShape
+    tag = f"[{card['smi']}]"
+    before = dict(ops.launches)
+    wrappers = {n: getattr(ops, n) for n in WRAPPERS}
+    mem0 = torch.cuda.memory_allocated()
+    # (a)
+    arch, shape_name = DRYRUN_PAIR
+    out_dir = ROOT / "build" / "dryrun_smoke"
+    fn = out_dir / f"{arch}_{shape_name}_16x16.json"
+    if fn.exists():
+        fn.unlink()
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape_name, "--out", str(out_dir)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+        text=True, timeout=300)
+    t_a = time.perf_counter() - t0
+    check(p.returncode == 0, f"dryrun (a) exited {p.returncode}: "
+          f"{p.stderr[-2000:]}")
+    rec = json.loads(fn.read_text())
+    check(rec["status"] == "OK", f"dryrun (a): {rec['status']} "
+          f"{rec.get('error', '')} {rec.get('traceback', '')}")
+    r = rec["roofline"]
+    check(rec["hlo"]["dot_flops_per_dev"] > 0
+          and rec["hlo"]["per_collective"].get("all-reduce", 0) > 0,
+          f"dryrun (a): counts {rec['hlo']['dot_flops_per_dev']}, "
+          f"{rec['hlo']['per_collective']}")
+    log(f"dryrun[a]: {p.stdout.strip().splitlines()[0]}")
+    log(f"dryrun[a]: {arch} {shape_name} on the 16x16 fake world: "
+        f"{rec['hlo']['dot_flops_per_dev'] / 1e12:.3f} TFLOP a rank, "
+        f"collectives {json.dumps(rec['hlo']['per_collective'])} bytes, "
+        f"memory {json.dumps(rec['memory'])}, meta "
+        f"{json.dumps(rec['meta'])}, compute {r['compute_s'] * 1e3:.2f} "
+        f"ms, memory {r['memory_s'] * 1e3:.2f} ms, collective "
+        f"{r['collective_s'] * 1e3:.2f} ms, useful flops "
+        f"{r['useful_flops_ratio']:.4f}; {t_a:.1f} s with the child's start "
+        "(a count of the port's program on fake tensors, not a card "
+        "measurement)")
+    # (b)
+    cfg = get_config(TRAIN_ARCH)
+    B = int(TRAIN_CLI[TRAIN_CLI.index("--batch") + 1])
+    S = int(TRAIN_CLI[TRAIN_CLI.index("--seq") + 1])
+    shape = InputShape("train_phase", S, B, "train")
+    t0 = time.perf_counter()
+    step, args, _, _, meta = specs.build_step(
+        cfg, shape, MeshShape(("data", "model"), (1, 1)))
+    arg_b = argument_bytes(shape, args, meta)
+    stats = roofline.analyze(step, *args)
+    t_b = time.perf_counter() - t0
+    terms = roofline.roofline_terms(
+        stats, model_flops_global=roofline.model_flops(cfg, shape), chips=1,
+        analytic_bytes=roofline.analytic_memory_bytes(cfg, shape, meta))
+    peak = (arg_b + stats.peak_bytes) / 2 ** 30
+    check(stats.dot_flops > 0 and terms["memory_s"] > 0,
+          f"dryrun (b): {stats.dot_flops} flops, {terms}")
+    check(dict(ops.launches) == before, "dryrun: kernels were launched")
+    check(all(getattr(ops, n) is f for n, f in wrappers.items()),
+          "dryrun: the ops wrappers were not put back")
+    check(torch.cuda.memory_allocated() == mem0,
+          "dryrun: memory was allocated on the card")
+    bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    line = (f"dryrun[b]: {TRAIN_ARCH} train step [{B}, {S}], remat, on a "
+            f"1x1 mesh, traced on fake tensors in {t_b:.1f} s: "
+            f"{stats.dot_flops / 1e12:.3f} TFLOP, compute_s "
+            f"{terms['compute_s'] * 1e3:.3f} ms, memory_s "
+            f"{terms['memory_s'] * 1e3:.3f} ms (analytic; the traced bytes "
+            f"{stats.hbm_bytes / 1e9:.1f} GB give "
+            f"{terms['memory_hlo_upper_s'] * 1e3:.3f} ms), traced per-rank "
+            f"peak {peak:.2f} GiB ({arg_b / 2 ** 30:.2f} of arguments + "
+            f"{stats.peak_bytes / 2 ** 30:.2f} above them)")
+    if TRAIN_MEASURED:
+        ms, gib = TRAIN_MEASURED["step_ms"], TRAIN_MEASURED["peak_gib"]
+        line += (f"; the train phase's step {ms:.1f} ms, peak "
+                 f"{gib or 0:.2f} GiB: the roofline's share "
+                 f"max(compute_s, memory_s) / step = "
+                 f"{bound_ms / ms * 100:.2f}%")
+    else:
+        line += "; the train phase did not run in this call"
+    log(f"{line} {tag}")
+    log(f"dryrun: seconds by part (a) {t_a:.1f}, (b) {t_b:.1f}")
+    return {}
 
 
 # ------------------------------------------------------------ distributed
@@ -6715,6 +6832,7 @@ def main(argv=None) -> int:
             "qwen": lambda: phase_qwen(torch, card, rec),
             "whisper": lambda: phase_whisper(torch, card, rec),
             "train": lambda: phase_train(torch, card, rec),
+            "dryrun": lambda: phase_dryrun(torch, card),
             "distributed": lambda: phase_distributed(torch, card),
             "kernels": lambda: phase_kernels(torch, card, captured, rec,
                                              traced),

@@ -96,10 +96,10 @@ def apply_moe_expert_parallel(params: dict, x: torch.Tensor,
     # is apply_moe's: a rank sees its experts' assignments in the same
     # (token, rank) order as the whole layer does, so an assignment
     # keeps its slot here iff it keeps it in apply_moe
-    keep = moe.capacity_keep(top_idx, E, moe.capacity(S, k, E,
-                                                      capacity_factor))
+    C = moe.capacity(S, k, E, capacity_factor)
+    keep = moe.capacity_keep(top_idx, E, C)
     keep = keep & (top_idx >= lo) & (top_idx < hi)
-    y = moe.routed(params, x, top_idx, gates, keep, lo)
+    y = moe.routed(params, x, top_idx, gates, keep, lo, capacity=C)
     # ONE sum of the compact output over the axis, in f32 (for two ranks
     # bitwise the sum in x's dtype), then the shared expert
     y = all_reduce(y.float(), "sum", mesh, axis).to(x.dtype)

@@ -13,7 +13,9 @@ only the routed rows are computed:
     into an [E, width, D] buffer, ``width`` the busiest expert's rows
     (one host read of the per-expert counts), and one ``bmm`` per
     projection runs every expert over its rows (zero rows past an
-    expert's count).
+    expert's count).  On fake tensors (a dry-run trace, which has no
+    data to count) ``width`` is the static bound, B times the capacity
+    per row: the reference's dispatch buffer, [E, B*C, D].
 
 Semantics held to the reference:
   * router logits ``x @ router`` in x's dtype, then f32; the top-k of
@@ -37,9 +39,11 @@ experts, times E and ``router_aux_loss_coef``, as the reference's.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed._compat import (all_reduce, all_reduce_sum_grad,
@@ -144,17 +148,26 @@ def _experts_gathered(params, xa: torch.Tensor, e: torch.Tensor
 
 
 def _experts_grouped(params, xa: torch.Tensor, e: torch.Tensor,
-                     keep: torch.Tensor) -> torch.Tensor:
+                     keep: torch.Tensor, bound: Optional[int] = None
+                     ) -> torch.Tensor:
     """xa [n, D] through expert e[n] each, kept rows only (others 0):
     the kept rows sorted by expert into an [E, width, D] buffer (width:
-    the busiest expert's rows, read back once), one ``bmm`` per
-    projection over it, the rows scattered back."""
+    the busiest expert's rows, read back once; on fake tensors
+    ``bound``, the most rows an expert can keep, every row when None),
+    one ``bmm`` per projection over it, the rows scattered back."""
     E = params["wg"].shape[0]
     key = torch.where(keep, e, torch.full_like(e, E))
     key_s, order = torch.sort(key, stable=True)
-    counts = torch.bincount(key_s, minlength=E + 1)[:E]
-    host = counts.tolist()                  # the one host read
-    nk, width = sum(host), max(host)
+    if isinstance(xa, FakeTensor):          # a trace: no counts to read
+        counts = torch.zeros(E + 1, dtype=key_s.dtype, device=xa.device
+                             ).scatter_add_(0, key_s,
+                                            torch.ones_like(key_s))[:E]
+        nk = key_s.shape[0]
+        width = nk if bound is None else bound
+    else:
+        counts = torch.bincount(key_s, minlength=E + 1)[:E]
+        host = counts.tolist()              # the one host read
+        nk, width = sum(host), max(host)
     out = torch.zeros_like(xa)
     if nk == 0:
         return out
@@ -169,13 +182,15 @@ def _experts_grouped(params, xa: torch.Tensor, e: torch.Tensor,
 
 
 def routed(params, x: torch.Tensor, top_idx: torch.Tensor,
-           gates: torch.Tensor, keep: torch.Tensor, lo: int = 0
-           ) -> torch.Tensor:
+           gates: torch.Tensor, keep: torch.Tensor, lo: int = 0,
+           capacity: Optional[int] = None) -> torch.Tensor:
     """The routed experts' output [B,S,D]: each token's sum of ``gate *
     expert_out`` over its kept assignments (top_idx, gates, keep
     [B,S,k]), from zero, in increasing expert id, in x's dtype.
     ``params`` holds experts ``lo .. lo + len(wi) - 1``; an assignment
-    outside them must not be kept."""
+    outside them must not be kept.  ``capacity``: the slots an expert
+    keeps per batch row (``keep``'s), which bounds its rows on fake
+    tensors; None bounds them by every assignment."""
     B, S, D = x.shape
     k = top_idx.shape[-1]
     n = B * S * k
@@ -184,7 +199,8 @@ def routed(params, x: torch.Tensor, top_idx: torch.Tensor,
     if n <= MOE_GATHER_MAX:
         ye = _experts_gathered(params, xa, e)
     else:
-        ye = _experts_grouped(params, xa, e, keep.reshape(n))
+        bound = n if capacity is None else min(n, B * capacity)
+        ye = _experts_grouped(params, xa, e, keep.reshape(n), bound)
     ye = ye.reshape(B, S, k, D)
     contrib = torch.where(keep[..., None], ye, torch.zeros_like(ye)) \
         * gates[..., None]
@@ -214,8 +230,9 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
     S = x.shape[1]
     k, E = m.num_experts_per_tok, m.num_experts
     top_idx, gates, logits = _route(params, x, k)
-    keep = capacity_keep(top_idx, E, capacity(S, k, E, capacity_factor))
-    y = routed(params, x, top_idx, gates, keep)
+    C = capacity(S, k, E, capacity_factor)
+    keep = capacity_keep(top_idx, E, C)
+    y = routed(params, x, top_idx, gates, keep, capacity=C)
     if m.num_shared_experts:
         y = y + shared_expert(params, x)
     if return_aux:

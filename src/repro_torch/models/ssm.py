@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import loops
 from repro_torch.models.layers import dense_init
 
 # ---------------------------------------------------------------------------
@@ -136,8 +137,9 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     A = -torch.exp(params["A_log"])                    # [inner, N]
     x32 = xc.float()
     ys = []
-    for t0 in range(0, S, MAMBA_TIME_BLOCK):
-        sl = slice(t0, min(S, t0 + MAMBA_TIME_BLOCK))
+    nb = -(-S // MAMBA_TIME_BLOCK)
+    for b in loops.trips(nb, "mamba blocks"):
+        sl = slice(b * MAMBA_TIME_BLOCK, min(S, (b + 1) * MAMBA_TIME_BLOCK))
         # time-major [T, B, inner, N]
         dt_b = dt[:, sl].transpose(0, 1)[..., None]
         dA = torch.exp(dt_b * A)
@@ -148,11 +150,14 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
             dA = torch.where(m, dA, torch.ones_like(dA))
             dBx = torch.where(m, dBx, torch.zeros_like(dBx))
         hs = []
-        for t in range(dA.shape[0]):   # out of place: autograd follows it
+        T = dA.shape[0]
+        # out of place: autograd follows it
+        for t in loops.trips(T, "mamba steps"):
             h = h * dA[t] + dBx[t]
             hs.append(h)
-        ys.append(torch.einsum("tbis,bts->bti", torch.stack(hs), Cm[:, sl]))
-    y = torch.cat(ys, dim=1) + params["D"] * x32
+        ys.append(torch.einsum("tbis,bts->bti",
+                               torch.stack(loops.full(hs, T)), Cm[:, sl]))
+    y = torch.cat(loops.full(ys, nb), dim=1) + params["D"] * x32
     out = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
     # conv history for decode continuation: always [B, W-1, inner]
     ext = torch.cat([prev, xi], dim=1)                 # [B, Wm1+S, inner]
@@ -301,7 +306,7 @@ def mlstm_forward_chunked(params, x: torch.Tensor, cfg: ModelConfig,
     tri = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     C, n, m = st["C"], st["n"], st["m"]
     hs = []
-    for ci in range(nc):
+    for ci in loops.trips(nc, "mlstm chunks"):
         sl = slice(ci * L, (ci + 1) * L)
         qc, kc, vc = q[:, sl], k[:, sl], v[:, sl]                # [B,L,H,hd]
         lic, lfc = li[:, sl], lf[:, sl]                          # [B,L,H]
@@ -331,7 +336,8 @@ def mlstm_forward_chunked(params, x: torch.Tensor, cfg: ModelConfig,
             "bshk,bshv,bsh->bhkv", kc, vc, w_new)
         n = wC_old[..., None] * n + torch.einsum("bshk,bsh->bhk", kc, w_new)
         m = m_end
-    h = torch.cat(hs, dim=1).reshape(B, S + pad, H * hd)[:, :S]
+    h = torch.cat(loops.full(hs, nc), dim=1).reshape(
+        B, S + pad, H * hd)[:, :S]
     return _mlstm_out(params, h, x), {"C": C, "n": n, "m": m}
 
 
@@ -397,14 +403,14 @@ def slstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
     st = state or slstm_init_state(cfg, B, x.device)
     pre = x @ params["w"]                              # [B,S,4d]
     hs = []
-    for t in range(S):
+    for t in loops.trips(S, "slstm tokens"):
         new = _slstm_cell(params, pre[:, t], st)
         if mask is not None:
             m_t = mask[:, t, None]
             new = {k: torch.where(m_t, a, st[k]) for k, a in new.items()}
         st = new
         hs.append(st["h"])
-    h = torch.stack(hs, dim=1).to(x.dtype)
+    h = torch.stack(loops.full(hs, S), dim=1).to(x.dtype)
     return h @ params["out"], st
 
 

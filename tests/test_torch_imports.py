@@ -42,7 +42,9 @@ def test_import_leaves_jax_out():
               "repro_torch.distributed.collectives",
               "repro_torch.distributed.sharding",
               "repro_torch.distributed.expert_parallel",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.launch.specs",
+              "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+              "repro_torch.launch.report", "repro_torch.models.loops"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -53,6 +55,40 @@ def test_import_leaves_jax_out():
             "import torch.distributed as dist\n"
             "if dist.is_available() and dist.is_initialized():\n"
             "    bad.append('a process group')\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_dryrun_modules_import_quietly():
+    """The dry-run modules (``launch/{specs,roofline,dryrun,report}``)
+    import in a fresh process without setting an environment variable,
+    joining a process group or registering the fake backend: the
+    reference's dryrun sets XLA_FLAGS at import, the port's run_pair
+    joins its fake world when called."""
+    mods = [f"repro_torch.launch.{m}" for m in
+            ("specs", "roofline", "dryrun", "report")]
+    for m in mods:
+        assert m in _port_modules(), m
+    code = ("import importlib, os, sys\n"
+            "env = dict(os.environ)\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "bad = sorted(k for k in set(env) | set(os.environ)\n"
+            "             if env.get(k) != os.environ.get(k))\n"
+            "if dist.is_initialized():\n"
+            "    bad.append('a process group')\n"
+            "if 'torch.testing._internal.distributed.fake_pg' in "
+            "sys.modules:\n"
+            "    bad.append('the fake backend')\n"
+            "from repro_torch.models import loops\n"
+            "if loops.TRACER is not None:\n"
+            "    bad.append('a tracer')\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
