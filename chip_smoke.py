@@ -300,7 +300,34 @@ Phases, in order:
            qwen2-moe-a2.7b's smoke config (f32; its aux loss a product
            of batch means) on a fixed batch of 4 x 32 over the world's
            data ranks: losses and aux within 1e-5 of the one-process
-           step's, params within 1e-4 of their max
+           step's, params within 1e-4 of their max.  (f) the sharded
+           program (distributed/tensor_parallel.py) of olmo-1b at
+           published width (bf16, seed 0, a seeded batch of 2 x 256,
+           remat, lr 1e-4) in the world of two: one tensor-parallel step
+           over (data 1, model 2) and one FSDP step over (data 2, model
+           1, forced), each rank holding its shards only, against the
+           one-process step (this process, before the spawn): loss
+           within 2e-2 (bf16 activations: every row-parallel output is
+           rounded once more, after its all-reduce, than the
+           one-process matmul's), each param within 2.5 lr + 2^-7
+           max|p| of the one-process step's (AdamW's first step moves a
+           param by lr (+-1 + wd p), so a gradient whose sign the bf16
+           reordering flips moves it 2 lr the other way; each side
+           rounds to bf16; so this holds the forward, not the
+           gradient), and each first moment of AdamW (f32, 0.1 x the
+           clipped gradient: what carries the TP / FSDP backward, the
+           vocab-parallel cross-entropy and the gradient reductions)
+           within 2^-4 relative L2 of the one-process step's (bf16
+           gradients summed in another order); the same step again
+           with a planted fault (the column-parallel input gradient
+           unsummed over `model`; the FSDP gradients unsummed over
+           `data`) must miss that tolerance; flash_attention and
+           flash_attention_bwd launched on every rank (counts at 0 just
+           before the step, read just after).  (g) the tensor-parallel prefill of a
+           seeded 2 x 32 prompt and a greedy decode of 16 tokens over
+           (data 1, model 2): tokens equal to the one-process decode's,
+           or parting where both lie within NEAR_TIE of the one-process
+           top logit; flash_attention launched on every rank
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -4227,6 +4254,14 @@ DIST_MOE_TOL = 2.0 ** -6         # of max(1, max|y|): bf16 sums reordered
 DIST_REPS = 5                    # timed calls a case, after a warm one
 DIST_TRAIN_ARCH = "qwen2-moe-a2.7b"   # (e) its aux loss: batch means
 DIST_TRAIN_STEPS = 2
+DIST_TP_ARCH = "olmo-1b"         # (f)-(g): the sharded program, bf16
+DIST_TP_BATCH = (2, 256)
+DIST_TP_LR = 1e-4
+DIST_TP_MESHES = (((1, 2), False), ((2, 1), True))   # TP; FSDP forced
+DIST_TP_LOSS_TOL = 2e-2          # bf16: see the module docstring, (f)
+DIST_TP_MU_RTOL = 2.0 ** -4      # (f): a first moment's relative L2 error
+DIST_TP_PROMPT = (2, 32)         # (g)
+DIST_TP_DECODE = 16
 
 
 def _dist_corpus(torch, dev):
@@ -4291,6 +4326,265 @@ def dist_train(torch, mesh) -> tuple:
         params, opt, m = step(params, opt, batch)
         metrics.append((float(m["loss"]), float(m["aux_loss"])))
     return metrics, [t.detach().cpu() for t in tree_leaves(params)]
+
+
+def _tp_inputs(torch, cfg, dev):
+    """(f)'s batch and (g)'s prompt, seeded."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    B, S = DIST_TP_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "positions": torch.arange(S, dtype=torch.int32,
+                                       device=dev).expand(B, S)}
+    B, L = DIST_TP_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (B, L), generator=gen,
+                           device=dev)
+    return batch, prompt
+
+
+def dist_tp_step(torch, mesh, fsdp):
+    """(f): one train step of DIST_TP_ARCH at published width from its
+    seed-0 draw: the sharded program over ``mesh`` (this rank's shards of
+    the final params and first moments), or the one-process step when
+    ``mesh`` is None -> (loss, final params, AdamW's first moments (f32:
+    0.1 x the clipped gradient), flash launches, seconds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.train import train_step as ts
+    dev = torch.device(DEV)
+    cfg = get_config(DIST_TP_ARCH)
+    tp = None if mesh is None else tpl.TensorParallel(cfg, mesh, fsdp)
+    params = Model(cfg, tp=tp).init_params(seed=0, device=dev,
+                                           max_seq=DIST_TP_BATCH[1])
+    batch, _ = _tp_inputs(torch, cfg, dev)
+    step = ts.make_train_step(Model(cfg), lr=DIST_TP_LR, remat=True,
+                              mesh=mesh, fsdp=fsdp)
+    opt = ts.init_opt_state(params)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {k: c for k, c in ops.launches.items() if c}
+    return float(m["loss"]), params, opt.mu, launches, secs
+
+
+def dist_tp_decode(torch, mesh):
+    """(g): prefill of the seeded prompt and DIST_TP_DECODE greedy tokens
+    on the sharded program over ``mesh`` (one process when None) ->
+    (tokens [B, n], each step's logits [n, B, V] on the CPU, prefill
+    logits, flash launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    dev = torch.device(DEV)
+    cfg = get_config(DIST_TP_ARCH)
+    tp = None if mesh is None else tpl.TensorParallel(cfg, mesh)
+    model = Model(cfg, tp=tp)
+    params = model.init_params(seed=0, device=dev, max_seq=64)
+    _, prompt = _tp_inputs(torch, cfg, dev)
+    B, L = prompt.shape
+    pos = torch.arange(L, dtype=torch.int32, device=dev).expand(B, L)
+    cache = model.init_cache(B, L + DIST_TP_DECODE, dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    toks, steps = [], []
+    with torch.no_grad():
+        first = model.prefill(params, prompt, pos, cache)
+        lg = first
+        for _ in range(DIST_TP_DECODE):
+            tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+            steps.append(lg.float().cpu())
+            lg = model.decode_step(params, tok, cache)
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in ops.launches.items() if c}
+    return (torch.cat(toks, 1).cpu(), torch.stack(steps), first.float().cpu(),
+            launches)
+
+
+def dist_tp_one(torch, tmp: str) -> dict:
+    """(f)-(g) in one process, before the spawn: the step's loss, final
+    params and first moments (saved under ``tmp`` for the ranks), the
+    clipped gradient's global norm (1 when the clip is active), the
+    decode."""
+    loss, params, mu, launches, secs = dist_tp_step(torch, None, False)
+    clipped = float(sum(torch.sum(torch.square(t)) for t in _leaves(mu))
+                    ** 0.5) / 0.1
+    torch.save({"params": [t.cpu() for t in _leaves(params)],
+                "mu": [t.cpu() for t in _leaves(mu)]}, f"{tmp}/tp_one.pt")
+    del params, mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks, steps, first, dl = dist_tp_decode(torch, None)
+    return {"loss": loss, "launches": launches, "secs": secs, "tokens": toks,
+            "steps": steps, "first": first, "decode_launches": dl,
+            "clipped_norm": clipped}
+
+
+def _leaves(tree):
+    from repro_torch.train.optimizer import tree_leaves
+    return tree_leaves(tree)
+
+
+def _mu_error(torch, tpl, mu, one_mu, specs, mesh) -> float:
+    """(f)'s gradient reading: the largest, over the leaves, relative L2
+    error of this rank's first-moment shard against its block of the
+    one-process step's."""
+    worst = 0.0
+    for got, want, spec in zip(_leaves(mu), one_mu, specs):
+        want = tpl.cut(want, spec, mesh).to(got.device)
+        err = float(torch.linalg.vector_norm(got - want)) / max(
+            float(torch.linalg.vector_norm(want)), 1e-30)
+        worst = max(worst, err)
+    return worst
+
+
+def _tp_fault(torch, tpl, shape):
+    """(f)'s planted fault for ``shape``'s step, as (what, class, the
+    faulty backward): over (1, 2) the input gradient of each
+    column-parallel projection left unsummed over `model`; over (2, 1)
+    the FSDP leaves' gradients cut to this rank's block instead of
+    reduce-scattered over `data` (this rank's rows only)."""
+    from repro_torch.distributed._compat import axis_rank, axis_size
+    if shape[1] > 1:
+        return ("the input gradient unsummed over model", tpl._CopyToModel,
+                lambda ctx, g: (g, None))
+
+    def unsummed(ctx, g):
+        n = axis_size(ctx.mesh, "data")
+        part = g.chunk(n, dim=ctx.dim)[axis_rank(ctx.mesh, "data")]
+        return part.contiguous(), None, None
+    return ("the FSDP gradients unsummed over data", tpl._GatherData,
+            unsummed)
+
+
+def dist_tp_rank(torch, rank: int, tmp: str) -> dict:
+    """(f)-(g) on one rank of the world of two: each mesh's step, its
+    params (the error and the tolerance by leaf) and its first moments
+    (the relative L2 error by leaf) against this rank's shards of the
+    one-process step's; the same step again with a planted fault
+    (``_tp_fault``), whose first moments must miss; the decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = get_config(DIST_TP_ARCH)
+    saved = torch.load(f"{tmp}/tp_one.pt", mmap=True)
+    one, one_mu = saved["params"], saved["mu"]
+    out = {}
+    for shape, fsdp in DIST_TP_MESHES:
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"), DEV)
+        loss, params, mu, launches, secs = dist_tp_step(torch, mesh, fsdp)
+        tp = tpl.TensorParallel(cfg, mesh, fsdp)
+        specs = tpl.sh.leaves(tpl.like(params, tp.specs))  # Spec: a leaf
+        mu_err = _mu_error(torch, tpl, mu, one_mu, specs, mesh)
+        check(mu_err <= DIST_TP_MU_RTOL, f"distributed[f] {shape} fsdp "
+              f"{fsdp} rank {rank}: a first moment {mu_err:.3e} (relative "
+              f"L2) from the one-process step's (tol {DIST_TP_MU_RTOL:g})")
+        del mu
+        worst, n_leaves = 0.0, 0
+        for got, want, spec in zip(_leaves(params), one, specs):
+            want = tpl.cut(want, spec, mesh).to(got.device).float()
+            tol = 2.5 * DIST_TP_LR + 2 ** -7 * float(want.abs().max())
+            err = float((got.float() - want).abs().max())
+            check(err <= tol, f"distributed[f] {shape} fsdp {fsdp} rank "
+                  f"{rank}: a param {err:.3e} from the one-process step's "
+                  f"(tol {tol:.3e})")
+            worst = max(worst, err / tol)
+            n_leaves += 1
+        held = sum(t.numel() * t.element_size() for t in _leaves(params))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        what, cls, faulty = _tp_fault(torch, tpl, shape)
+        sound = cls.backward
+        cls.backward = staticmethod(faulty)
+        try:
+            _, params, mu, _, _ = dist_tp_step(torch, mesh, fsdp)
+        finally:
+            cls.backward = sound
+        fault_err = _mu_error(torch, tpl, mu, one_mu, specs, mesh)
+        check(fault_err > DIST_TP_MU_RTOL, f"distributed[f] {shape} rank "
+              f"{rank}: with {what} the first moments read {fault_err:.3e},"
+              f" inside the tolerance {DIST_TP_MU_RTOL:g}")
+        out[("tp", shape)] = {"loss": loss, "launches": launches,
+                              "secs": secs, "worst": worst,
+                              "leaves": n_leaves, "held": held,
+                              "mu_err": mu_err, "fault": (what, fault_err)}
+        del params, mu
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"), DEV)
+    out["tp_decode"] = dist_tp_decode(torch, mesh)
+    return out
+
+
+def dist_tp_check(torch, one: dict, ranks: list, tag: str) -> dict:
+    """(f)-(g): every rank's steps and decode against the one-process
+    run; the flash launches of the sharded paths."""
+    for r, o in enumerate(ranks):
+        for shape, fsdp in DIST_TP_MESHES:
+            t = o[("tp", shape)]
+            d = abs(t["loss"] - one["loss"])
+            check(d <= DIST_TP_LOSS_TOL, f"distributed[f] {shape} rank "
+                  f"{r}: loss {t['loss']} vs one process {one['loss']}")
+            check(t["launches"].get("flash_attention", 0) > 0
+                  and t["launches"].get("flash_attention_bwd", 0) > 0,
+                  f"distributed[f] {shape} rank {r}: launches "
+                  f"{t['launches']}")
+            log(f"distributed[f]: {DIST_TP_ARCH} (bf16, {DIST_TP_BATCH[0]} x "
+                f"{DIST_TP_BATCH[1]}, remat) mesh (data, model) {shape}"
+                f"{' FSDP' if fsdp else ' TP'} rank {r}: loss "
+                f"{t['loss']:.6f} vs one process {one['loss']:.6f} (|d| "
+                f"{d:.2e}, tol {DIST_TP_LOSS_TOL:g}); {t['leaves']} param "
+                f"leaves within tolerance, worst {t['worst']:.3f} of its "
+                f"tol; first moments (0.1 x the clipped gradient, whose "
+                f"one-process norm is {one['clipped_norm']:.4f}) within "
+                f"{t['mu_err']:.3e} relative L2 (tol {DIST_TP_MU_RTOL:g}), "
+                f"with {t['fault'][0]} {t['fault'][1]:.3e}; "
+                f"{t['held'] / 2 ** 30:.3f} GiB of params held; "
+                f"launches {json.dumps(t['launches'])}; the process's first "
+                f"step {t['secs']:.2f} s, warm-up included (one process "
+                f"{one['secs']:.2f} s) {tag}")
+        toks, steps, first, launches = o["tp_decode"]
+        want = one["tokens"]
+        err = max_err(first, one["first"])
+        check(launches.get("flash_attention", 0) > 0,
+              f"distributed[g] rank {r}: launches {launches}")
+        parted = None
+        if not torch.equal(toks, want):
+            # the first parting: both tokens within NEAR_TIE of the
+            # one-process top logit at that step
+            b, t = next((b, t) for t in range(toks.shape[1])
+                        for b in range(toks.shape[0])
+                        if toks[b, t] != want[b, t])
+            lg = one["steps"][t, b]
+            top = float(lg.max())
+            below = (top - float(lg[want[b, t]]), top - float(lg[toks[b, t]]))
+            parted = (b, t, round(below[0], 4), round(below[1], 4))
+            check(max(below) <= NEAR_TIE, f"distributed[g] rank {r}: row "
+                  f"{b} parts at token {t}, {below} below the top logit")
+        log(f"distributed[g]: {DIST_TP_ARCH} tensor-parallel over (1, 2) "
+            f"rank {r}: prefill of {list(DIST_TP_PROMPT)} logits max|err| "
+            f"{err:.3e} against one process; {DIST_TP_DECODE} greedy tokens "
+            + ("equal" if parted is None else
+               f"part at (row, token, one-process and TP distances below "
+               f"the top logit) {parted}, within NEAR_TIE {NEAR_TIE}")
+            + f"; launches {json.dumps(launches)} {tag}")
+    counts = {}
+    for o in ranks:
+        for shape, _ in DIST_TP_MESHES:
+            for k, c in o[("tp", shape)]["launches"].items():
+                counts[k] = counts.get(k, 0) + c
+        for k, c in o["tp_decode"][3].items():
+            counts[k] = counts.get(k, 0) + c
+    return counts
 
 
 def _dist_ms(torch, dist, world: int, fn) -> float:
@@ -4401,6 +4695,9 @@ def _dist_child(rank: int, world: int, tmp: str) -> None:
         "gloo", store=dist.FileStore(f"{tmp}/store{world}", world),
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
     out = dist_rank(torch, world, rank)
+    t = time.perf_counter()
+    out.update(dist_tp_rank(torch, rank, tmp))
+    out["tp_s"] = time.perf_counter() - t
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -4600,11 +4897,17 @@ def phase_distributed(torch, card) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
+        # (f)-(g)'s one-process run, its params saved for the ranks
+        one = dist_tp_one(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_one = time.perf_counter()
         # the children import this file and find the kernels built
         mp.spawn(_dist_child, args=(2, tmp), nprocs=2, join=True)
         runs[2] = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
                    for r in range(2)]
     t2 = time.perf_counter()
+    tp_launches = dist_tp_check(torch, one, runs[2], tag)
     dist_check(torch, runs, tag)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4612,12 +4915,14 @@ def phase_distributed(torch, card) -> dict:
     dist_flag(torch, tag)
     launches = sum(o["topk_launches"]["retrieval_topk"]
                    for ranks in runs.values() for o in ranks)
-    log(f"distributed: seconds: world 1 {t1 - t0:.1f}, world 2 (spawn "
-        f"included) {t2 - t1:.1f}, checks {t3 - t2:.1f}, (d) "
-        f"{time.perf_counter() - t3:.1f}; the phase "
+    tp_s = ", ".join(f"{o['tp_s']:.1f}" for o in runs[2])
+    log(f"distributed: seconds: world 1 {t1 - t0:.1f}, (f)-(g) one process "
+        f"{t_one - t1:.1f}, world 2 (spawn included) {t2 - t_one:.1f} "
+        f"((f)-(g) a rank: {tp_s}), checks "
+        f"{t3 - t2:.1f}, (d) {time.perf_counter() - t3:.1f}; the phase "
         f"{time.perf_counter() - t0:.1f}; retrieval_topk launches on the "
-        f"paths {launches}")
-    return {"retrieval_topk": launches}
+        f"paths {launches}; the sharded paths' {json.dumps(tp_launches)}")
+    return dict(tp_launches, retrieval_topk=launches)
 
 
 SIM_SLO = 15.0           # examples/hierarchical_scheduling_sim.py's --slo

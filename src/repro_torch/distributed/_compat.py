@@ -42,10 +42,21 @@ def axis_size(mesh, axis: str) -> int:
 
 
 def axis_rank(mesh, axis: str) -> int:
-    """This process's index on ``axis`` (0 on an axis of size 1)."""
-    if axis_size(mesh, axis) == 1:
+    """This process's index on ``axis`` (0 on an axis of size 1, and on
+    a ``MeshShape``, which stands for rank 0)."""
+    if axis_size(mesh, axis) == 1 or not hasattr(mesh, "get_local_rank"):
         return 0
     return int(mesh.get_local_rank(axis))
+
+
+def axes_rank(mesh, axes) -> Tuple[int, int]:
+    """(this process's index over ``axes`` in row-major order, their
+    size product): the chunk a dim split over ``axes`` gives it."""
+    idx, n = 0, 1
+    for a in axes:
+        size = axis_size(mesh, a)
+        idx, n = idx * size + axis_rank(mesh, a), n * size
+    return idx, n
 
 
 def axis_group(mesh, axis: str):
@@ -76,6 +87,29 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=axis_group(mesh, axis))
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    """``t`` summed over ``axis``, this rank's 1/n of it along ``dim``
+    (``lax.psum_scatter(..., tiled=True)``); ``t`` on an axis of size 1.
+
+    The collective follows the group's backend: gloo has no
+    reduce-scatter for CUDA tensors, so over gloo it is an all-reduce of
+    ``t`` and this rank's chunk of the sum (n times the bytes, the same
+    values); NCCL and the dry-run's fake backend run ``reduce_scatter``."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t
+    import torch.distributed as dist
+    group = axis_group(mesh, axis)
+    if dist.get_backend(group) == "gloo":
+        full = all_reduce(t.contiguous().clone(), "sum", mesh, axis)
+        return full.chunk(n, dim=dim)[axis_rank(mesh, axis)].contiguous()
+    parts = [p.contiguous() for p in t.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
 
 
 def all_reduce_sum_grad(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -28,7 +28,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.distributed._compat import (all_gather, all_reduce,
-                                             axis_rank, axis_size)
+                                             axes_rank, axis_rank,
+                                             axis_size)
 from repro_torch.kernels import ops, ref
 
 
@@ -70,28 +71,40 @@ def distributed_topk(queries: torch.Tensor, corpus_shard: torch.Tensor,
 def flash_decode_seq_sharded(q: torch.Tensor, k_shard: torch.Tensor,
                              v_shard: torch.Tensor,
                              q_position: torch.Tensor, mesh,
-                             axis: str = "data",
-                             softcap: Optional[float] = None
+                             axis="data",
+                             softcap: Optional[float] = None,
+                             kv_positions: Optional[torch.Tensor] = None,
+                             window: Optional[int] = None
                              ) -> torch.Tensor:
     """Exact one-token attention over a sequence-sharded cache.
 
     q [B, 1, H, hd] (replicated), this rank's cache span k_shard /
-    v_shard [B, S/P, KV, hd] (rank r holds positions ``r*S/P ..``),
-    q_position [B] -> [B, 1, H, hd] in q's dtype, equal on every rank.
-    Key j counts iff its position is <= q_position; scores are f32,
-    softcapped before the mask, and masked to -1e30, as the
-    reference's."""
+    v_shard [B, S/P, KV, hd], q_position [B] -> [B, 1, H, hd] in q's
+    dtype, equal on every rank.  ``axis`` is a mesh axis or a tuple of
+    them, the sequence split over all of them in row-major order: rank r
+    holds positions ``r*S/P ..``, unless ``kv_positions`` [B, S/P] gives
+    each slot's position (-1 = empty; a rolling buffer's chunk).  Key j
+    counts iff 0 <= its position <= q_position (and, with ``window``,
+    q_position - its position < window); scores are f32, softcapped
+    before the mask, and masked to -1e30, as the reference's."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
     B, _, H, hd = q.shape
     shard_len, KV = k_shard.shape[1], k_shard.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
-    kpos = axis_rank(mesh, axis) * shard_len + torch.arange(
-        shard_len, device=q.device)
+    if kv_positions is None:
+        kpos = (axes_rank(mesh, axes)[0] * shard_len + torch.arange(
+            shard_len, device=q.device))[None]
+    else:
+        kpos = kv_positions
     qh = q[:, 0].reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qh, k_shard.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    mask = kpos[None, :] <= q_position.to(kpos.dtype)[:, None]
+    qp = q_position.to(kpos.dtype)[:, None]
+    mask = (kpos >= 0) & (kpos <= qp)
+    if window:
+        mask = mask & (qp - kpos < window)
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e30))
     m = s.amax(-1)                                   # local max
     p = torch.exp(s - m[..., None])
@@ -99,9 +112,14 @@ def flash_decode_seq_sharded(q: torch.Tensor, k_shard: torch.Tensor,
     o = torch.einsum("bkgs,bskh->bkgh", p, v_shard.float())
     # merge the partials: rescale by the global max, sum the numerators
     # and the denominators
-    m_g = all_reduce(m.clone(), "max", mesh, axis)
+    m_g = m.clone()
+    for a in axes:
+        all_reduce(m_g, "max", mesh, a)
     corr = torch.exp(m - m_g)
-    o = all_reduce(o * corr[..., None], "sum", mesh, axis)
-    l = all_reduce(l * corr, "sum", mesh, axis)
+    o = o * corr[..., None]
+    l = l * corr
+    for a in axes:
+        all_reduce(o, "sum", mesh, a)
+        all_reduce(l, "sum", mesh, a)
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, 1, H, hd).to(q.dtype)

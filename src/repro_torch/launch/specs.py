@@ -18,15 +18,26 @@ those of the reference's layout under the sharding rules
 (``distributed.sharding``), which is what ``in_specs`` and ``out_specs``
 describe.
 
-``step`` and ``args`` are what the port runs on one rank of that mesh,
-and that is not the reference's program: the port has no tensor
-parallelism and no FSDP.  Training is ``make_train_step(mesh=)``, the
-data-parallel step: params and AdamW state whole on every rank, each
-rank taking its rows of the global batch (``args`` holds the global
-batch, as every rank is handed it).  Prefill and decode run the rank's
-``batch_per_dev`` rows over whole params, but for the expert stacks of
-``Model(ep_mesh=)`` under expert parallelism.  Decode starts from a
-cache at length ``seq_len - 1``, so it reads the whole context, as the
+``step`` and ``args`` are what the port runs on one rank of that mesh.
+For the dense decoders (``tensor_parallel.supported``: olmo-1b,
+llama3-8b, gemma2-9b, nemotron-4-15b, qwen2-vl-72b) that is the
+reference's sharded program: tensor parallelism over `model` and, where
+``meta["fsdp"]`` says so, FSDP over `data`
+(``distributed.tensor_parallel``).  ``args`` hold this rank's shard of
+every param and AdamW moment (and of the decode cache, laid out as
+``cache_specs``), so their bytes are ``meta["param_bytes_per_dev"]`` and
+``meta["cache_bytes_per_dev"]``.  Training is
+``make_train_step(mesh=, fsdp=meta["fsdp"])``;
+prefill and decode run ``Model(tp=)`` on the rank's ``batch_per_dev``
+rows and return the last logits over the whole vocab.  The other five
+archs (hymba-1.5b, qwen2-moe-a2.7b, qwen3-moe-30b-a3b, whisper-base,
+xlstm-350m) run the data-parallel program, whatever ``meta`` says:
+params and AdamW state whole on every rank (``make_train_step(mesh=)``,
+each rank taking its rows of the global batch), prefill and decode over
+whole params but for the expert stacks of ``Model(ep_mesh=)`` under
+expert parallelism.  In both, ``args`` holds the global batch for
+training, as every rank is handed it; decode starts from a cache at
+length ``seq_len - 1``, so it reads the whole context, as the
 reference's decode over its full buffer does.  ``args`` are fake
 tensors on ``device="cpu"`` (``launch.roofline.analyze`` runs ``step``
 on them under their mode); the plain kernel versions run there.
@@ -42,6 +53,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.distributed._compat import axis_names, axis_size
 from repro_torch.models import ssm
 from repro_torch.models.model import Model
@@ -152,11 +164,12 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
     numel = sum(leaf.numel() for leaf in sh.leaves(params))
     vocab_loc = cfg.vocab_size // (msize if cfg.vocab_size % msize == 0
                                    else 1)
+    sharded = tpl.supported(cfg)
 
     if shape.mode == "train":
         # FSDP only when params + AdamW state exceed the per-rank budget
         # under pure tensor parallelism (the reference's rule)
-        fsdp = numel * (2 + 8) / msize > 8e9
+        fsdp = tpl.train_fsdp(numel, mesh)
         pspec = sh.param_specs(cfg, params, mesh, fsdp=fsdp, moe_ep=moe_ep)
         b_shards = 1
         for a in ("pod", "data"):
@@ -178,10 +191,13 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
             "kv_shards": 1,
         }
         with fake:
+            if sharded:
+                params = tpl.shard_params(params, cfg, mesh, fsdp)
             opt = init_opt_state(params)
             batch = input_specs(cfg, shape, device="cpu")
         step = make_train_step(Model(cfg), lr=3e-4, remat=True,
-                               microbatch=microbatch, mesh=mesh)
+                               microbatch=microbatch, mesh=mesh,
+                               fsdp=fsdp)
         ospec = {"step": sh.Spec(), "mu": pspec, "nu": pspec}
         scalars = {"loss": sh.Spec(), "aux_loss": sh.Spec(),
                    "total_loss": sh.Spec()}
@@ -190,7 +206,7 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
 
     # inference shapes; ZeRO-inference (extra data-axis param sharding)
     # for very large models
-    fsdp_inf = numel * 2 / msize > 4e9
+    fsdp_inf = tpl.infer_fsdp(numel, mesh)
     pspec = sh.param_specs(cfg, params, mesh, fsdp=fsdp_inf, moe_ep=moe_ep)
     ref_cache = reference_cache(cfg, B, S)
     cspec = sh.cache_specs(cfg, ref_cache, mesh,
@@ -210,14 +226,20 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
         "vocab_loc": vocab_loc,
         "kv_shards": kv_shards,
     }
-    model = Model(cfg, ep_mesh=mesh if moe_ep else None)
+    tp = tpl.TensorParallel(cfg, mesh, fsdp_inf) if sharded else None
+    model = Model(cfg, ep_mesh=mesh if moe_ep else None, tp=tp)
     with fake:
         if moe_ep:
             params = _local_experts(params, cfg, mesh)
+        if sharded:
+            params = tpl.shard_params(params, cfg, mesh, fsdp_inf)
         batch = input_specs(cfg, shape, rows=b_loc, device="cpu")
-        cache = model.init_cache(b_loc, S, device="cpu")
+        cache = model.init_cache(b_loc, S, device="cpu",
+                                 shard_seq=shape.name == "long_500k")
+    # the sharded program gathers the last logits to the whole vocab
     lspec = sh.Spec(sh.batch_axes(mesh, B),
-                    "model" if cfg.vocab_size % msize == 0 else None)
+                    "model" if cfg.vocab_size % msize == 0 and not sharded
+                    else None)
 
     if shape.mode == "prefill":
         def step(params, batch, cache):
@@ -237,3 +259,4 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
     tok_spec = sh.Spec(sh.batch_axes(mesh, B), None)
     return (step, (params, batch["tokens"], cache),
             (pspec, tok_spec, cspec), (lspec, cspec), meta)
+

@@ -17,14 +17,23 @@ prints the reference's step lines, then the median step time, tokens per
 second and peak device memory; ``--ckpt`` saves the trained parameters
 (``train.checkpoint``, the reference's format).
 
-``--production-mesh`` runs the data-parallel step
-(``train_step.make_train_step(mesh=)``) over the 16x16 ("data",
-"model") mesh of ``launch.mesh.make_production_mesh``: 256 ranks started
-by ``torchrun``, whose environment initialises the default group (NCCL
-on the card, gloo with ``--device cpu``).  Each data rank takes its 1/16
-of every global batch; the `model` ranks run the same rows; rank 0
-prints and saves.  Any other world size raises before the model is
-built, naming it:
+``--production-mesh`` runs the production program over the 16x16
+("data", "model") mesh of ``launch.mesh.make_production_mesh``: 256
+ranks started by ``torchrun``, whose environment initialises the default
+group (NCCL on the card, gloo with ``--device cpu``).  Each data rank
+takes its 1/16 of every global batch.  For the dense decoders (olmo-1b,
+llama3-8b, gemma2-9b, nemotron-4-15b, qwen2-vl-72b) that is the
+reference's sharded step (``make_train_step(mesh=)``): each rank keeps
+its shard of the params and AdamW state (``tensor_parallel.shard_params``
+of the seed-0 draw), tensor-parallel over `model`, FSDP over `data` where
+the reference's rule turns it on; ``--ckpt`` saves the whole params, as
+the reference's launcher saves its global arrays: they are gathered one
+leaf at a time into rank 0's host memory
+(``tensor_parallel.gather_params(dst=0)``), and without ``--ckpt``
+nothing is gathered.  The other archs run the data-parallel step
+(``make_train_step(mesh=)``): params whole on every rank, the `model`
+ranks running the same rows.  Rank 0 prints and saves.  Any other world
+size raises before the model is built, naming it:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
         --device cpu --production-mesh        # the world-size error
@@ -39,6 +48,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import Model
 from repro_torch.train import checkpoint
@@ -93,7 +103,10 @@ def production_mesh(dev: torch.device):
 
 def main(argv=None) -> dict:
     """Run the launcher; returns {"losses", "step_ms", "tokens_per_s",
-    "peak_gib" (None on the CPU), "params"} for callers that drive it."""
+    "peak_gib" (None on the CPU), "params", "cfg"} for callers that drive
+    it.  "params" are whole, but under the sharded program: there they
+    are this rank's shards, or with ``--ckpt`` the whole tree on rank 0's
+    host (None on the other ranks)."""
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     mesh = production_mesh(dev) if args.production_mesh else None
@@ -101,13 +114,18 @@ def main(argv=None) -> dict:
     if mesh is not None and dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = Model(cfg)
+    sharded = mesh is not None and tpl.supported(cfg)
+    fsdp = sharded and tpl.train_fsdp(tpl.param_count(cfg), mesh)
+    # under the sharded program each rank keeps its shards of the draw
+    model = Model(cfg, tp=tpl.TensorParallel(cfg, mesh, fsdp)
+                  if sharded else None)
     params = model.init_params(seed=0, device=dev, max_seq=args.seq)
     opt = init_opt_state(params)
     lr = cosine_schedule(args.lr, warmup=max(2, args.steps // 10),
                          total=args.steps)
     step_fn = make_train_step(model, lr=lr, remat=not args.smoke,
-                              microbatch=args.microbatch, mesh=mesh)
+                              microbatch=args.microbatch, mesh=mesh,
+                              fsdp=fsdp)
     B, S = args.batch, args.seq
     pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     gen = torch.Generator(device=dev)
@@ -139,6 +157,8 @@ def main(argv=None) -> dict:
               f"{times[0] * 1e3:.1f} ms), {B * S / step_s:.0f} tokens/s, "
               "peak " + (f"{peak:.2f} GiB" if peak is not None
                          else "n/a (cpu)"), flush=True)
+    if args.ckpt and sharded:
+        params = tpl.gather_params(params, cfg, mesh, fsdp, dst=0)
     if args.ckpt and lead:
         checkpoint.save(args.ckpt, params, cfg)
         print("saved", args.ckpt, flush=True)

@@ -247,6 +247,9 @@ class Cache:
     k: torch.Tensor               # [La, B, max_len, KV, hd] ("attn")
     v: torch.Tensor               # [La, B, max_len, KV, hd]
     state: RowState               # per-row state: [B, ...]
+    # a tensor-parallel rank's part of the buffers
+    # (``distributed.tensor_parallel.CacheLayout``); None: whole
+    layout: Optional[object] = None
 
 
 def paged_layers(cfg: ModelConfig) -> List[int]:

@@ -131,10 +131,16 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
     return {}
 
 
-def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
     """The MLP sublayer.  GELU is the tanh form, as ``jax.nn.gelu``'s
     default in the reference (the exact erf form differs by up to 4.7e-4
-    on [-6, 6])."""
+    on [-6, 6]).  Under tensor parallelism (``tp``, a
+    ``distributed.tensor_parallel.TensorParallel``) ``wi`` / ``wg`` are
+    this rank's columns and ``wo`` its rows: the input enters through
+    ``tp.mlp_in`` and the output leaves through ``tp.mlp_out``."""
+    if tp is not None:
+        return tp.mlp_out(apply_mlp(params, tp.mlp_in(x), cfg))
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ params["wg"]) * (x @ params["wi"])
     elif cfg.mlp_type == "gelu_glu":
@@ -254,24 +260,46 @@ def headwise_rms(x: torch.Tensor, scale: torch.Tensor,
     return (x32 * scale.float()).to(x.dtype)
 
 
-def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                angles: Optional[torch.Tensor]):
-    """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] (qk-norm, then rope
-    applied)."""
+def kv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
+               angles: Optional[torch.Tensor]):
+    """x [B,S,D] -> k/v [B,S,KV,hd] (qk-norm, then rope applied); the
+    heads are ``wk``'s columns over hd."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    k = (x @ params["wk"]).reshape(B, S, -1, hd)
+    v = (x @ params["wv"]).reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = headwise_rms(q, params["q_norm"])
         k = headwise_rms(k, params["k_norm"])
     if angles is not None:
-        q = apply_rope(q, angles)
         k = apply_rope(k, angles)
-    return q, k, v
+    return k, v
 
 
-def attention_out(params: dict, attn: torch.Tensor) -> torch.Tensor:
+def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                angles: Optional[torch.Tensor], tp=None,
+                store: bool = False):
+    """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] (qk-norm, then rope
+    applied).  Under tensor parallelism (``tp``) the input enters through
+    ``tp.attn_in``, q has this rank's heads and k/v the KV heads they
+    read (``store``: every KV head the rank's cache holds)."""
+    if tp is not None:
+        x = tp.attn_in(x)
+        params = tp.attn_params(params, store=store)
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, S, -1, hd)
+    if cfg.qk_norm:
+        q = headwise_rms(q, params["q_norm"])
+    if angles is not None:
+        q = apply_rope(q, angles)
+    return (q,) + kv_project(params, x, cfg, angles)
+
+
+def attention_out(params: dict, attn: torch.Tensor,
+                  tp=None) -> torch.Tensor:
+    """Heads [B,S,H,hd] through ``wo``; under tensor parallelism this
+    rank's heads through its rows of ``wo``, summed over `model`
+    (``tp.attn_out``)."""
     B, S = attn.shape[:2]
-    return attn.reshape(B, S, -1) @ params["wo"]
+    out = attn.reshape(B, S, -1) @ params["wo"]
+    return out if tp is None else tp.attn_out(out)

@@ -85,6 +85,17 @@ so, and ``expert_parallel.local_model_params`` cuts a whole tree;
 ``batch_mesh`` (set by the data-parallel train step) averages the MoE
 load-balance loss's router statistics over the mesh's batch axes.
 
+``Model(tp=TensorParallel(cfg, mesh, fsdp))`` (``distributed.
+tensor_parallel``) is one rank of the sharded program of the dense
+decoders: params hold this rank's shards (``init_params`` cuts its whole
+draw), attention runs on the rank's heads, the MLP on its FFN columns,
+the embedding and head on its vocab rows, each with its collectives over
+`model`; FSDP leaves are gathered over `data` inside each layer.
+``forward``, ``prefill`` and ``decode_step`` (contiguous cache, from
+``init_cache``, which lays the buffers out as ``sharding.cache_specs``)
+run so; logits come back over the whole vocab.  ``prefill_chunk`` and
+the paged cache raise under ``tp``.
+
 Layer kinds other than these five raise ``NotImplementedError``, as does
 an encoder-decoder config with other decoder layers.
 """
@@ -97,7 +108,8 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed import expert_parallel
+from repro_torch.distributed import collectives, expert_parallel
+from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import layers as L
@@ -116,7 +128,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 class Model:
     def __init__(self, cfg: ModelConfig, moe_capacity_factor: float = 1.25,
-                 ep_mesh=None, batch_mesh=None):
+                 ep_mesh=None, batch_mesh=None, tp=None):
         unsupported = []
         if any(kind not in KINDS for kind in cfg.layer_pattern):
             unsupported.append(f"layer_pattern={cfg.layer_pattern}")
@@ -146,6 +158,11 @@ class Model:
         # row shards (the data-parallel train step): the MoE load-balance
         # loss then averages its router statistics over them
         self.batch_mesh = batch_mesh
+        # tensor parallelism (a TensorParallel of this config), or None
+        if tp is not None and tp.cfg != cfg:
+            raise ValueError(f"a TensorParallel of {tp.cfg.name} given to "
+                             f"a model of {cfg.name}")
+        self.tp = tp
         self.kinds = [cfg.pattern_for_layer(i) for i in range(cfg.num_layers)]
         # layer -> index into the K/V pools, for the "attn" layers
         self.pool_index = {i: j for j, i in
@@ -165,7 +182,8 @@ class Model:
         encoder-decoder model adds ``lnx`` / ``xattn`` to each layer and
         ``params["encoder"]`` = {"blocks": per-layer {ln1, attn, ln2,
         mlp}, "final_norm"}.  With ``ep_mesh`` each MoE layer keeps this
-        rank's experts: the whole draw's slice."""
+        rank's experts: the whole draw's slice; with ``tp`` every leaf
+        keeps this rank's shard of the whole draw."""
         cfg = self.cfg
         dev = resolve_device(device)
         dtype = torch_dtype(cfg)
@@ -202,6 +220,9 @@ class Model:
                             blk["moe"], cfg, self.ep_mesh)
                 else:
                     blk["mlp"] = L.init_mlp(gen, cfg, dtype, dev)
+            if self.tp is not None:     # cut now: one whole layer at most
+                blk = tensor_parallel.cut_tree(
+                    blk, self.tp.layer_specs[kind], self.tp.mesh)
             blocks.append(blk)
         params["blocks"] = blocks
         params["final_norm"] = L.init_norm(cfg, dtype, dev)
@@ -216,10 +237,22 @@ class Model:
                             "mlp": L.init_mlp(gen, cfg, dtype, dev)}
                            for _ in range(cfg.num_encoder_layers)],
                 "final_norm": L.init_norm(cfg, dtype, dev)}
+        if self.tp is not None:     # the blocks are cut already
+            top = {k: v for k, v in params.items() if k != "blocks"}
+            top = tensor_parallel.cut_tree(
+                top, {k: self.tp.specs[k] for k in top}, self.tp.mesh)
+            params = {k: blocks if k == "blocks" else top[k]
+                      for k in params}
         return params
 
-    def init_cache(self, batch: int, max_len: int, device: DeviceLike
-                   ) -> cache_lib.Cache:
+    def init_cache(self, batch: int, max_len: int, device: DeviceLike,
+                   shard_seq: bool = False) -> cache_lib.Cache:
+        """A zeroed contiguous cache; under ``tp`` this rank's part of it
+        (``shard_seq``: long_500k's layout, the sequence over the batch
+        axes too)."""
+        if self.tp is not None:
+            return self.tp.init_cache(batch, max_len, torch_dtype(self.cfg),
+                                      resolve_device(device), shard_seq)
         return cache_lib.init_cache(self.cfg, batch, max_len,
                                     torch_dtype(self.cfg),
                                     resolve_device(device))
@@ -227,11 +260,19 @@ class Model:
     def init_paged_cache(self, batch: int, max_len: int, block_size: int,
                          num_blocks: int, device: DeviceLike
                          ) -> cache_lib.PagedCache:
+        self._no_tp("the paged cache")
         return cache_lib.init_paged_cache(
             self.cfg, batch, max_len, block_size, num_blocks,
             torch_dtype(self.cfg), resolve_device(device))
 
     # -------------------------------------------------------------- helpers
+
+    def _no_tp(self, what: str) -> None:
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{what} under tensor parallelism: the sharded program "
+                "runs forward, prefill and decode_step on a contiguous "
+                "cache")
 
     def _embed(self, params, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None,
@@ -243,7 +284,10 @@ class Model:
         0 .. S-1 whatever the positions.  RoPE and position-free configs
         need no ``positions`` here."""
         cfg = self.cfg
-        x = params["embed"][tokens.long()]
+        if self.tp is not None:
+            x = self.tp.embed(self.tp.leaf(params, "embed"), tokens)
+        else:
+            x = params["embed"][tokens.long()]
         if cfg.scale_embedding:
             x = x * torch.tensor(cfg.d_model, dtype=x.dtype,
                                  device=x.device).sqrt()
@@ -358,27 +402,34 @@ class Model:
         if "mlp" not in p:
             return x
         return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, self.cfg),
-                               self.cfg)
+                               self.cfg, tp=self.tp)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         return self.head(params, L.apply_norm(params["final_norm"], x,
                                               self.cfg))
 
     def lm_head(self, params) -> torch.Tensor:
-        """The LM head [D, V]: the embedding's transpose when tied."""
-        return params["embed"].T if self.cfg.tie_embeddings \
-            else params["lm_head"]
+        """The LM head [D, V]: the embedding's transpose when tied.  Under
+        ``tp`` this rank's columns [D, V/model] (gathered over `data`
+        when FSDP split them)."""
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        w = params[name] if self.tp is None else self.tp.leaf(params, name)
+        return w.T if self.cfg.tie_embeddings else w
 
     def head(self, params, feats: torch.Tensor) -> torch.Tensor:
         """Logits of final-normed features (``forward(...,
         return_features=True)``): the LM head (the embedding's transpose
-        when tied), then the final softcap in f32 if the config has one."""
+        when tied), then the final softcap in f32 if the config has one.
+        Under ``tp`` each rank's vocab columns, gathered to the whole
+        vocab."""
         cfg = self.cfg
+        if self.tp is not None:
+            feats = self.tp.vocab_in(feats)
         logits = feats @ self.lm_head(params)
         if cfg.final_logit_softcap:
             logits = cfg.final_logit_softcap * torch.tanh(
                 logits.float() / cfg.final_logit_softcap)
-        return logits
+        return logits if self.tp is None else self.tp.gather_vocab(logits)
 
     def _cell(self, p, kind: str, h: torch.Tensor, state: Optional[dict],
               mask: Optional[torch.Tensor] = None, step: bool = False):
@@ -434,13 +485,92 @@ class Model:
         if kind == "hymba":
             return self._hymba(p, x, st, angles, attend, mask, step, aux)
         h = L.apply_norm(p["ln1"], x, self.cfg)
-        q, k, v = L.qkv_project(p["attn"], h, self.cfg, angles)
-        x = x + L.attention_out(p["attn"], attend(q, k, v, st))
+        q, k, v = L.qkv_project(p["attn"], h, self.cfg, angles, tp=self.tp,
+                                store=st is not None)
+        x = x + L.attention_out(p["attn"], attend(q, k, v, st), tp=self.tp)
         return self._mlp(p, x, aux), st
 
     def _rolling_len(self, cache) -> int:
-        """Slots of the rolling K/V buffers in ``cache``."""
+        """Slots of the rolling K/V buffers in ``cache`` (every rank's,
+        under ``tp``)."""
+        if getattr(cache, "layout", None) is not None:
+            return cache.layout.rolling.full
         return cache.state[self.rolling[0]]["k"].shape[1]
+
+    def _gathered(self, kind: str, p):
+        """A layer's params as it uses them: under ``tp`` its FSDP leaves
+        gathered over `data`."""
+        return p if self.tp is None else self.tp.layer(kind, p)
+
+    def _stored_kv(self, pa, h, angles, k, v):
+        """``kv(t0, t1)``: the K/V of a prompt's tokens t0 .. t1-1 in the
+        heads the cache holds: ``k`` / ``v`` (the heads this rank's
+        queries read) when that is what it holds, else, under ``tp`` with
+        ``wk`` / ``wv`` whole, every KV head projected again from ``h``
+        for those tokens alone."""
+        tp = self.tp
+        if tp is None or tp.stores_read_heads():
+            return lambda t0, t1: (k[:, t0:t1], v[:, t0:t1])
+        pa = tp.attn_params(pa, store=True)
+        return lambda t0, t1: L.kv_project(
+            pa, h[:, t0:t1], self.cfg,
+            None if angles is None else angles[:, t0:t1])
+
+    def _write_seq(self, k_buf, v_buf, start: int, S: int, shard,
+                   kv) -> None:
+        """``cache_lib.write_seq`` of a segment of S tokens at shared
+        position ``start`` (their K/V from ``kv(t0, t1)``) into this
+        rank's part of a buffer: the whole buffer (``shard`` None or over
+        no axis), or its chunk of a buffer split by sequence, which takes
+        only the segment's tokens whose slots are its own."""
+        if shard is None or not shard.axes:
+            cache_lib.write_seq(k_buf, v_buf, *kv(0, S), start)
+            return
+        for t0, t1, s0 in _shard_runs(start, S, shard):
+            k, v = kv(t0, t1)
+            k_buf[:, s0:s0 + t1 - t0] = k.to(k_buf.dtype)
+            v_buf[:, s0:s0 + t1 - t0] = v.to(v_buf.dtype)
+
+    def _read_kv(self, k, v):
+        """Of K/V in the heads this rank's cache holds (every KV head
+        when ``wk`` / ``wv`` are whole on the rank:
+        ``TensorParallel.stores_read_heads``), the heads its queries
+        read."""
+        tp = self.tp
+        if tp is None or tp.stores_read_heads():
+            return k, v
+        heads = slice(tp.kv0, tp.kv0 + tp.kv_local)
+        return k[:, :, heads], v[:, :, heads]
+
+    def _decode_read(self, q, k, v, k_buf, v_buf, length: int, pos,
+                     kv_pos, shard, window: Optional[int]) -> torch.Tensor:
+        """One decode token's write at shared position ``length`` into a
+        contiguous buffer and its attention over the buffer (``kv_pos``
+        [B, slots]: every slot's position in the query frame).  ``shard``
+        None: the whole buffer on this process.  Under ``tp`` the rank
+        holding the token's slot writes it; a buffer over no axis is read
+        by the flash kernel at one query over the rank's KV heads, one
+        split by sequence by ``collectives.flash_decode_seq_sharded`` over
+        its axes (every query head when the buffer holds every KV
+        head)."""
+        cfg, tp = self.cfg, self.tp
+        n = k_buf.shape[1]
+        full, off = (n, 0) if shard is None else (shard.full, shard.off)
+        slot = length % full - off
+        if 0 <= slot < n:
+            k_buf[:, slot] = k[:, 0].to(k_buf.dtype)
+            v_buf[:, slot] = v[:, 0].to(v_buf.dtype)
+        kv_pos = kv_pos[:, off:off + n]
+        if shard is None or not shard.axes:
+            return L.decode_attention(q, *self._read_kv(k_buf, v_buf),
+                                      pos[:, 0], kv_pos, window=window,
+                                      softcap=cfg.attn_logit_softcap)
+        every = not tp.stores_read_heads()
+        o = collectives.flash_decode_seq_sharded(
+            tp.gather_heads(q) if every else q, k_buf, v_buf, pos[:, 0],
+            tp.mesh, axis=shard.axes, softcap=cfg.attn_logit_softcap,
+            kv_positions=kv_pos, window=window)
+        return o[:, :, tp.h0:tp.h0 + tp.h_local] if every else o
 
     # ---------------------------------------------------------------- public
 
@@ -487,6 +617,7 @@ class Model:
         load-balance loss, 0 unless it is a MoE layer)."""
         cfg = self.cfg
         aux: List[torch.Tensor] = []
+        p = self._gathered(kind, p)     # inside remat: the recompute too
 
         def attend(q, k, v, st):
             return self._attention(q, k, v, positions, positions)
@@ -503,10 +634,10 @@ class Model:
                                None)[0]
         else:
             h = L.apply_norm(p["ln1"], x, cfg)
-            q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
+            q, k, v = L.qkv_project(p["attn"], h, cfg, angles, tp=self.tp)
             a = L.flash_attention(q, k, v, positions, positions, causal=True,
                                   softcap=cfg.attn_logit_softcap)
-            x = x + L.attention_out(p["attn"], a)
+            x = x + L.attention_out(p["attn"], a, tp=self.tp)
             if self.cross:
                 x = self._cross(p, x, enc_out, None)
             x = self._mlp(p, x, aux)
@@ -529,40 +660,52 @@ class Model:
         mask, as in the reference's prefill mode).  An encoder-decoder
         model encodes ``encoder_frames`` and stores each layer's
         cross-attention K/V in the row state.  Advances ``cache.length``
-        by Nv + S; returns the last column's logits."""
+        by Nv + S; returns the last column's logits.
+
+        Under ``tp`` attention runs on this rank's query heads and the KV
+        heads they read; the cache is written where this rank holds it
+        (``cache.layout``: its KV heads, or every head of its slots when
+        the buffer is split by sequence; ``_stored_kv``)."""
         cfg = self.cfg
         start = cache.length
+        lay = cache.layout
         angles, positions = self._angles_pos2d(positions)
         x = self._embed(params, tokens, positions, vision_embeds)
         S = x.shape[1]
         enc_out = self._encoder_out(params, encoder_frames)
 
-        def attend(q, k, v, st):
+        def attend_fill(q, k, v, st):
+            # hymba's rolling buffer; the Mamba branch of the next layer
+            # absorbs the pad columns
             a = self._attention(q, k, v, positions, positions)
             cache_lib.write_seq(st["k"], st["v"], k, v, start)
-            return a
-
-        def attend_fill(q, k, v, st):
-            # the Mamba branch of the next layer absorbs the pad columns
-            return L.fill_pad_queries(attend(q, k, v, st), v, positions)
+            return L.fill_pad_queries(a, v, positions)
 
         for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
-            if kind in ROLLING_KINDS:
+            p = self._gathered(kind, p)
+            if kind == "hymba":
                 x, cache.state[i] = self._rolling(
-                    kind, p, x, cache.state[i], angles,
-                    attend_fill if kind == "hymba" else attend)
+                    kind, p, x, cache.state[i], angles, attend_fill)
                 continue
             h = L.apply_norm(p["ln1"], x, cfg)
-            if kind != "attn":
+            if kind not in ("attn", "local"):
                 y, cache.state[i] = self._cell(p, kind, h, cache.state[i])
                 x = x + y
                 continue
-            q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
-            a = L.flash_attention(q, k, v, positions, positions, causal=True,
-                                  softcap=cfg.attn_logit_softcap)
-            j = self.pool_index[i]
-            cache_lib.write_seq(cache.k[j], cache.v[j], k, v, start)
-            x = x + L.attention_out(p["attn"], a)
+            q, k, v = L.qkv_project(p["attn"], h, cfg, angles, tp=self.tp)
+            a = L.flash_attention(
+                q, k, v, positions, positions, causal=True,
+                window=cfg.sliding_window if kind == "local" else None,
+                softcap=cfg.attn_logit_softcap)
+            if kind == "attn":
+                j = self.pool_index[i]
+                kb, vb, shard = cache.k[j], cache.v[j], lay and lay.attn
+            else:
+                st = cache.state[i]
+                kb, vb, shard = st["k"], st["v"], lay and lay.rolling
+            self._write_seq(kb, vb, start, S, shard,
+                            self._stored_kv(p["attn"], h, angles, k, v))
+            x = x + L.attention_out(p["attn"], a, tp=self.tp)
             if self.cross:
                 x = self._cross(p, x, enc_out, cache.state[i])
             x = self._mlp(p, x)
@@ -597,6 +740,7 @@ class Model:
         ``last_col`` [B] (default: the last column).  Sinusoidal
         positions raise ``NotImplementedError``: they ignore the chunk's
         offset."""
+        self._no_tp("prefill_chunk")
         cfg = self.cfg
         if cfg.pos_embedding == "sinusoidal":
             raise NotImplementedError(
@@ -710,10 +854,12 @@ class Model:
         A recurrent layer steps every row's state, as the reference does
         (a finished row's state is replaced when the row is refilled)."""
         if isinstance(cache, cache_lib.PagedCache):
+            self._no_tp("the paged cache")
             return self._paged_decode(params, token, cache, nb_cap, active)
         cfg = self.cfg
         B = token.shape[0]
         length, first = cache.length, cache.first
+        lay = cache.layout
         if relative:
             pos = (length - first)[:, None].to(torch.int32)
         else:
@@ -729,27 +875,26 @@ class Model:
 
         attn = None
         if self.pool_index:
-            kv = cache_lib.shared_kv_positions(length + 1, cache.k.shape[2],
-                                               token.device)
+            kv = cache_lib.shared_kv_positions(
+                length + 1, cache.k.shape[2] if lay is None
+                else lay.attn.full, token.device)
             if kv_cap is not None:
                 kv[kv_cap:] = -1
             kv_pos = frame(kv)
 
             def attn(j, q, k, v):
-                cache_lib.write_token(cache.k[j], cache.v[j], k, v, length)
-                return L.decode_attention(q, cache.k[j], cache.v[j],
-                                          pos[:, 0], kv_pos,
-                                          softcap=cfg.attn_logit_softcap)
+                return self._decode_read(q, k, v, cache.k[j], cache.v[j],
+                                         length, pos, kv_pos,
+                                         lay and lay.attn, None)
 
         if self.rolling:
             r_pos = frame(cache_lib.rolling_kv_positions(
                 length + 1, self._rolling_len(cache), token.device))
 
         def attend(q, k, v, st):
-            cache_lib.write_token(st["k"], st["v"], k, v, length)
-            return L.decode_attention(q, st["k"], st["v"], pos[:, 0], r_pos,
-                                      window=cfg.sliding_window,
-                                      softcap=cfg.attn_logit_softcap)
+            return self._decode_read(q, k, v, st["k"], st["v"], length, pos,
+                                     r_pos, lay and lay.rolling,
+                                     cfg.sliding_window)
 
         return self._decode_layers(params, token, cache, pos, attend, attn,
                                    inc=1)
@@ -765,6 +910,7 @@ class Model:
         x = self._embed(params, token, pos)
         angles = self._angles(pos)
         for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):
+            p = self._gathered(kind, p)
             if kind in ROLLING_KINDS:
                 x, cache.state[i] = self._rolling(kind, p, x, cache.state[i],
                                                   angles, attend, step=True)
@@ -775,9 +921,10 @@ class Model:
                                                step=True)
                 x = x + y
                 continue
-            q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
+            q, k, v = L.qkv_project(p["attn"], h, cfg, angles, tp=self.tp,
+                                    store=True)
             a = attn(self.pool_index[i], q, k, v)
-            x = x + L.attention_out(p["attn"], a)
+            x = x + L.attention_out(p["attn"], a, tp=self.tp)
             if self.cross:
                 x = self._cross(p, x, None, cache.state[i])
             x = self._mlp(p, x)
@@ -821,3 +968,19 @@ class Model:
         inc = 1 if active is None else active.to(torch.int32)
         return self._decode_layers(params, token, cache, pos, attend, attn,
                                    inc)
+
+
+def _shard_runs(start: int, S: int, shard) -> List[Tuple[int, int, int]]:
+    """The runs (first token, end token, first local slot) of a segment of
+    S tokens written at shared position ``start`` into a buffer of
+    ``shard.full`` slots (slot = position % full; a segment longer than
+    the buffer keeps its last tokens) that land in this rank's chunk:
+    host arithmetic, at most one run a wrap of the buffer."""
+    L_, lo = shard.full, max(0, S - shard.full)
+    runs = []
+    for wrap in range((start + lo) // L_, (start + S - 1) // L_ + 1):
+        base = wrap * L_ + shard.off - start     # token at local slot 0
+        t0, t1 = max(lo, base), min(S, base + shard.local)
+        if t0 < t1:
+            runs.append((t0, t1, t0 - base))
+    return runs

@@ -162,7 +162,8 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     # conv history for decode continuation: always [B, W-1, inner]
     ext = torch.cat([prev, xi], dim=1)                 # [B, Wm1+S, inner]
     if mask is None:
-        conv = ext[:, ext.shape[1] - Wm1:]
+        # a copy: a view would keep the whole [B, Wm1+S, inner] alive
+        conv = ext[:, ext.shape[1] - Wm1:].clone()
     else:
         # the tail must end at the last *valid* column: right-pad
         # columns are masked zeros, and slicing past them would wipe the

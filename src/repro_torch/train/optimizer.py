@@ -57,14 +57,21 @@ def adamw_init(params) -> AdamWState:
 def adamw_update(grads, state: AdamWState, params, *,
                  lr: Union[float, Callable], b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float = 1.0):
+                 weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 sq_norm: Callable = None):
     """Returns (new_params, new_state).  ``lr`` is a number or a
-    callable of the (incremented) step tensor."""
+    callable of the (incremented) step tensor.  ``sq_norm(grads)`` gives
+    the clip's squared global norm when ``grads`` are a rank's shards of
+    the whole gradient (``TensorParallel.grad_sq_norm``); by default
+    the sum of every leaf's squares."""
     step = state.step + 1
     lr_t = lr(step) if callable(lr) else lr
     # global-norm clip
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
+    if sq_norm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in tree_leaves(grads)))
+    else:
+        gnorm = torch.sqrt(sq_norm(grads))
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     grads = tree_map(lambda g: g.float() * scale, grads)
 

@@ -12,6 +12,12 @@ On the card every attention of the forward launches
 (``kernels.ops.FlashAttention``); the head, the fused cross-entropy's
 chunked products, the MoE products and the optimizer are PyTorch
 operators, as the reference leaves them to XLA.
+
+``make_train_step(mesh=)`` runs the reference's sharded program for the
+dense decoders (``distributed.tensor_parallel.supported``): params,
+gradients and AdamW moments are this rank's shards, the fused cross-entropy is vocab-parallel over `model`, FSDP
+leaves are gathered over `data` in their layer and their gradients
+reduce-scattered there.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed._compat import all_reduce, axis_rank, axis_size
+from repro_torch.distributed._compat import all_reduce, axes_rank
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import (adamw_init, adamw_update,
                                          tree_leaves, tree_map)
@@ -73,31 +80,58 @@ def _chunk_logits(xc, head, softcap):
     return softcap * th, th
 
 
+def _local_labels(lc, v0: int, n: int):
+    """(labels as this vocab shard's columns, clamped; whether each is
+    one of its ``n`` columns ``v0 ..``)."""
+    ids = lc.long() - v0
+    ok = (ids >= 0) & (ids < n)
+    return ids.clamp(0, n - 1), ok
+
+
 class FusedCrossEntropy(torch.autograd.Function):
     """x [B,S,D], head [D,V], labels [B,S], mask [B,S] -> mean NLL over
     the masked positions; the gradients of x and head, computed chunk by
     chunk in the backward pass (f32 products, the softcap's chain rule),
-    as the reference's custom VJP."""
+    as the reference's custom VJP.
+
+    Vocab-parallel with ``mesh`` (a mesh whose `model` axis splits the
+    vocab; ``head`` [D, V/model] holds columns ``v0 ..``): the row max
+    and then the sum of exps are all-reduced over `model`, the label's
+    logit comes from the rank that holds it, and the backward stays on
+    the local columns (softmax from the forward's log-sum-exp, minus the
+    one-hot); x's gradient is this rank's part (the caller's
+    ``copy_to_model`` sums it)."""
 
     @staticmethod
-    def forward(ctx, x, head, labels, mask, softcap):
+    def forward(ctx, x, head, labels, mask, softcap, mesh=None, v0=0):
         xs, ls, ms = _ce_chunks(x, labels, mask)
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        lses = []
         for xc, lc, mc in zip(xs, ls, ms):
             logits, _ = _chunk_logits(xc, head, softcap)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+            if mesh is None:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+            else:
+                mx = all_reduce(logits.amax(dim=-1), "max", mesh, "model")
+                se = torch.exp(logits - mx[..., None]).sum(dim=-1)
+                lse = mx + torch.log(all_reduce(se, "sum", mesh, "model"))
+                ids, ok = _local_labels(lc, v0, logits.shape[-1])
+                gold = torch.gather(logits, -1, ids[..., None])[..., 0]
+                gold = all_reduce(torch.where(ok, gold, torch.zeros_like(
+                    gold)), "sum", mesh, "model")
+                lses.append(lse)
             m = mc.float()
             tot = tot + ((lse - gold) * m).sum()
             cnt = cnt + m.sum()
-        ctx.save_for_backward(x, head, labels, mask)
-        ctx.softcap = softcap
+        ctx.save_for_backward(x, head, labels, mask, *lses)
+        ctx.softcap, ctx.mesh, ctx.v0 = softcap, mesh, v0
         return tot / torch.clamp(cnt, min=1.0)
 
     @staticmethod
     def backward(ctx, g):
-        x, head, labels, mask = ctx.saved_tensors
+        x, head, labels, mask, *lses = ctx.saved_tensors
         softcap = ctx.softcap
         xs, ls, ms = _ce_chunks(x, labels, mask)
         cnt = torch.clamp(mask.float().sum(), min=1.0)
@@ -105,12 +139,17 @@ class FusedCrossEntropy(torch.autograd.Function):
         dhead = torch.zeros(head.shape, dtype=torch.float32,
                             device=head.device)
         dxs = []
-        for xc, lc, mc in zip(xs, ls, ms):
+        for c, (xc, lc, mc) in enumerate(zip(xs, ls, ms)):
             logits, th = _chunk_logits(xc, head, softcap)
-            dl = torch.softmax(logits, dim=-1)
-            dl.scatter_add_(-1, lc.long()[..., None],
-                            torch.full(lc.shape + (1,), -1.0,
-                                       device=dl.device))   # p - one_hot
+            if ctx.mesh is None:
+                dl = torch.softmax(logits, dim=-1)
+                dl.scatter_add_(-1, lc.long()[..., None],
+                                torch.full(lc.shape + (1,), -1.0,
+                                           device=dl.device))  # p - one_hot
+            else:
+                dl = torch.exp(logits - lses[c][..., None])
+                ids, ok = _local_labels(lc, ctx.v0, logits.shape[-1])
+                dl.scatter_add_(-1, ids[..., None], -ok.float()[..., None])
             dl = dl * (mc.float() * g / cnt)[..., None]
             if th is not None:
                 dl = dl * (1.0 - torch.square(th))
@@ -118,14 +157,17 @@ class FusedCrossEntropy(torch.autograd.Function):
             dhead = dhead + torch.einsum("bcd,bcv->dv", xc.float(), dl)
         B, S, D = x.shape
         dx = torch.stack(dxs).transpose(0, 1).reshape(B, -1, D)[:, :S]
-        return dx, dhead.to(head.dtype), None, None, None
+        return dx, dhead.to(head.dtype), None, None, None, None, None
 
 
 def fused_cross_entropy(x: torch.Tensor, head: torch.Tensor,
                         labels: torch.Tensor, mask: torch.Tensor,
-                        softcap: Optional[float] = None) -> torch.Tensor:
-    """x [B,S,D], head [D,V], labels [B,S], mask [B,S] -> mean NLL."""
-    return FusedCrossEntropy.apply(x, head, labels, mask, softcap)
+                        softcap: Optional[float] = None, mesh=None,
+                        v0: int = 0) -> torch.Tensor:
+    """x [B,S,D], head [D,V], labels [B,S], mask [B,S] -> mean NLL;
+    vocab-parallel over ``mesh``'s `model` axis when given (``head`` the
+    rank's columns from ``v0``)."""
+    return FusedCrossEntropy.apply(x, head, labels, mask, softcap, mesh, v0)
 
 
 def _forward_kw(batch: dict) -> dict:
@@ -137,8 +179,11 @@ def make_loss_fn(model: Model, remat: bool = False,
                  fused_ce: bool = True) -> Callable:
     """``loss_fn(params, batch) -> (loss + aux, (loss, aux))``: the mean
     NLL of ``labels`` at the last S columns (after a vision prefix) plus
-    the MoE load-balance loss."""
+    the MoE load-balance loss.  Under ``model.tp`` the cross-entropy is
+    vocab-parallel."""
     softcap = model.cfg.final_logit_softcap
+    tp = model.tp
+    vocab = tp is not None and tp.vocab and tp.size > 1
 
     def loss_fn(params, batch):
         labels = batch["labels"]
@@ -151,8 +196,14 @@ def make_loss_fn(model: Model, remat: bool = False,
                                        batch["positions"],
                                        return_features=True, return_aux=True,
                                        remat=remat, **_forward_kw(batch))
-            loss = fused_cross_entropy(feats[:, -S:], model.lm_head(params),
-                                       labels, mask, softcap)
+            feats = feats[:, -S:]
+            if vocab:
+                loss = fused_cross_entropy(tp.vocab_in(feats),
+                                           model.lm_head(params), labels,
+                                           mask, softcap, tp.mesh, tp.v0)
+            else:
+                loss = fused_cross_entropy(feats, model.lm_head(params),
+                                           labels, mask, softcap)
         else:
             logits, aux = model.forward(params, batch["tokens"],
                                         batch["positions"], return_aux=True,
@@ -190,11 +241,7 @@ def batch_rank(mesh) -> Tuple[int, int]:
     """(this rank's index among the batch shards, their count): the
     (pod, data) axes of ``mesh`` in row-major order; `model` ranks share
     an index."""
-    idx, n = 0, 1
-    for a in ("pod", "data"):
-        size = axis_size(mesh, a)
-        idx, n = idx * size + axis_rank(mesh, a), n * size
-    return idx, n
+    return axes_rank(mesh, ("pod", "data"))
 
 
 def shard_batch(batch: dict, mesh) -> dict:
@@ -228,7 +275,7 @@ def mean_over_batch_ranks(tree, mesh):
 
 def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
                     remat: bool = True, microbatch: int = 1,
-                    mesh=None) -> Callable:
+                    mesh=None, fsdp: Optional[bool] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with metrics {"loss", "aux_loss", "total_loss"} (f32
     scalars).  ``microbatch`` > 1 splits the batch into that many
@@ -237,8 +284,10 @@ def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
     checkpoints each decoder layer.
 
     ``mesh`` (a ``DeviceMesh`` with a `data` axis, and maybe `pod` and
-    `model`) runs the step data-parallel: every rank is handed the same
-    GLOBAL batch and takes its batch shard's rows (``shard_batch``); the
+    `model`) runs the step over the mesh.  For the archs the sharded
+    program does not cover (``tensor_parallel.supported`` false) that
+    is the data-parallel step: every rank is handed the same GLOBAL
+    batch and takes its batch shard's rows (``shard_batch``); the
     gradients and the loss are averaged over the batch shards before
     AdamW, so params and optimizer state stay equal on every rank, and
     `model` ranks run the same rows.  The MoE load-balance loss averages
@@ -247,8 +296,25 @@ def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
     the one-process step's losses and parameters (with ``microbatch`` 1;
     a microbatch is then a shard's slice, not the global batch's).  A
     ``loss_mask`` is refused there: the mean of the shards' masked means
-    is not the batch's."""
-    if mesh is not None:
+    is not the batch's.
+
+    For the dense decoders ``mesh`` runs the sharded program instead:
+    ``params`` and ``opt_state`` are this rank's shards
+    (``tensor_parallel.shard_params``, then ``init_opt_state``) and so
+    are the returned ones.  Each rank computes its `model` part of
+    its batch shard's step; FSDP (``fsdp``; None applies the
+    reference's rule, ``tensor_parallel.train_fsdp``) gathers the
+    leaves it splits over `data` in their layer and reduce-scatters their
+    gradients; ``TensorParallel.sync_grads`` completes the rest, and the
+    global-norm clip reads the whole gradient's norm
+    (``grad_sq_norm``)."""
+    tp = None
+    if mesh is not None and tpl.supported(model.cfg):
+        if fsdp is None:
+            fsdp = tpl.train_fsdp(tpl.param_count(model.cfg), mesh)
+        tp = tpl.TensorParallel(model.cfg, mesh, fsdp=fsdp)
+        model = Model(model.cfg, model.moe_cf, batch_mesh=mesh, tp=tp)
+    elif mesh is not None:
         model = Model(model.cfg, model.moe_cf, ep_mesh=model.ep_mesh,
                       batch_mesh=mesh)
     loss_fn = make_loss_fn(model, remat=remat)
@@ -280,12 +346,16 @@ def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
             grads = tree_map(lambda g: g / microbatch, grads)
             total, loss, aux = (total / microbatch, loss / microbatch,
                                 aux / microbatch)
-        if mesh is not None:
+        if tp is not None:
+            grads, loss = tp.sync_grads(grads, loss)
+            total = loss + aux
+        elif mesh is not None:
             # aux is the whole batch's on every shard already
             grads, loss = mean_over_batch_ranks((grads, loss), mesh)
             total = loss + aux
-        params, opt_state = adamw_update(grads, opt_state, params, lr=lr,
-                                         weight_decay=weight_decay)
+        params, opt_state = adamw_update(
+            grads, opt_state, params, lr=lr, weight_decay=weight_decay,
+            sq_norm=None if tp is None else tp.grad_sq_norm)
         metrics = {"loss": loss, "aux_loss": aux, "total_loss": total}
         return params, opt_state, metrics
 

@@ -31,7 +31,7 @@ def _shard(t: torch.Tensor, rank: int, world: int, dim: int):
 
 def checks(rank: int, world: int, inp: dict) -> dict:
     from repro_torch.distributed import collectives, expert_parallel
-    from repro_torch.distributed import sharding
+    from repro_torch.distributed import sharding, tensor_parallel
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import Model
     from repro_torch.train import train_step as ts
@@ -76,18 +76,25 @@ def checks(rank: int, world: int, inp: dict) -> dict:
         drawn = m.init_params(seed=world, device="cpu", max_seq=64)
         out["ep_init"] = all(torch.equal(a, b) for a, b in zip(
             tree_leaves(drawn), tree_leaves(mine)))
-    # the data-parallel train step
+    # the train step over the mesh: data-parallel, or for a dense decoder
+    # the sharded program (this rank's shards in, the whole tree gathered
+    # after the steps)
     for (arch, shape, remat), (cfg_a, params, batch) in inp["train"].items():
         if shape[0] * shape[1] != world:
             continue
         mesh = mesh_lib.make_mesh(shape, ("data", "model"), "cpu")
+        sharded = tensor_parallel.supported(cfg_a)
+        if sharded:
+            params = tensor_parallel.shard_params(params, cfg_a, mesh)
         step = ts.make_train_step(Model(cfg_a), lr=inp["lr"], remat=remat,
-                                  mesh=mesh)
+                                  mesh=mesh, fsdp=False)
         opt = ts.init_opt_state(params)
         metrics = []
         for _ in range(inp["steps"]):
             params, opt, mt = step(params, opt, batch)
             metrics.append({n: float(v) for n, v in mt.items()})
+        if sharded:
+            params = tensor_parallel.gather_params(params, cfg_a, mesh)
         out[("train", arch, shape, remat)] = (metrics, tree_leaves(params))
     # host meshes clamp to the world; a mesh of another size raises
     out["host_mesh"] = tuple(mesh_lib.make_host_mesh(8, 8, "cpu").shape)

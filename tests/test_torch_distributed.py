@@ -20,9 +20,11 @@ the reference's side runs here, on one device:
     aux within 1e-6; a dict of every expert refused; and
     ``Model(ep_mesh=)``'s forward against the one-process forward, its
     ``init_params`` drawing the slice of the whole draw;
-  * the data-parallel train step (``make_train_step(mesh=)``) on meshes
-    (2, 1) and (2, 2), for olmo-1b and qwen2-moe-a2.7b (whose aux loss is
-    a product of batch means), and on (2, 1) for qwen2-moe-a2.7b with
+  * the train step over a mesh (``make_train_step(mesh=)``) on meshes
+    (2, 1) and (2, 2), for olmo-1b (a dense decoder: the sharded
+    program of ``distributed.tensor_parallel``) and qwen2-moe-a2.7b (the
+    data-parallel step; its aux loss is a product of batch means), and
+    on (2, 1) for qwen2-moe-a2.7b with
     every layer checkpointed (its aux collectives run again in the
     backward's recompute): two steps' losses within 1e-5 and the
     parameters after them within 1e-4 of their largest magnitude, against

@@ -47,6 +47,7 @@ from repro.launch import roofline as jroof  # noqa: E402
 from repro.launch import specs as jspecs  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.distributed import tensor_parallel as tpl  # noqa: E402
 from repro_torch.launch import dryrun, report, roofline, specs  # noqa: E402
 from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
@@ -136,12 +137,92 @@ def test_build_step_meta_matches_reference(arch, mesh, ref_meta):
                 else args[1]["tokens"].shape[0]
             assert rows == meta["batch_per_dev"]
             cache = args[2]
-            assert cache.k.shape[1:3] == (rows, s.seq_len)
+            # the sharded program's cache holds this rank's slots
+            lay = cache.layout
+            assert lay is None or lay.attn.full == s.seq_len
+            assert cache.k.shape[1:3] == (
+                rows, s.seq_len if lay is None else lay.attn.local)
             assert cache.length == (s.seq_len - 1 if s.mode == "decode"
                                     else 0)
         for spec in specs.sh.leaves(in_specs[0]):
             assert all(a in axes for e in spec
                        for a in ((e,) if isinstance(e, str) else e or ()))
+
+
+SHARDED = [a for a in ARCHS if tpl.supported(configs.get_config(a))]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", SHARDED)
+def test_sharded_program_holds_the_reference_bytes(arch, mesh):
+    """The dense decoders run the sharded program: on every mesh and
+    shape the rank's params (and AdamW moments, f32) hold
+    ``meta["param_bytes_per_dev"]``, and its prefill and decode cache the
+    reference layout's K/V bytes under ``cache_specs`` (``meta`` adds the
+    reference's ``length`` scalar and replicated ``first`` [B])."""
+    from repro_torch.distributed import sharding as sh
+    axes, shape = MESHES[mesh]
+    m = MeshShape(axes, shape)
+    cfg = configs.get_config(arch)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    for name in SHAPES:
+        s = configs.INPUT_SHAPES[name]
+        if not configs.shape_applicable(cfg, s):
+            continue
+        _, args, _, _, meta = specs.build_step(cfg, s, m)
+        assert nbytes(sh.leaves(args[0])) == meta["param_bytes_per_dev"], \
+            (name, nbytes(sh.leaves(args[0])), meta["param_bytes_per_dev"])
+        if s.mode == "train":
+            assert nbytes(sh.leaves(args[1].mu)) == \
+                2 * meta["param_bytes_per_dev"]
+            continue
+        cache = args[2]
+        ours = nbytes([cache.k, cache.v] + [
+            t for st in cache.state.values() for t in st.values()])
+        ref = specs.reference_cache(cfg, s.global_batch, s.seq_len)
+        cspec = sh.cache_specs(cfg, ref, m,
+                               shard_seq=(name == "long_500k"))
+        kv = sh.local_bytes(ref["slots"], cspec["slots"], m)
+        assert ours == kv, (name, ours, kv)
+        assert meta["cache_bytes_per_dev"] == kv + 4 + 4 * s.global_batch
+        # at most 1/model of the whole cache a rank
+        assert ours * shape[-1] <= nbytes(sh.leaves(ref["slots"]))
+
+
+_COLLECTIVES_4X4 = r"""
+import json
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+from repro_torch.distributed import _compat
+from repro_torch.launch import roofline
+from repro_torch.launch.mesh import make_mesh
+mesh = make_mesh((4, 4), ("data", "model"), device_type="cpu")
+
+
+def fsdp(x):
+    g = _compat.all_gather(x, mesh, "data", 0)
+    return _compat.reduce_scatter(g, mesh, "data", 0)
+
+
+out = roofline.analyze(fsdp, torch.ones(8, 4)).per_collective
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_fake_world_counts_fsdp_collectives():
+    """The FSDP pair on the fake backend: the all-gather's operand (one
+    [8, 4] f32 shard) and the reduce-scatter's (the gathered [32, 4]),
+    under the reference's names."""
+    out = subprocess.run([sys.executable, "-c", _COLLECTIVES_4X4],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=dict(os.environ,
+                                            PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr[-2000:]
+    coll = json.loads(out.stdout.strip().splitlines()[-1])
+    assert coll == {"all-gather": 128.0, "reduce-scatter": 512.0}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
