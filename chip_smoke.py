@@ -286,17 +286,17 @@ Phases, in order:
            8, hd 256, softcap 50; B 1, S 524,288 bf16: K and V 4 GiB),
            queries in the last and in the first shard, against
            layers.decode_attention over the whole cache within 2e-2 of
-           max|o|.  (c) apply_moe_expert_parallel on one
-           qwen3-moe-30b-a3b layer (128 experts top-8, d 2048, expert
-           ff 768, bf16; x [4,32,2048]), each rank holding its E/P
-           experts, dropless (capacity factor 128) and at 1.25, against
+           max|o|.  (c) moe.apply_moe(tp=TensorParallel(moe_ep=True))
+           on one qwen3-moe-30b-a3b layer (128 experts top-8, d 2048,
+           expert ff 768, bf16; x [4,32,2048]), each rank holding its
+           E/P experts, dropless (capacity factor 128) and at 1.25, against
            moe.apply_moe: y within 2^-6 max(1, max|y|) (bf16 partial
            sums in another order), aux within 1e-5.  Host ms per call
            for each, by world and rank.  (d) launch.train
            --production-mesh in this world of one raises the world-size
            error before the model is built: device memory allocated and
-           its peak unchanged.  (e) make_train_step(mesh=), the
-           data-parallel step that flag runs, 2 steps of
+           its peak unchanged.  (e) make_train_step(mesh=) over
+           (world, 1) without FSDP, the data-parallel step, 2 steps of
            qwen2-moe-a2.7b's smoke config (f32; its aux loss a product
            of batch means) on a fixed batch of 4 x 32 over the world's
            data ranks: losses and aux within 1e-5 of the one-process
@@ -327,7 +327,30 @@ Phases, in order:
            seeded 2 x 32 prompt and a greedy decode of 16 tokens over
            (data 1, model 2): tokens equal to the one-process decode's,
            or parting where both lie within NEAR_TIE of the one-process
-           top logit; flash_attention launched on every rank
+           top logit; flash_attention launched on every rank.  (h) the
+           sharded program of the other five archs at published width,
+           cut in depth (2 layers of qwen3-moe-30b-a3b, qwen2-moe-a2.7b
+           and hymba-1.5b, one mLSTM and one sLSTM block of
+           xlstm-350m, whisper-base whole with seeded frames), as (f):
+           one tensor-parallel (1, 2) and one FSDP (2, 1) step each in
+           the world of two, all in bf16, loss within 2e-2 of the bf16
+           one-process step's; each first moment (f32, fused leaves cut
+           as the rank holds them) held to an f32 one-process step from
+           the same bf16 draw and inputs: its relative L2 distance there
+           within 3x the bf16 one-process step's own distance on that
+           leaf plus 2^-7 (bf16 rounds partial sums in another order on
+           each side); the bf16 MoE steps replay the anchor's routing
+           (top-k choices; the gates from their own logits), as bf16
+           flips tokens' choices at near ties; planted faults (qwen3's
+           router gradient unsummed over `model`, qwen3's load-balance
+           term counted `model` times, hymba's bn_m applied before the
+           Mamba branch's reduce) must miss that limit; a
+           tensor-parallel greedy decode of 16 tokens of qwen3-moe
+           (whole experts over `model` inside the sharded program) and
+           hymba (rolling buffer and Mamba state) as (g); each flash and
+           flash-backward shape the steps and decodes launched (rank
+           0's) timed against its plain version beside SDPA and the
+           bound (rows under the kernels' "shapes")
   kernels  each kernel against its plain PyTorch version on the card, on
            the inputs recorded from the main paths (synthetic inputs of
            the same shapes when a path did not run) and on edge cases,
@@ -4302,8 +4325,9 @@ def _dist_moe(torch, dev):
 def dist_train(torch, mesh) -> tuple:
     """(e): DIST_TRAIN_STEPS train steps of DIST_TRAIN_ARCH's smoke
     config (f32) on one fixed seeded batch of 4 x 32, data-parallel over
-    ``mesh`` (one process when None): ([(loss, aux) a step], the final
-    params on the CPU)."""
+    ``mesh`` (one process when None): the sharded program on (world, 1)
+    without FSDP, where a rank's shards are the whole tree ([(loss, aux)
+    a step], the final params on the CPU)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model
     from repro_torch.train import train_step as ts
@@ -4319,7 +4343,8 @@ def dist_train(torch, mesh) -> tuple:
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
              "positions": torch.arange(32, dtype=torch.int32,
                                        device=dev).expand(4, 32)}
-    step = ts.make_train_step(model, lr=1e-3, remat=False, mesh=mesh)
+    step = ts.make_train_step(model, lr=1e-3, remat=False, mesh=mesh,
+                              fsdp=False)
     opt = ts.init_opt_state(params)
     metrics = []
     for _ in range(DIST_TRAIN_STEPS):
@@ -4587,6 +4612,537 @@ def dist_tp_check(torch, one: dict, ranks: list, tag: str) -> dict:
     return counts
 
 
+# (h): the sharded program of the other five archs at published width,
+# cut in depth: 2 layers of each MoE arch and of hymba, one mLSTM and one
+# sLSTM block of xlstm, whisper whole (6 + 6 layers); bf16, as their
+# configs say
+DIST_H_ARCHS = {"qwen3-moe-30b-a3b": 2, "qwen2-moe-a2.7b": 2,
+                "hymba-1.5b": 2, "xlstm-350m": 2, "whisper-base": None}
+DIST_H_DECODE = ("qwen3-moe-30b-a3b", "hymba-1.5b")   # EP inside TP; Mamba
+# A sharded bf16 step's first moments are held to an f32 one-process
+# step from the same bf16 draw and inputs (the anchor): each leaf within
+# DIST_H_MU_FACTOR times the bf16 one-process step's distance to the
+# anchor on that leaf, plus DIST_H_MU_FLOOR.  Two bf16 programs round
+# their partial sums in another order, so neither is nearer the anchor
+# than bf16 lets it be: through whisper's 6 + 6 layers that moved the
+# decoder's attn/wk moments (a gradient that cancels under near-uniform
+# attention) 0.119 from the bf16 one-process step's on the card.  In a
+# MoE layer it also flips tokens' top-k choices at near ties, a discrete
+# change that left the bf16 one-process moments 0.26 (qwen3-moe) and
+# 0.40 (qwen2-moe) from the anchor's on the card, too loose to see a
+# small fault; so every bf16 MoE step replays the anchor's routing
+# (``_h_routes``): the same experts and capacity drops, the gates and
+# the load-balance loss from its own logits
+DIST_H_MU_FACTOR = 3.0
+DIST_H_MU_FLOOR = 2.0 ** -7
+# the planted faults, on the tensor-parallel step of their arch, each
+# checked to miss the limit
+DIST_H_FAULTS = {
+    "qwen3-moe-30b-a3b": ("the router gradient unsummed over model",
+                          "the load-balance term counted model times"),
+    "hymba-1.5b": ("bn_m applied before the reduce",)}
+
+
+def dist_h_cfg(arch: str, dtype=None):
+    """(h)'s config of ``arch``, cut in depth; ``dtype`` replaces its
+    dtype (the anchor's f32)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    n = DIST_H_ARCHS[arch]
+    return cfg if n is None else dataclasses.replace(cfg, num_layers=n)
+
+
+def _h_inputs(torch, cfg, dev):
+    """(h)'s batch (DIST_TP_BATCH, whisper's seeded frames too) and
+    prompt (DIST_TP_PROMPT), seeded."""
+    batch, prompt = _tp_inputs(torch, cfg, dev)
+    frames = None
+    if cfg.is_encoder_decoder:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(26)
+        frames = torch.randn(DIST_TP_BATCH[0], cfg.encoder_seq_len,
+                             cfg.d_model, generator=gen, device=dev)
+        batch["encoder_frames"] = frames
+    return batch, prompt, frames
+
+
+def dist_h_step(torch, arch, mesh, fsdp, anchor: bool = False,
+                routes=None):
+    """(h): one train step of ``arch`` (``dist_h_cfg``) from its seed-0
+    draw: the sharded program over ``mesh`` or the one-process step;
+    ``anchor``: the one-process step in f32 from the same bf16 draw and
+    inputs; ``routes`` (a MoE arch): the routing the anchor records and
+    the other steps replay (``_h_routes``) -> (loss, AdamW's first
+    moments (this rank's shards), launches, seconds)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.train import train_step as ts
+    dev = torch.device(DEV)
+    cfg = dist_h_cfg(arch)
+    tp = None if mesh is None else tpl.TensorParallel(cfg, mesh, fsdp)
+    params = Model(cfg, tp=tp).init_params(seed=0, device=dev,
+                                           max_seq=DIST_TP_BATCH[1])
+    batch, _, _ = _h_inputs(torch, cfg, dev)
+    if anchor:
+        cfg = dist_h_cfg(arch, "float32")
+        params = _tree_to(params, lambda t: t.float())
+        if "encoder_frames" in batch:       # the frames the bf16 model reads
+            batch["encoder_frames"] = batch["encoder_frames"].to(
+                torch.bfloat16).float()
+    step = ts.make_train_step(Model(cfg), lr=DIST_TP_LR, remat=True,
+                              mesh=mesh, fsdp=fsdp)
+    opt = ts.init_opt_state(params)
+    routing = contextlib.nullcontext() if routes is None else _h_routes(
+        torch, routes, anchor, mesh)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    with routing:
+        params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {k: c for k, c in ops.launches.items() if c}
+    return float(m["loss"]), opt.mu, launches, secs
+
+
+@contextlib.contextmanager
+def _h_routes(torch, routes: dict, record: bool, mesh=None):
+    """While open, ``models.moe``'s router records each MoE layer's top-k
+    choices into ``routes`` (``record``; keyed by the layer's first
+    router weights, which the bf16 and f32 draws share) or replays them:
+    this call's own logits, the gates their softmax at the recorded
+    experts.  Over ``mesh`` a rank replays its batch shard's rows."""
+    from repro_torch.models import moe
+    from repro_torch.train import train_step as ts
+    sound = moe._route
+    i, n = (0, 1) if mesh is None else ts.batch_rank(mesh)
+
+    def route(params, x, k):
+        key = tuple(params["router"].reshape(-1)[:4].float().tolist())
+        if record:
+            top, gates, logits = sound(params, x, k)
+            routes.setdefault(key, top.cpu())
+            return top, gates, logits
+        top = routes[key]
+        b = top.shape[0] // n
+        top = top[i * b:(i + 1) * b].to(x.device)
+        logits = (x @ params["router"]).float()
+        gates = torch.softmax(logits.gather(-1, top), dim=-1).to(x.dtype)
+        return top, gates, logits
+
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = sound
+
+
+def dist_h_decode(torch, arch, mesh):
+    """(h): prefill of the seeded prompt and DIST_TP_DECODE greedy tokens
+    of ``arch`` over ``mesh`` (its inference layout: whole experts over
+    `model` where they divide it) or one process -> as
+    ``dist_tp_decode``."""
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    dev = torch.device(DEV)
+    cfg = dist_h_cfg(arch)
+    tp = None if mesh is None else tpl.TensorParallel(
+        cfg, mesh, moe_ep=tpl.infer_moe_ep(cfg, mesh))
+    model = Model(cfg, tp=tp)
+    params = model.init_params(seed=0, device=dev, max_seq=64)
+    _, prompt, frames = _h_inputs(torch, cfg, dev)
+    B, L = prompt.shape
+    pos = torch.arange(L, dtype=torch.int32, device=dev).expand(B, L)
+    cache = model.init_cache(B, L + DIST_TP_DECODE, dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    toks, steps = [], []
+    with torch.no_grad():
+        first = model.prefill(params, prompt, pos, cache,
+                              encoder_frames=frames)
+        lg = first
+        for _ in range(DIST_TP_DECODE):
+            tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+            steps.append(lg.float().cpu())
+            lg = model.decode_step(params, tok, cache)
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in ops.launches.items() if c}
+    ep = tp is not None and tp.moe_ep
+    return (torch.cat(toks, 1).cpu(), torch.stack(steps), first.float().cpu(),
+            launches, ep)
+
+
+def dist_h_one(torch, tmp: str) -> dict:
+    """(h) in one process, before the spawn: each arch's f32 anchor step
+    (its first moments saved under ``tmp`` in f32 for the ranks, with a
+    MoE arch's routing), its bf16 step (loss, and each first moment's
+    relative L2 distance to the anchor's), the decodes."""
+    out = {}
+    for arch in DIST_H_ARCHS:
+        routes = {} if dist_h_cfg(arch).moe is not None else None
+        a_loss, a_mu, _, _ = dist_h_step(torch, arch, None, False,
+                                         anchor=True, routes=routes)
+        a_mu = _tree_to(a_mu, lambda t: t.cpu())
+        torch.save({"mu": a_mu, "routes": routes}, f"{tmp}/h_{arch}.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss, mu, launches, secs = dist_h_step(torch, arch, None, False,
+                                               routes=routes)
+        out[arch] = {"loss": loss, "anchor_loss": a_loss, "secs": secs,
+                     "launches": launches,
+                     "err": _h_leaf_errors(torch, mu, a_mu)}
+        del mu, a_mu
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in DIST_H_DECODE:
+        out[("decode", arch)] = dist_h_decode(torch, arch, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tree_to(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _h_leaf_errors(torch, mu, want) -> dict:
+    """Each leaf's relative L2 distance of ``mu`` from ``want`` (a tree
+    of the same leaves, on any device), by path."""
+    from repro_torch.distributed import sharding as sh
+    paths = []
+    sh._map(lambda p, _: paths.append(p), mu)
+    out = {}
+    for path, got, w in zip(paths, _leaves(mu), _leaves(want)):
+        w = w.to(got.device).float()
+        out[path] = float(torch.linalg.vector_norm(got.float() - w)) / max(
+            float(torch.linalg.vector_norm(w)), 1e-30)
+    return out
+
+
+def _h_worst(err: dict, base: dict) -> tuple:
+    """(the largest share of its limit, its leaf, distance, limit): each
+    leaf's distance ``err`` against DIST_H_MU_FACTOR times the bf16
+    one-process step's ``base`` plus DIST_H_MU_FLOOR."""
+    worst = (0.0, None, 0.0, 0.0)
+    for path, e in err.items():
+        lim = DIST_H_MU_FACTOR * base[path] + DIST_H_MU_FLOOR
+        if e / lim > worst[0]:
+            worst = (e / lim, path, e, lim)
+    return worst
+
+
+def _h_fault(what: str):
+    """(h)'s planted fault ``what``: (class, attribute, faulty
+    function)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    if what.startswith("the router gradient"):
+        sound = tpl.TensorParallel._partial
+
+        def partial(self, path, spec):
+            return False if path.endswith("moe/router") \
+                else sound(self, path, spec)
+        return tpl.TensorParallel, "_partial", partial
+    if what.startswith("the load-balance term"):
+        return tpl.TensorParallel, "scale_grad", lambda self, x: x
+
+    def norm_first(self, p, mo):
+        return self.tp.reduce_from_model(L.apply_norm(p["bn_m"], mo,
+                                                      self.cfg))
+    return Model, "_mamba_norm", norm_first
+
+
+class _ShapeLog:
+    """While installed, counts the flash forward and backward launches of
+    each call shape and keeps its first call's positions (on the host):
+    (h)'s kernel rows are timed at these shapes."""
+
+    def __init__(self, ops):
+        self.ops, self.fwd, self.bwd = ops, {}, {}
+
+    def _add(self, book, q, k, qp, kvp, opts):
+        key = (tuple(q.shape), tuple(k.shape), str(q.dtype)) + tuple(opts)
+        if key not in book:
+            book[key] = [0, qp.cpu(), kvp.cpu()]
+        book[key][0] += 1
+
+    def install(self):
+        ops, self.launch, self.bwd_fn = self.ops, self.ops._flash_launch, \
+            self.ops.flash_attention_bwd
+
+        def launch(q, k, v, qp, kvp, causal, window, softcap, lse=None):
+            self._add(self.fwd, q, k, qp, kvp, (causal, window, softcap))
+            return self.launch(q, k, v, qp, kvp, causal, window, softcap,
+                               lse=lse)
+
+        def bwd(q, k, v, qp, kvp, out, do, lse, causal=True, window=None,
+                softcap=None):
+            self._add(self.bwd, q, k, qp, kvp, (causal, window, softcap))
+            return self.bwd_fn(q, k, v, qp, kvp, out, do, lse, causal,
+                               window, softcap)
+        ops._flash_launch, ops.flash_attention_bwd = launch, bwd
+
+    def remove(self):
+        self.ops._flash_launch = self.launch
+        self.ops.flash_attention_bwd = self.bwd_fn
+
+
+def dist_h_rank(torch, rank: int, tmp: str) -> dict:
+    """(h) on one rank of the world of two: each arch's tensor-parallel
+    and FSDP steps, each first moment's distance to this rank's cut of
+    the f32 anchor's; the same with each planted fault; the decodes; the
+    flash shapes the steps and decodes launched."""
+    import torch.distributed as dist
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    out = {}
+    shapes = _ShapeLog(ops)
+    for arch in DIST_H_ARCHS:
+        cfg = dist_h_cfg(arch)
+        saved = torch.load(f"{tmp}/h_{arch}.pt", mmap=True)
+        routes = saved["routes"]
+        for shape, fsdp in DIST_TP_MESHES:
+            mesh = mesh_lib.make_mesh(shape, ("data", "model"), DEV)
+            shapes.install()
+            try:
+                loss, mu, launches, secs = dist_h_step(
+                    torch, arch, mesh, fsdp, routes=routes)
+            finally:
+                shapes.remove()
+            tp = tpl.TensorParallel(cfg, mesh, fsdp)
+            want = tpl.cut_tree(saved["mu"], tp.specs, mesh)
+            err = _h_leaf_errors(torch, mu, want)
+            held = sum(t.numel() * t.element_size() for t in _leaves(mu))
+            del mu
+            gc.collect()
+            torch.cuda.empty_cache()
+            faults = {}
+            for what in (DIST_H_FAULTS.get(arch, ())
+                         if shape[1] > 1 else ()):
+                cls, name, faulty = _h_fault(what)
+                sound = getattr(cls, name)
+                setattr(cls, name, faulty)
+                try:
+                    _, mu, _, _ = dist_h_step(torch, arch, mesh, fsdp,
+                                              routes=routes)
+                finally:
+                    setattr(cls, name, sound)
+                faults[what] = _h_leaf_errors(torch, mu, want)
+                del mu
+                gc.collect()
+                torch.cuda.empty_cache()
+            del want
+            out[("h", arch, shape)] = {
+                "loss": loss, "launches": launches, "secs": secs,
+                "err": err, "held": held, "faults": faults}
+        del saved, routes
+        gc.collect()
+        dist.barrier()                  # both ranks are done with it
+        if rank == 0:
+            Path(f"{tmp}/h_{arch}.pt").unlink()
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"), DEV)
+    for arch in DIST_H_DECODE:
+        shapes.install()
+        try:
+            out[("h_decode", arch)] = dist_h_decode(torch, arch, mesh)
+        finally:
+            shapes.remove()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["h_shapes"] = (shapes.fwd, shapes.bwd)
+    return out
+
+
+def _near_tie(torch, toks, want, steps, what):
+    """None when the greedy tokens equal the one-process ones; else the
+    first parting (row, token, both distances below the one-process top
+    logit), checked within NEAR_TIE."""
+    if torch.equal(toks, want):
+        return None
+    b, t = next((b, t) for t in range(toks.shape[1])
+                for b in range(toks.shape[0]) if toks[b, t] != want[b, t])
+    lg = steps[t, b]
+    top = float(lg.max())
+    below = (top - float(lg[want[b, t]]), top - float(lg[toks[b, t]]))
+    check(max(below) <= NEAR_TIE, f"{what}: row {b} parts at token {t}, "
+          f"{below} below the top logit")
+    return (b, t, round(below[0], 4), round(below[1], 4))
+
+
+def _h_kernel_rows(torch, F, ops, ref, shapes, rec, card) -> None:
+    """(h)'s flash and flash-backward shapes (rank 0's) timed on seeded
+    inputs at the recorded positions: kernel against its plain version,
+    beside SDPA and the bound; rows joining the kernels line's
+    "shapes"."""
+    fwd, bwd = shapes
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(27)
+    rows = []
+    for (qs, ks, dt, causal, window, cap), (n, qp, kvp) in fwd.items():
+        r = lambda *s: torch.randn(*s, generator=gen, device=DEV).to(
+            getattr(torch, dt.split(".")[1]))
+        args = (r(*qs), r(*ks), r(*ks), qp.to(DEV), kvp.to(DEV))
+        kw = {"causal": causal, "window": window, "softcap": cap}
+        rows.append(_flash_row(torch, F, ops, ref, args, kw,
+                               f"distributed[h] q{list(qs)} k{list(ks)}",
+                               n, card))
+    rec.setdefault("flash_attention", {}).setdefault("shapes", []).extend(
+        rows)
+    rows = []
+    for (qs, ks, dt, causal, window, cap), (n, qp, kvp) in bwd.items():
+        dtype = dt.split(".")[1]
+        r = lambda *s: torch.randn(*s, generator=gen, device=DEV).to(
+            getattr(torch, dtype))
+        q, k, v, do = r(*qs), r(*ks), r(*ks), r(*qs)
+        qp, kvp = qp.to(DEV), kvp.to(DEV)
+        kw = {"causal": causal, "window": window, "softcap": cap}
+        live = _live(torch, qp, kvp, causal, window)
+        do = do * live[:, :, None, None].to(do.dtype)
+        lse = torch.empty(qs[0], qs[2], qs[1], dtype=torch.float32,
+                          device=DEV)
+        out = ops._flash_launch(q, k, v, qp, kvp, causal, window, cap,
+                                lse=lse)
+        got = ops.flash_attention_bwd(q, k, v, qp, kvp, out, do, lse, **kw)
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           qp, kvp, do.float(), **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w, m in zip(got, want, (live, None, None)):
+            g, w = g.float(), w.float()
+            if m is not None:
+                g, w = g[m], w[m]
+            e = float((g - w).abs().max())
+            tol = BWD_TOL_BF16 * float(w.abs().max())
+            check(e <= tol, f"bwd distributed[h] q{list(qs)}: {e:.3e} > "
+                  f"{tol:.3e}")
+            err = max(err, e)
+        t_k = bench_ms(lambda: ops.flash_attention_bwd(q, k, v, qp, kvp, out,
+                                                       do, lse, **kw))
+        t_p = bench_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, qp, kvp,
+                                                           do, **kw))
+        t_l = None if cap else bench_ms(_sdpa_bwd(torch, F, q, k, v, do, qp,
+                                                  kvp, causal, window))
+        nbytes, flops = bwd_work(q, k, qp, kvp, causal, window)
+        bnd, by = bound_ms(nbytes, flops, dtype)
+        log(f"  flash_attention_bwd [distributed[h] q{list(qs)} "
+            f"k{list(ks)} causal {causal} window {window}] {dtype}: max|err| "
+            f"{err:.3e}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
+            f"backward " + ("n/a" if t_l is None else f"{t_l:.4f} ms")
+            + f", bound {bnd:.5f} ms ({by}); {n} launches on the path "
+            f"[{card['smi']}]")
+        rows.append({"shape": f"distributed[h] q{list(qs)} k{list(ks)}",
+                     "q": list(qs), "k": list(ks), "dtype": dtype,
+                     "launches": n, "max_abs_err": err, "ms": t_k,
+                     "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
+                     "library_ms": t_l})
+        del q, k, v, do, out, lse, got, want
+    rec.setdefault("flash_attention_bwd", {}).setdefault("shapes", []
+                                                          ).extend(rows)
+
+
+def dist_h_check(torch, one: dict, ranks: list, rec, card, tag: str
+                 ) -> dict:
+    """(h): every rank's steps and decodes against the one-process runs;
+    the kernel rows at (h)'s shapes; (h)'s launches, every rank's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    counts = {}
+    for arch in DIST_H_ARCHS:
+        base = one[arch]["err"]
+        far = max(base, key=base.get)
+        a_loss = one[arch]["anchor_loss"]
+        log(f"distributed[h]: {arch} one process: bf16 loss "
+            f"{one[arch]['loss']:.6f}, f32 anchor {a_loss:.6f}; the bf16 "
+            f"step's first moments within "
+            f"{base[far]:.3e} relative L2 of the anchor's (worst {far}); "
+            f"step {one[arch]['secs']:.2f} s {tag}")
+    for r, o in enumerate(ranks):
+        for arch in DIST_H_ARCHS:
+            base = one[arch]["err"]
+            for shape, fsdp in DIST_TP_MESHES:
+                t = o[("h", arch, shape)]
+                d = abs(t["loss"] - one[arch]["loss"])
+                check(d <= DIST_TP_LOSS_TOL, f"distributed[h] {arch} "
+                      f"{shape} rank {r}: loss {t['loss']} vs one process "
+                      f"{one[arch]['loss']}")
+                share, at, e, lim = _h_worst(t["err"], base)
+                check(share <= 1.0, f"distributed[h] {arch} {shape} rank "
+                      f"{r}: first moment {at} {e:.3e} (relative L2) from "
+                      f"the f32 anchor's, over its limit {lim:.3e} (the "
+                      f"bf16 one-process step's {base[at]:.3e})")
+                attn = "flash_attention" in one[arch]["launches"]
+                check(not attn or (t["launches"].get("flash_attention", 0)
+                                   and t["launches"].get(
+                                       "flash_attention_bwd", 0)),
+                      f"distributed[h] {arch} {shape} rank {r}: launches "
+                      f"{t['launches']}")
+                for k, c in t["launches"].items():
+                    counts[k] = counts.get(k, 0) + c
+                faults = ""
+                for what in DIST_H_FAULTS.get(arch, ()):
+                    if what not in t["faults"]:
+                        continue
+                    f_share, f_at, f_e, f_lim = _h_worst(t["faults"][what],
+                                                         base)
+                    check(f_share > 1.0, f"distributed[h] {arch} rank {r}: "
+                          f"with {what} the first moments keep within their "
+                          f"limits (worst {f_at} {f_e:.3e}, limit "
+                          f"{f_lim:.3e})")
+                    faults += (f"; with {what} {f_e:.3e} at {f_at}, "
+                               f"{f_share:.3f} of its limit {f_lim:.3e}")
+                cfg = dist_h_cfg(arch)
+                log(f"distributed[h]: {arch} ({cfg.num_layers} layers, "
+                    f"{cfg.dtype}, {DIST_TP_BATCH[0]} x {DIST_TP_BATCH[1]}"
+                    f", remat) mesh (data, model) {shape}"
+                    f"{' FSDP' if fsdp else ' TP'} rank {r}: loss "
+                    f"{t['loss']:.6f} vs one process "
+                    f"{one[arch]['loss']:.6f} (|d| {d:.2e}, tol "
+                    f"{DIST_TP_LOSS_TOL:g}); first moments within "
+                    f"{max(t['err'].values()):.3e} relative L2 of the f32 "
+                    f"anchor's, at most {share:.3f} of a leaf's limit ({at}:"
+                    f" {e:.3e} vs {lim:.3e}; the bf16 one-process step's "
+                    f"{base[at]:.3e}){faults}; {t['held'] / 2 ** 30:.3f} "
+                    f"GiB of first moments held (one process: all); "
+                    f"launches {json.dumps(t['launches'])}; step "
+                    f"{t['secs']:.2f} s (one process {one[arch]['secs']:.2f}"
+                    f" s) {tag}")
+            for what in DIST_H_FAULTS.get(arch, ()):
+                check(what in o[("h", arch, (1, 2))]["faults"],
+                      f"distributed[h] {arch}: {what} did not run")
+        for arch in DIST_H_DECODE:
+            toks, steps, first, launches, ep = o[("h_decode", arch)]
+            want = one[("decode", arch)]
+            err = max_err(first, want[2])
+            check(launches.get("flash_attention", 0) > 0,
+                  f"distributed[h] decode {arch} rank {r}: {launches}")
+            check(ep == (arch == "qwen3-moe-30b-a3b"),
+                  f"distributed[h] decode {arch}: expert parallel {ep}")
+            parted = _near_tie(torch, toks, want[0], want[1],
+                               f"distributed[h] decode {arch} rank {r}")
+            for k, c in launches.items():
+                counts[k] = counts.get(k, 0) + c
+            log(f"distributed[h]: {arch} tensor-parallel decode over (1, 2)"
+                f"{' (experts whole over model)' if ep else ''} rank {r}: "
+                f"prefill of {list(DIST_TP_PROMPT)} logits max|err| "
+                f"{err:.3e} against one process; {DIST_TP_DECODE} greedy "
+                "tokens " + ("equal" if parted is None else
+                             f"part at {parted}, within NEAR_TIE {NEAR_TIE}")
+                + f"; launches {json.dumps(launches)} {tag}")
+    _h_kernel_rows(torch, F, ops, ref, ranks[0]["h_shapes"], rec, card)
+    return counts
+
+
 def _dist_ms(torch, dist, world: int, fn) -> float:
     """Median host ms of one call of ``fn`` over DIST_REPS calls (after a
     warm one), every rank starting each call together and synchronising
@@ -4608,9 +5164,10 @@ def dist_rank(torch, world: int, rank: int) -> dict:
     """(a)-(c) and (e) on one rank of the initialised default group
     (``world`` ranks, every tensor on cuda:0); its results on the CPU."""
     import torch.distributed as dist
-    from repro_torch.distributed import collectives, expert_parallel
+    from repro_torch.distributed import collectives, tensor_parallel
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
     dev = torch.device(DEV)
     out = {}
     line = mesh_lib.make_mesh((world,), ("data",), DEV)
@@ -4655,11 +5212,14 @@ def dist_rank(torch, world: int, rank: int) -> dict:
     out["decode_ms"] = _dist_ms(torch, dist, world, lambda: decode(qps[0]))
     del ks, vs
     torch.cuda.empty_cache()
-    # (c) this rank's E/P experts, the router whole
+    # (c) this rank's E/P experts, the router whole: the sharded
+    # program's inference layout (TensorParallel(moe_ep=True))
     ep = mesh_lib.make_mesh((1, world), ("data", "model"),
                             DEV)
     cfg, params, x = _dist_moe(torch, dev)
-    local = expert_parallel.local_experts(params, cfg, ep)
+    tp = tensor_parallel.TensorParallel(cfg, ep, moe_ep=True)
+    local = tensor_parallel.cut_tree(params, tp.specs["blocks"][0]["moe"],
+                                     ep)
     del params
     torch.cuda.empty_cache()
     out["experts_held"] = int(local["wi"].shape[0])
@@ -4668,13 +5228,13 @@ def dist_rank(torch, world: int, rank: int) -> dict:
     out["moe_ms"] = {}
     with torch.no_grad():
         for cf in DIST_CFS:
-            run = lambda: expert_parallel.apply_moe_expert_parallel(
-                local, x, cfg, ep, capacity_factor=cf)
+            run = lambda: moe.apply_moe(local, x, cfg, capacity_factor=cf,
+                                        return_aux=True, tp=tp)
             y, aux = run()
             out[("moe", cf)] = (y.cpu(), float(aux))
             out["moe_ms"][cf] = _dist_ms(torch, dist, world, run)
     del local
-    # (e) the data-parallel step of launch.train --production-mesh
+    # (e) the data-parallel step
     dp = mesh_lib.make_mesh((world, 1), ("data", "model"), DEV)
     t = time.perf_counter()
     out["train"] = dist_train(torch, dp)
@@ -4698,6 +5258,9 @@ def _dist_child(rank: int, world: int, tmp: str) -> None:
     t = time.perf_counter()
     out.update(dist_tp_rank(torch, rank, tmp))
     out["tp_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out.update(dist_h_rank(torch, rank, tmp))
+    out["h_s"] = time.perf_counter() - t
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -4878,11 +5441,13 @@ def dist_flag(torch, tag: str) -> None:
         f"peak {peak} B, {after} B after {tag}")
 
 
-def phase_distributed(torch, card) -> dict:
+def phase_distributed(torch, card, rec: dict) -> dict:
     """(a)-(c) and (e) in a world of one (NCCL, this process) and of two
     (gloo, spawned), checked against the unsharded computations and the
-    one-process step; (d) the production-mesh flag.  Returns (a)'s top-k
-    launches, every rank's."""
+    one-process step; (d) the production-mesh flag; (f)-(h) the sharded
+    program in the world of two against the one-process runs, (h)'s
+    kernel shapes timed into ``rec``.  Returns the launches of (a) and
+    (f)-(h), every rank's."""
     import tempfile
     import torch.distributed as dist
     import torch.multiprocessing as mp
@@ -4901,6 +5466,10 @@ def phase_distributed(torch, card) -> dict:
         one = dist_tp_one(torch, tmp)
         gc.collect()
         torch.cuda.empty_cache()
+        t_h = time.perf_counter()
+        one_h = dist_h_one(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
         t_one = time.perf_counter()
         # the children import this file and find the kernels built
         mp.spawn(_dist_child, args=(2, tmp), nprocs=2, join=True)
@@ -4908,6 +5477,9 @@ def phase_distributed(torch, card) -> dict:
                    for r in range(2)]
     t2 = time.perf_counter()
     tp_launches = dist_tp_check(torch, one, runs[2], tag)
+    for k, c in dist_h_check(torch, one_h, runs[2], rec, card, tag).items():
+        tp_launches[k] = tp_launches.get(k, 0) + c
+    t_hc = time.perf_counter()
     dist_check(torch, runs, tag)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4916,10 +5488,13 @@ def phase_distributed(torch, card) -> dict:
     launches = sum(o["topk_launches"]["retrieval_topk"]
                    for ranks in runs.values() for o in ranks)
     tp_s = ", ".join(f"{o['tp_s']:.1f}" for o in runs[2])
+    h_s = ", ".join(f"{o['h_s']:.1f}" for o in runs[2])
     log(f"distributed: seconds: world 1 {t1 - t0:.1f}, (f)-(g) one process "
-        f"{t_one - t1:.1f}, world 2 (spawn included) {t2 - t_one:.1f} "
-        f"((f)-(g) a rank: {tp_s}), checks "
-        f"{t3 - t2:.1f}, (d) {time.perf_counter() - t3:.1f}; the phase "
+        f"{t_h - t1:.1f}, (h) one process {t_one - t_h:.1f}, world 2 "
+        f"(spawn included) {t2 - t_one:.1f} ((f)-(g) a rank: {tp_s}; (h) a "
+        f"rank: {h_s}), checks (f)-(g) and (h) with its kernel rows "
+        f"{t_hc - t2:.1f}, (a)-(e) {t3 - t_hc:.1f}, (d) "
+        f"{time.perf_counter() - t3:.1f}; the phase "
         f"{time.perf_counter() - t0:.1f}; retrieval_topk launches on the "
         f"paths {launches}; the sharded paths' {json.dumps(tp_launches)}")
     return dict(tp_launches, retrieval_topk=launches)
@@ -7138,7 +7713,7 @@ def main(argv=None) -> int:
             "whisper": lambda: phase_whisper(torch, card, rec),
             "train": lambda: phase_train(torch, card, rec),
             "dryrun": lambda: phase_dryrun(torch, card),
-            "distributed": lambda: phase_distributed(torch, card),
+            "distributed": lambda: phase_distributed(torch, card, rec),
             "kernels": lambda: phase_kernels(torch, card, captured, rec,
                                              traced),
             "parity": lambda: phase_parity(torch),

@@ -18,27 +18,22 @@ those of the reference's layout under the sharding rules
 (``distributed.sharding``), which is what ``in_specs`` and ``out_specs``
 describe.
 
-``step`` and ``args`` are what the port runs on one rank of that mesh.
-For the dense decoders (``tensor_parallel.supported``: olmo-1b,
-llama3-8b, gemma2-9b, nemotron-4-15b, qwen2-vl-72b) that is the
-reference's sharded program: tensor parallelism over `model` and, where
-``meta["fsdp"]`` says so, FSDP over `data`
-(``distributed.tensor_parallel``).  ``args`` hold this rank's shard of
-every param and AdamW moment (and of the decode cache, laid out as
-``cache_specs``), so their bytes are ``meta["param_bytes_per_dev"]`` and
-``meta["cache_bytes_per_dev"]``.  Training is
-``make_train_step(mesh=, fsdp=meta["fsdp"])``;
-prefill and decode run ``Model(tp=)`` on the rank's ``batch_per_dev``
-rows and return the last logits over the whole vocab.  The other five
-archs (hymba-1.5b, qwen2-moe-a2.7b, qwen3-moe-30b-a3b, whisper-base,
-xlstm-350m) run the data-parallel program, whatever ``meta`` says:
-params and AdamW state whole on every rank (``make_train_step(mesh=)``,
-each rank taking its rows of the global batch), prefill and decode over
-whole params but for the expert stacks of ``Model(ep_mesh=)`` under
-expert parallelism.  In both, ``args`` holds the global batch for
-training, as every rank is handed it; decode starts from a cache at
-length ``seq_len - 1``, so it reads the whole context, as the
-reference's decode over its full buffer does.  ``args`` are fake
+``step`` and ``args`` are what the port runs on one rank of that mesh:
+for every arch the reference's sharded program, tensor parallelism over
+`model` and, where ``meta["fsdp"]`` says so, FSDP over `data`
+(``distributed.tensor_parallel``), with the MoE layers' whole experts
+over `model` where ``meta`` turns on expert parallelism
+(``TensorParallel(moe_ep=True)``) and their FFN columns elsewhere.
+``args`` hold this rank's shard of every param and AdamW moment (and of
+the decode cache, laid out as ``cache_specs``, its recurrent state whole
+on every rank), so their bytes are ``meta["param_bytes_per_dev"]`` and
+``meta["cache_bytes_per_dev"]``.  Training is ``make_train_step(mesh=,
+fsdp=meta["fsdp"])``; prefill and decode run ``Model(tp=)`` on the
+rank's ``batch_per_dev`` rows and return the last logits over the whole
+vocab.  ``args`` holds the global batch for training, as every rank is
+handed it; decode starts from a cache at length ``seq_len - 1``, so it
+reads the whole context, as the reference's decode over its full buffer
+does.  ``args`` are fake
 tensors on ``device="cpu"`` (``launch.roofline.analyze`` runs ``step``
 on them under their mode); the plain kernel versions run there.
 ``mesh`` is a ``DeviceMesh`` or a ``launch.mesh.MeshShape``; with a
@@ -131,18 +126,6 @@ def reference_cache(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return cache
 
 
-def _local_experts(params: dict, cfg: ModelConfig, mesh) -> dict:
-    """This rank's expert stacks (rank 0's on a ``MeshShape``)."""
-    from repro_torch.distributed import expert_parallel
-    if hasattr(mesh, "get_local_rank"):
-        return expert_parallel.local_model_params(params, cfg, mesh)
-    n = cfg.moe.num_experts // axis_size(mesh, "model")
-    return dict(params, blocks=[
-        dict(b, moe=dict(b["moe"], **{w: b["moe"][w][:n]
-                                      for w in ("wi", "wg", "wo")}))
-        if "moe" in b else b for b in params["blocks"]])
-
-
 def build_step(cfg: ModelConfig, shape: InputShape, mesh
                ) -> Tuple[Callable, tuple, tuple, tuple, dict]:
     """(step, args, in_specs, out_specs, meta): see the module
@@ -151,9 +134,8 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
     from torch._subclasses.fake_tensor import FakeTensorMode
     msize = axis_size(mesh, "model")
     # expert parallelism for inference whenever whole experts divide the
-    # model axis; training keeps the experts whole, as the reference does
-    moe_ep = bool(cfg.moe) and cfg.moe.num_experts % msize == 0 \
-        and shape.mode != "train"
+    # model axis; training cuts the experts' FFN dim, as the reference does
+    moe_ep = tpl.infer_moe_ep(cfg, mesh) and shape.mode != "train"
     B, S = shape.global_batch, shape.seq_len
     max_seq = S + (cfg.num_vision_tokens if cfg.use_mrope else 0)
     batch_spec = sh.batch_specs(cfg, input_specs(cfg, shape), mesh)
@@ -164,7 +146,6 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
     numel = sum(leaf.numel() for leaf in sh.leaves(params))
     vocab_loc = cfg.vocab_size // (msize if cfg.vocab_size % msize == 0
                                    else 1)
-    sharded = tpl.supported(cfg)
 
     if shape.mode == "train":
         # FSDP only when params + AdamW state exceed the per-rank budget
@@ -191,8 +172,7 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
             "kv_shards": 1,
         }
         with fake:
-            if sharded:
-                params = tpl.shard_params(params, cfg, mesh, fsdp)
+            params = tpl.shard_params(params, cfg, mesh, fsdp)
             opt = init_opt_state(params)
             batch = input_specs(cfg, shape, device="cpu")
         step = make_train_step(Model(cfg), lr=3e-4, remat=True,
@@ -226,20 +206,14 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh
         "vocab_loc": vocab_loc,
         "kv_shards": kv_shards,
     }
-    tp = tpl.TensorParallel(cfg, mesh, fsdp_inf) if sharded else None
-    model = Model(cfg, ep_mesh=mesh if moe_ep else None, tp=tp)
+    model = Model(cfg, tp=tpl.TensorParallel(cfg, mesh, fsdp_inf, moe_ep))
     with fake:
-        if moe_ep:
-            params = _local_experts(params, cfg, mesh)
-        if sharded:
-            params = tpl.shard_params(params, cfg, mesh, fsdp_inf)
+        params = tpl.shard_params(params, cfg, mesh, fsdp_inf, moe_ep)
         batch = input_specs(cfg, shape, rows=b_loc, device="cpu")
         cache = model.init_cache(b_loc, S, device="cpu",
                                  shard_seq=shape.name == "long_500k")
     # the sharded program gathers the last logits to the whole vocab
-    lspec = sh.Spec(sh.batch_axes(mesh, B),
-                    "model" if cfg.vocab_size % msize == 0 and not sharded
-                    else None)
+    lspec = sh.Spec(sh.batch_axes(mesh, B), None)
 
     if shape.mode == "prefill":
         def step(params, batch, cache):

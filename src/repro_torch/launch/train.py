@@ -21,18 +21,17 @@ second and peak device memory; ``--ckpt`` saves the trained parameters
 ("data", "model") mesh of ``launch.mesh.make_production_mesh``: 256
 ranks started by ``torchrun``, whose environment initialises the default
 group (NCCL on the card, gloo with ``--device cpu``).  Each data rank
-takes its 1/16 of every global batch.  For the dense decoders (olmo-1b,
-llama3-8b, gemma2-9b, nemotron-4-15b, qwen2-vl-72b) that is the
+takes its 1/16 of every global batch.  For every arch that is the
 reference's sharded step (``make_train_step(mesh=)``): each rank keeps
-its shard of the params and AdamW state (``tensor_parallel.shard_params``
-of the seed-0 draw), tensor-parallel over `model`, FSDP over `data` where
-the reference's rule turns it on; ``--ckpt`` saves the whole params, as
-the reference's launcher saves its global arrays: they are gathered one
-leaf at a time into rank 0's host memory
+its shard of the params and AdamW state (``init_params`` under
+``tensor_parallel.TensorParallel`` cuts the seed-0 draw layer by layer),
+tensor-parallel over `model` (heads, FFN and expert FFN columns, Mamba
+channels, xLSTM heads and units, vocab), FSDP over `data` where the
+reference's rule turns it on (both MoE archs); ``--ckpt`` saves the
+whole params, as the reference's launcher saves its global arrays: they
+are gathered one leaf at a time into rank 0's host memory
 (``tensor_parallel.gather_params(dst=0)``), and without ``--ckpt``
-nothing is gathered.  The other archs run the data-parallel step
-(``make_train_step(mesh=)``): params whole on every rank, the `model`
-ranks running the same rows.  Rank 0 prints and saves.  Any other world
+nothing is gathered.  Rank 0 prints and saves.  Any other world
 size raises before the model is built, naming it:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \

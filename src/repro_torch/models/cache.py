@@ -179,19 +179,21 @@ def num_row_blocks(max_len: int, block_size: int) -> int:
 
 
 def init_row_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                   device) -> RowState:
+                   device, kv_heads: Optional[int] = None,
+                   rolling: Optional[int] = None) -> RowState:
     """Zeroed per-row state, batch ``batch``: recurrent cells, a "local"
     layer's rolling K/V buffer (``rolling_len`` slots, ``dtype``), for a
     hymba layer the same buffer beside its Mamba state, and in an
     encoder-decoder model (whose layers are "attn") each layer's
     cross-attention K/V ``xk`` / ``xv`` [B, Se, KV, hd] (``dtype``).  A
     plain refill starts from ``init_row_state(cfg, 1, max_len, dtype,
-    dev)``."""
+    dev)``.  A tensor-parallel rank's part: ``kv_heads`` KV heads in the
+    buffers and ``rolling`` slots in a rolling one."""
     out: RowState = {}
-    shape = (batch, rolling_len(cfg, max_len), cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    enc_shape = (batch, cfg.encoder_seq_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
+    kv = cfg.num_kv_heads if kv_heads is None else kv_heads
+    shape = (batch, rolling_len(cfg, max_len) if rolling is None
+             else rolling, kv, cfg.resolved_head_dim)
+    enc_shape = (batch, cfg.encoder_seq_len, kv, cfg.resolved_head_dim)
     for i in range(cfg.num_layers):
         kind = cfg.pattern_for_layer(i)
         if cfg.is_encoder_decoder:

@@ -295,6 +295,27 @@ def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return (q,) + kv_project(params, x, cfg, angles)
 
 
+def cross_project(params: dict, x: torch.Tensor,
+                  enc_out: Optional[torch.Tensor], cfg: ModelConfig,
+                  tp=None):
+    """The cross-attention's projections: q [B,Sq,H,hd] of the decoder's
+    normed ``x`` and k/v [B,Se,KV,hd] of the encoder output ``enc_out``
+    [B,Se,D] (None, None without it: a decode step reads them from its
+    cache); no positions.  Under tensor parallelism (``tp``) both inputs
+    enter through ``tp.attn_in`` and the heads are this rank's."""
+    if tp is not None:
+        x = tp.attn_in(x)
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(x.shape[:2] + (-1, hd))
+    if enc_out is None:
+        return q, None, None
+    if tp is not None:
+        enc_out = tp.attn_in(enc_out)
+    shp = enc_out.shape[:2] + (-1, hd)
+    return (q, (enc_out @ params["wk"]).reshape(shp),
+            (enc_out @ params["wv"]).reshape(shp))
+
+
 def attention_out(params: dict, attn: torch.Tensor,
                   tp=None) -> torch.Tensor:
     """Heads [B,S,H,hd] through ``wo``; under tensor parallelism this

@@ -78,23 +78,26 @@ runs under ``torch.utils.checkpoint`` (its activations recomputed in the
 backward pass).  The serving entry points write caches in place and are
 not differentiated.
 
-``Model(ep_mesh=...)`` runs the MoE layers expert-parallel over the
-mesh's `model` axis (``distributed.expert_parallel``, forward only) on
-params that hold this rank's experts only: ``init_params`` keeps them
-so, and ``expert_parallel.local_model_params`` cuts a whole tree;
-``batch_mesh`` (set by the data-parallel train step) averages the MoE
+``batch_mesh`` (set by the train step over a mesh) averages the MoE
 load-balance loss's router statistics over the mesh's batch axes.
 
-``Model(tp=TensorParallel(cfg, mesh, fsdp))`` (``distributed.
-tensor_parallel``) is one rank of the sharded program of the dense
-decoders: params hold this rank's shards (``init_params`` cuts its whole
-draw), attention runs on the rank's heads, the MLP on its FFN columns,
-the embedding and head on its vocab rows, each with its collectives over
-`model`; FSDP leaves are gathered over `data` inside each layer.
-``forward``, ``prefill`` and ``decode_step`` (contiguous cache, from
-``init_cache``, which lays the buffers out as ``sharding.cache_specs``)
-run so; logits come back over the whole vocab.  ``prefill_chunk`` and
-the paged cache raise under ``tp``.
+``Model(tp=TensorParallel(cfg, mesh, fsdp, moe_ep))`` (``distributed.
+tensor_parallel``) is one rank of the reference's sharded program, for
+every arch: params hold this rank's shards (``init_params`` cuts its
+whole draw), and each sublayer runs on the rank's part of it with its
+collectives over `model`: attention, cross-attention and the encoder's
+attention on its heads (whole where the heads do not divide `model`),
+MLPs on their FFN columns, MoE layers on their experts' FFN columns or,
+under ``moe_ep`` (inference), their whole experts (``moe.apply_moe(
+tp=)``, ``distributed.expert_parallel``), hymba's Mamba branch on its
+channels, the mLSTM on its heads, the sLSTM on its units
+(``models.ssm``), the embedding and head on their vocab rows where the
+vocab divides `model`; FSDP leaves are gathered over `data` inside each
+layer.  ``forward``, ``prefill`` and ``decode_step`` (contiguous
+cache, from ``init_cache``, which lays the buffers out as
+``sharding.cache_specs``; recurrent state whole on every rank, gathered
+after each step) run so; logits come back over the whole vocab.
+``prefill_chunk`` and the paged cache raise under ``tp``.
 
 Layer kinds other than these five raise ``NotImplementedError``, as does
 an encoder-decoder config with other decoder layers.
@@ -108,7 +111,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed import collectives, expert_parallel
+from repro_torch.distributed import collectives
 from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_lib
@@ -128,7 +131,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 class Model:
     def __init__(self, cfg: ModelConfig, moe_capacity_factor: float = 1.25,
-                 ep_mesh=None, batch_mesh=None, tp=None):
+                 batch_mesh=None, tp=None):
         unsupported = []
         if any(kind not in KINDS for kind in cfg.layer_pattern):
             unsupported.append(f"layer_pattern={cfg.layer_pattern}")
@@ -149,13 +152,8 @@ class Model:
         # capacity factor of the MoE dispatch; float(num_experts) is
         # dropless (the serving engine's default)
         self.moe_cf = moe_capacity_factor
-        # expert parallelism: a DeviceMesh runs MoE layers with the expert
-        # stacks split over its `model` axis (forward only; needs E %
-        # model == 0, see distributed/expert_parallel.py); None = whole
-        # experts on every rank
-        self.ep_mesh = ep_mesh
         # a DeviceMesh whose (pod, data) axes split the batch into equal
-        # row shards (the data-parallel train step): the MoE load-balance
+        # row shards (the train step over a mesh): the MoE load-balance
         # loss then averages its router statistics over them
         self.batch_mesh = batch_mesh
         # tensor parallelism (a TensorParallel of this config), or None
@@ -181,9 +179,8 @@ class Model:
         reference.  A learned position table has ``max_seq`` rows; an
         encoder-decoder model adds ``lnx`` / ``xattn`` to each layer and
         ``params["encoder"]`` = {"blocks": per-layer {ln1, attn, ln2,
-        mlp}, "final_norm"}.  With ``ep_mesh`` each MoE layer keeps this
-        rank's experts: the whole draw's slice; with ``tp`` every leaf
-        keeps this rank's shard of the whole draw."""
+        mlp}, "final_norm"}.  With ``tp`` every leaf keeps this rank's
+        shard of the whole draw."""
         cfg = self.cfg
         dev = resolve_device(device)
         dtype = torch_dtype(cfg)
@@ -215,9 +212,6 @@ class Model:
                 blk["ln2"] = L.init_norm(cfg, dtype, dev)
                 if cfg.moe is not None:
                     blk["moe"] = moe.init_moe(gen, cfg, dtype, dev)
-                    if self.ep_mesh is not None:
-                        blk["moe"] = expert_parallel.local_experts(
-                            blk["moe"], cfg, self.ep_mesh)
                 else:
                     blk["mlp"] = L.init_mlp(gen, cfg, dtype, dev)
             if self.tp is not None:     # cut now: one whole layer at most
@@ -284,29 +278,37 @@ class Model:
         0 .. S-1 whatever the positions.  RoPE and position-free configs
         need no ``positions`` here."""
         cfg = self.cfg
-        if self.tp is not None:
-            x = self.tp.embed(self.tp.leaf(params, "embed"), tokens)
-        else:
-            x = params["embed"][tokens.long()]
+        tp = self.tp
+        x = params["embed"][tokens.long()] if tp is None \
+            else tp.lookup(params, "embed", tokens)
         if cfg.scale_embedding:
             x = x * torch.tensor(cfg.d_model, dtype=x.dtype,
                                  device=x.device).sqrt()
         if vision_embeds is not None:
             x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
         if cfg.pos_embedding == "learned":
-            tbl = params["pos_embed"]
-            x = x + tbl[positions.long().clamp(0, tbl.shape[0] - 1)]
+            rows = positions.long().clamp(0, self._pos_rows(params) - 1)
+            x = x + (params["pos_embed"][rows] if tp is None
+                     else tp.lookup(params, "pos_embed", rows))
         elif cfg.pos_embedding == "sinusoidal":
             x = x + L.sinusoidal_positions(
                 positions.shape[-1], cfg.d_model, x.device).to(x.dtype)[None]
         return x
 
+    def _pos_rows(self, params) -> int:
+        """Rows of the learned position table (every rank's, under
+        ``tp``)."""
+        n = params["pos_embed"].shape[0]
+        return n if self.tp is None else n * self.tp.shards(
+            "pos_embed", 0)
+
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """The encoder over the stub frontend's frames [B, Se, D]: frames
         plus sinusoidal positions, then per layer non-causal attention
         and the MLP, each with its residual, then the final norm ->
-        [B, Se, D] in the model's dtype."""
-        cfg = self.cfg
+        [B, Se, D] in the model's dtype (under ``tp`` every rank's,
+        each layer on its heads and FFN columns)."""
+        cfg, tp = self.cfg, self.tp
         B, S, _ = frames.shape
         dt = torch_dtype(cfg)
         x = frames.to(dt) + L.sinusoidal_positions(
@@ -314,11 +316,14 @@ class Model:
         pos = torch.arange(S, dtype=torch.int32, device=frames.device
                            )[None].expand(B, S)
         for p in params["encoder"]["blocks"]:
+            if tp is not None:
+                p = tp.encoder_layer(p)
             q, k, v = L.qkv_project(p["attn"], L.apply_norm(p["ln1"], x, cfg),
-                                    cfg, None)
+                                    cfg, None, tp=tp)
             a = L.flash_attention(q, k, v, pos, pos, causal=False)
-            x = x + L.attention_out(p["attn"], a)
-            x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+            x = x + L.attention_out(p["attn"], a, tp=tp)
+            x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg,
+                                tp=tp)
         return L.apply_norm(params["encoder"]["final_norm"], x, cfg)
 
     def _encoder_out(self, params, frames: Optional[torch.Tensor]
@@ -339,23 +344,17 @@ class Model:
         with ``st`` (the row state), are stored as ``st["xk"]`` /
         ``st["xv"]``; without, a decode step reads them from ``st``.  One
         query goes through ``decode_attention``, more through non-causal
-        flash, as in the reference."""
+        flash, as in the reference.  Under ``tp`` on this rank's heads
+        (``layers.cross_project``), the stored K/V its KV heads."""
         cfg = self.cfg
         h = L.apply_norm(p["lnx"], x, cfg)
         B, Sq = h.shape[:2]
-        hd = cfg.resolved_head_dim
-        q = (h @ p["xattn"]["wq"]).reshape(B, Sq, cfg.num_heads, hd)
+        q, k, v = L.cross_project(p["xattn"], h, enc_out, cfg, tp=self.tp)
         if enc_out is None:
             k, v = st["xk"], st["xv"]
-        else:
-            Se = enc_out.shape[1]
-            k = (enc_out @ p["xattn"]["wk"]).reshape(B, Se,
-                                                     cfg.num_kv_heads, hd)
-            v = (enc_out @ p["xattn"]["wv"]).reshape(B, Se,
-                                                     cfg.num_kv_heads, hd)
-            if st is not None:
-                st["xk"].copy_(k)
-                st["xv"].copy_(v)
+        elif st is not None:
+            st["xk"].copy_(k)
+            st["xv"].copy_(v)
         q_pos = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
         kv_pos = torch.zeros((B, k.shape[1]), dtype=torch.int32,
                              device=x.device)
@@ -363,7 +362,7 @@ class Model:
             a = L.decode_attention(q, k, v, q_pos[:, 0], kv_pos)
         else:
             a = L.flash_attention(q, k, v, q_pos, kv_pos, causal=False)
-        return x + L.attention_out(p["xattn"], a)
+        return x + L.attention_out(p["xattn"], a, tp=self.tp)
 
     def _angles(self, positions: torch.Tensor) -> Optional[torch.Tensor]:
         cfg = self.cfg
@@ -384,20 +383,14 @@ class Model:
         appends its load-balance loss to ``aux`` when one is given."""
         if "moe" in p:
             h = L.apply_norm(p["ln2"], x, self.cfg)
-            if self.ep_mesh is not None:
-                y, a = expert_parallel.apply_moe_expert_parallel(
-                    p["moe"], h, self.cfg, self.ep_mesh,
-                    capacity_factor=self.moe_cf, batch_mesh=self.batch_mesh)
-            elif aux is None:
-                return x + moe.apply_moe(p["moe"], h, self.cfg,
-                                         capacity_factor=self.moe_cf)
-            else:
-                y, a = moe.apply_moe(p["moe"], h, self.cfg,
-                                     capacity_factor=self.moe_cf,
-                                     return_aux=True,
-                                     batch_mesh=self.batch_mesh)
-            if aux is not None:
-                aux.append(a)
+            out = moe.apply_moe(p["moe"], h, self.cfg,
+                                capacity_factor=self.moe_cf,
+                                return_aux=aux is not None,
+                                batch_mesh=self.batch_mesh, tp=self.tp)
+            if aux is None:
+                return x + out
+            y, a = out
+            aux.append(a)
             return x + y
         if "mlp" not in p:
             return x
@@ -435,13 +428,21 @@ class Model:
               mask: Optional[torch.Tensor] = None, step: bool = False):
         """A recurrent layer's cell on the normed input ``h``: the chunkwise
         mLSTM or the sLSTM scan over a sequence (identity steps where
-        ``mask`` is False), or one decode step.  Returns (y, new state)."""
+        ``mask`` is False), or one decode step.  Returns (y, new state).
+        Under ``tp`` the cell advances this rank's heads or units of the
+        whole state, which is gathered again (``state_local`` /
+        ``state_whole``)."""
+        tp = self.tp
+        whole = tp is not None and state is not None
+        st = tp.state_local(kind, state) if whole else state
         if step:
             fn = ssm.mlstm_step if kind == "mlstm" else ssm.slstm_step
-            return fn(p["cell"], h, self.cfg, state)
-        fn = ssm.mlstm_forward_chunked if kind == "mlstm" \
-            else ssm.slstm_forward
-        return fn(p["cell"], h, self.cfg, state, mask=mask)
+            y, new = fn(p["cell"], h, self.cfg, st, tp=tp)
+        else:
+            fn = ssm.mlstm_forward_chunked if kind == "mlstm" \
+                else ssm.slstm_forward
+            y, new = fn(p["cell"], h, self.cfg, st, mask=mask, tp=tp)
+        return y, tp.state_whole(kind, new) if whole else new
 
     def _attention(self, q, k, v, q_pos, kv_pos) -> torch.Tensor:
         return L.flash_attention(q, k, v, q_pos, kv_pos, causal=True,
@@ -459,19 +460,31 @@ class Model:
         the sequence from ``st``'s {h, conv} (zero state when ``st`` is
         None; identity steps where ``mask`` is False), or takes one
         decode step.  Returns (x, the layer's new state)."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         h = L.apply_norm(p["ln1"], x, cfg)
-        q, k, v = L.qkv_project(p["attn"], h, cfg, angles)
+        q, k, v = L.qkv_project(p["attn"], h, cfg, angles, tp=tp)
         a = attend(q, k, v, st)
+        ms = st if tp is None or st is None else tp.state_local("hymba", st)
         if step:
-            mo, mstate = ssm.mamba_step(p["mamba"], h, cfg, st)
+            mo, mstate = ssm.mamba_step(p["mamba"], h, cfg, ms, tp=tp)
         else:
-            mo, mstate = ssm.mamba_forward(p["mamba"], h, cfg, st, mask)
-        ao = L.attention_out(p["attn"], a)
+            mo, mstate = ssm.mamba_forward(p["mamba"], h, cfg, ms, mask,
+                                           tp=tp)
+        if tp is not None and st is not None:
+            mstate = tp.state_whole("hymba", mstate)
+        ao = L.attention_out(p["attn"], a, tp=tp)
         x = x + 0.5 * (L.apply_norm(p["bn_a"], ao, cfg)
-                       + L.apply_norm(p["bn_m"], mo, cfg))
+                       + self._mamba_norm(p, mo))
         new = None if st is None else dict(st, **mstate)
         return self._mlp(p, x, aux), new
+
+    def _mamba_norm(self, p, mo: torch.Tensor) -> torch.Tensor:
+        """``bn_m`` of hymba's Mamba branch.  On a rank's channels
+        ``mo`` is ``out_proj``'s partial sum: reduced over `model` first,
+        since the norm is not linear."""
+        if self.tp is not None and self.tp.mamba:
+            mo = self.tp.reduce_from_model(mo)
+        return L.apply_norm(p["bn_m"], mo, self.cfg)
 
     def _rolling(self, kind: str, p, x: torch.Tensor, st: Optional[dict],
                  angles, attend, mask: Optional[torch.Tensor] = None,
@@ -675,10 +688,11 @@ class Model:
         enc_out = self._encoder_out(params, encoder_frames)
 
         def attend_fill(q, k, v, st):
-            # hymba's rolling buffer; the Mamba branch of the next layer
-            # absorbs the pad columns
+            # hymba's rolling buffer (this rank's part of it); the Mamba
+            # branch of the next layer absorbs the pad columns
             a = self._attention(q, k, v, positions, positions)
-            cache_lib.write_seq(st["k"], st["v"], k, v, start)
+            self._write_seq(st["k"], st["v"], start, S, lay and lay.rolling,
+                            lambda t0, t1: (k[:, t0:t1], v[:, t0:t1]))
             return L.fill_pad_queries(a, v, positions)
 
         for i, (kind, p) in enumerate(zip(self.kinds, params["blocks"])):

@@ -35,6 +35,21 @@ Semantics held to the reference:
 With ``return_aux`` the layer also returns the Switch load-balance
 loss: (mean router probability · fraction of top-1 choices) summed over
 experts, times E and ``router_aux_loss_coef``, as the reference's.
+
+Under tensor parallelism (``apply_moe(..., tp=)``) every rank routes the
+same activation through the whole router, so the routing, the capacity
+drops and the load-balance loss are the same on every rank.  Each rank
+runs its FFN columns of every expert (``wi`` / ``wg`` [E, D, F/model],
+``wo`` [E, F/model, D]), or under ``tp.moe_ep`` its whole experts
+(``distributed.expert_parallel.routed``), and the shared expert's FFN
+columns: the routed sum and the shared expert's output are partial
+sums, added and reduced over `model` once.  The activation is copied to
+`model` (``copy_to_model``) before the router and the experts, so the
+gradients of the router and of the shared gate, read through partial
+outputs, are partial per rank (summed by
+``TensorParallel.sync_grads``); the load-balance loss, whole on every
+rank, reaches the router logits with its gradient scaled by 1/`model`
+(``TensorParallel.scale_grad``), so the sum counts it once.
 """
 from __future__ import annotations
 
@@ -222,19 +237,32 @@ def shared_expert(params, x: torch.Tensor) -> torch.Tensor:
 
 def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
               capacity_factor: float = 1.25, return_aux: bool = False,
-              batch_mesh=None):
+              batch_mesh=None, tp=None):
     """x [B,S,D] -> y [B,S,D] (routed experts + shared expert), or with
     ``return_aux`` (y, the load-balance loss, an f32 scalar; its router
-    statistics averaged over ``batch_mesh``'s batch axes when given)."""
+    statistics averaged over ``batch_mesh``'s batch axes when given).
+    ``tp``: this rank's part of the layer under tensor parallelism (the
+    module docstring)."""
     m = cfg.moe
     S = x.shape[1]
     k, E = m.num_experts_per_tok, m.num_experts
+    split = tp is not None and tp.experts
+    if split:
+        x = tp.copy_to_model(x)
     top_idx, gates, logits = _route(params, x, k)
     C = capacity(S, k, E, capacity_factor)
     keep = capacity_keep(top_idx, E, C)
-    y = routed(params, x, top_idx, gates, keep, capacity=C)
+    if split and tp.moe_ep:
+        from repro_torch.distributed import expert_parallel
+        y = expert_parallel.routed(params, x, top_idx, gates, keep, cfg,
+                                   tp.mesh, capacity=C)
+    else:
+        y = routed(params, x, top_idx, gates, keep, capacity=C)
     if m.num_shared_experts:
         y = y + shared_expert(params, x)
+    if split:
+        y = tp.reduce_from_model(y)
+        logits = tp.scale_grad(logits)
     if return_aux:
         return y, load_balance_loss(logits, top_idx, m.router_aux_loss_coef,
                                     batch_mesh)

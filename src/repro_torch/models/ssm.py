@@ -21,6 +21,17 @@ as the unpadded one.
 
 Parameters keep the reference's ``[d_in, d_out]`` layout and are drawn
 from a seeded ``torch.Generator`` (a different stream from jax.random).
+
+Under tensor parallelism (``tp``, a ``distributed.tensor_parallel.
+TensorParallel``) a block runs on this rank's part of it, from and to a
+state of that part (``TensorParallel.state_local`` / ``state_whole``):
+Mamba on its channels (the input copied to `model`, ``x_proj``'s
+row-parallel output summed over `model` before ``dt_proj``; its output,
+``out_proj``'s row-parallel partial sum, is the caller's to reduce:
+hymba reduces it before the branch norm), the mLSTM on its heads (the whole gate projections read at
+them, ``out`` reduced), the sLSTM on its units (``h`` gathered before a
+whole ``out``, or ``out``'s rows reduced).  A block the rank holds whole
+runs as without ``tp``.
 """
 from __future__ import annotations
 
@@ -93,10 +104,18 @@ def _mamba_conv_full(params, xi: torch.Tensor) -> torch.Tensor:
     return (out + params["conv_b"].float()).to(xi.dtype)
 
 
-def _mamba_ssm_params(params, cfg: ModelConfig, xc: torch.Tensor):
-    """xc [..., inner] -> (dt [..., inner], B [..., N], C [..., N]), f32."""
+def _split_mamba(tp) -> bool:
+    return tp is not None and tp.mamba
+
+
+def _mamba_ssm_params(params, cfg: ModelConfig, xc: torch.Tensor, tp=None):
+    """xc [..., inner] -> (dt [..., inner], B [..., N], C [..., N]), f32.
+    On a rank's channels ``x_proj``'s output is a partial sum: summed
+    over `model` (and its gradient summed back) before ``dt_proj``."""
     state = cfg.ssm.state_size
     proj = xc @ params["x_proj"]
+    if _split_mamba(tp):
+        proj = tp.copy_to_model(tp.reduce_from_model(proj))
     dt_rank = proj.shape[-1] - 2 * state
     dt, Bm, Cm = torch.split(proj, [dt_rank, state, state], dim=-1)
     dt = F.softplus(dt @ params["dt_proj"] + params["dt_bias"])
@@ -105,7 +124,7 @@ def _mamba_ssm_params(params, cfg: ModelConfig, xc: torch.Tensor):
 
 def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
                   state: Optional[dict] = None,
-                  mask: Optional[torch.Tensor] = None
+                  mask: Optional[torch.Tensor] = None, tp=None
                   ) -> Tuple[torch.Tensor, dict]:
     """x [B,S,D] -> (y [B,S,D], state {h, conv}).
 
@@ -117,6 +136,8 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     conv history returned ends at the last valid column (a right-padded
     suffix chunk keeps its real tail)."""
     B, S, _ = x.shape
+    if _split_mamba(tp):
+        x = tp.copy_to_model(x)
     xz = x @ params["in_proj"]
     xi, z = xz.chunk(2, dim=-1)
     if mask is not None:
@@ -133,7 +154,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
         xc = F.silu(_mamba_conv_full(params, xi))
         h = torch.zeros((B, xi.shape[-1], cfg.ssm.state_size),
                         dtype=torch.float32, device=x.device)
-    dt, Bm, Cm = _mamba_ssm_params(params, cfg, xc)
+    dt, Bm, Cm = _mamba_ssm_params(params, cfg, xc, tp)
     A = -torch.exp(params["A_log"])                    # [inner, N]
     x32 = xc.float()
     ys = []
@@ -177,17 +198,19 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba_step(params, x_t: torch.Tensor, cfg: ModelConfig,
-               state: dict) -> Tuple[torch.Tensor, dict]:
+               state: dict, tp=None) -> Tuple[torch.Tensor, dict]:
     """One decode token x_t [B,1,D]; state {h [B,inner,N], conv
     [B,W-1,inner]}.  As in the reference, the conv output stays f32
     through the SiLU and the state update (cast only for ``x_proj``)."""
+    if _split_mamba(tp):
+        x_t = tp.copy_to_model(x_t)
     xz = x_t @ params["in_proj"]
     xi, z = xz.chunk(2, dim=-1)                         # [B,1,inner]
     hist = torch.cat([state["conv"].to(xi.dtype), xi], dim=1)
     w = params["conv_w"].float()
     xc = F.silu((hist.float() * w[None]).sum(1)
                 + params["conv_b"].float())            # [B,inner] f32
-    dt, Bm, Cm = _mamba_ssm_params(params, cfg, xc.to(x_t.dtype))
+    dt, Bm, Cm = _mamba_ssm_params(params, cfg, xc.to(x_t.dtype), tp)
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt[..., None] * A)
     h = state["h"] * dA + dt[..., None] * Bm[:, None, :] * xc[..., None]
@@ -215,15 +238,23 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
     }
 
 
-def mlstm_init_state(cfg: ModelConfig, batch: int, device) -> dict:
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
+def mlstm_init_state(cfg: ModelConfig, batch: int, device,
+                     heads: Optional[int] = None) -> dict:
+    H = cfg.num_heads if heads is None else heads
+    hd = cfg.resolved_head_dim
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     return {"C": z(batch, H, hd, hd), "n": z(batch, H, hd), "m": z(batch, H)}
 
 
+def _split_mlstm(tp) -> bool:
+    return tp is not None and tp.mlstm
+
+
 def _mlstm_qkvif(params, x: torch.Tensor, cfg: ModelConfig):
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
-    shp = x.shape[:-1] + (H, hd)
+    """q, k, v [..., H, hd] (H from ``wq``'s columns: a rank's heads under
+    tensor parallelism) and the log gates [..., H_all] (f32)."""
+    hd = cfg.resolved_head_dim
+    shp = x.shape[:-1] + (-1, hd)
     q = (x @ params["wq"]).reshape(shp).float() / math.sqrt(hd)
     k = (x @ params["wk"]).reshape(shp).float() / math.sqrt(hd)
     v = (x @ params["wv"]).reshape(shp).float()
@@ -254,11 +285,15 @@ def _mask_gates(li, lf, mask):
     return li, lf
 
 
-def _mlstm_out(params, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _mlstm_out(params, h: torch.Tensor, x: torch.Tensor,
+               tp=None) -> torch.Tensor:
     """Output gate and projection; ``h`` [B,S,H*hd] is cast to the
-    activation dtype before the gate, as in the reference."""
+    activation dtype before the gate, as in the reference (on a rank's
+    heads ``x`` is the copied input and the output a partial sum,
+    reduced over `model`)."""
     y = h.to(x.dtype) * torch.sigmoid(x @ params["wog"])
-    return y @ params["out"]
+    y = y @ params["out"]
+    return tp.reduce_from_model(y) if _split_mlstm(tp) else y
 
 
 def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
@@ -283,7 +318,7 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
 
 def mlstm_forward_chunked(params, x: torch.Tensor, cfg: ModelConfig,
                           state: Optional[dict] = None, chunk: int = 128,
-                          mask: Optional[torch.Tensor] = None
+                          mask: Optional[torch.Tensor] = None, tp=None
                           ) -> Tuple[torch.Tensor, dict]:
     """Chunkwise-parallel mLSTM: within-chunk attention-like matmuls plus
     the cross-chunk recurrent state; the same stabilised exponential
@@ -292,11 +327,15 @@ def mlstm_forward_chunked(params, x: torch.Tensor, cfg: ModelConfig,
     to a multiple of ``chunk`` with identity gates (the reference always
     pads to ``chunk``; padded steps add exact zeros either way)."""
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    if _split_mlstm(tp):
+        x = tp.copy_to_model(x)
     L = min(chunk, S)
     pad = (-S) % L
-    st = state or mlstm_init_state(cfg, B, x.device)
     q, k, v, li, lf = _mlstm_qkvif(params, x, cfg)
+    H, hd = q.shape[-2:]
+    st = state or mlstm_init_state(cfg, B, x.device, heads=H)
+    if _split_mlstm(tp):
+        li, lf = (tp.head_cols(a) for a in (li, lf))
     if mask is not None:
         li, lf = _mask_gates(li, lf, mask[..., None])
     if pad:
@@ -339,17 +378,21 @@ def mlstm_forward_chunked(params, x: torch.Tensor, cfg: ModelConfig,
         m = m_end
     h = torch.cat(loops.full(hs, nc), dim=1).reshape(
         B, S + pad, H * hd)[:, :S]
-    return _mlstm_out(params, h, x), {"C": C, "n": n, "m": m}
+    return _mlstm_out(params, h, x, tp), {"C": C, "n": n, "m": m}
 
 
 def mlstm_step(params, x_t: torch.Tensor, cfg: ModelConfig,
-               state: dict) -> Tuple[torch.Tensor, dict]:
+               state: dict, tp=None) -> Tuple[torch.Tensor, dict]:
     """One decode token x_t [B,1,D]."""
+    if _split_mlstm(tp):
+        x_t = tp.copy_to_model(x_t)
     q, k, v, li, lf = _mlstm_qkvif(params, x_t, cfg)
+    if _split_mlstm(tp):
+        li, lf = (tp.head_cols(a) for a in (li, lf))
     C, n, m, h = _mlstm_cell(state["C"], state["n"], state["m"],
                              q[:, 0], k[:, 0], v[:, 0], li[:, 0], lf[:, 0])
     B = x_t.shape[0]
-    return _mlstm_out(params, h.reshape(B, 1, -1), x_t), \
+    return _mlstm_out(params, h.reshape(B, 1, -1), x_t, tp), \
         {"C": C, "n": n, "m": m}
 
 
@@ -369,9 +412,10 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
     }
 
 
-def slstm_init_state(cfg: ModelConfig, batch: int, device) -> dict:
-    z = lambda: torch.zeros((batch, cfg.d_model), dtype=torch.float32,
-                            device=device)
+def slstm_init_state(cfg: ModelConfig, batch: int, device,
+                     units: Optional[int] = None) -> dict:
+    d = cfg.d_model if units is None else units
+    z = lambda: torch.zeros((batch, d), dtype=torch.float32, device=device)
     return {"c": z(), "n": z(), "h": z(), "m": z()}
 
 
@@ -394,15 +438,33 @@ def _slstm_cell(params, pre: torch.Tensor, state: dict) -> dict:
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
+def _split_slstm(tp) -> bool:
+    return tp is not None and tp.slstm
+
+
+def _slstm_out(params, h: torch.Tensor, tp) -> torch.Tensor:
+    """``h`` [..., d] (a rank's units under ``tp``) through ``out``:
+    gathered over `model` first when ``out`` is whole, else this rank's
+    rows of it, reduced."""
+    if _split_slstm(tp) and not tp.slstm_out:
+        h = tp.gather_model(h, -1)
+    y = h @ params["out"]
+    return tp.reduce_from_model(y) if _split_slstm(tp) and tp.slstm_out \
+        else y
+
+
 def slstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
                   state: Optional[dict] = None,
-                  mask: Optional[torch.Tensor] = None
+                  mask: Optional[torch.Tensor] = None, tp=None
                   ) -> Tuple[torch.Tensor, dict]:
     """The token-by-token scan: x [B,S,D] -> (y [B,S,D], state).  Masked
     steps carry the state through unchanged."""
     B, S, _ = x.shape
-    st = state or slstm_init_state(cfg, B, x.device)
+    if _split_slstm(tp):
+        x = tp.copy_to_model(x)
     pre = x @ params["w"]                              # [B,S,4d]
+    st = state or slstm_init_state(cfg, B, x.device,
+                                   units=pre.shape[-1] // 4)
     hs = []
     for t in loops.trips(S, "slstm tokens"):
         new = _slstm_cell(params, pre[:, t], st)
@@ -412,11 +474,13 @@ def slstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
         st = new
         hs.append(st["h"])
     h = torch.stack(loops.full(hs, S), dim=1).to(x.dtype)
-    return h @ params["out"], st
+    return _slstm_out(params, h, tp), st
 
 
 def slstm_step(params, x_t: torch.Tensor, cfg: ModelConfig,
-               state: dict) -> Tuple[torch.Tensor, dict]:
+               state: dict, tp=None) -> Tuple[torch.Tensor, dict]:
     """One decode token x_t [B,1,D]."""
+    if _split_slstm(tp):
+        x_t = tp.copy_to_model(x_t)
     new = _slstm_cell(params, (x_t @ params["w"])[:, 0], state)
-    return new["h"][:, None].to(x_t.dtype) @ params["out"], new
+    return _slstm_out(params, new["h"][:, None].to(x_t.dtype), tp), new

@@ -13,11 +13,14 @@ On the card every attention of the forward launches
 chunked products, the MoE products and the optimizer are PyTorch
 operators, as the reference leaves them to XLA.
 
-``make_train_step(mesh=)`` runs the reference's sharded program for the
-dense decoders (``distributed.tensor_parallel.supported``): params,
-gradients and AdamW moments are this rank's shards, the fused cross-entropy is vocab-parallel over `model`, FSDP
-leaves are gathered over `data` in their layer and their gradients
-reduce-scattered there.
+``make_train_step(mesh=)`` runs the reference's sharded program for
+every arch (``distributed.tensor_parallel``): params, gradients and
+AdamW moments are this rank's shards, the fused cross-entropy is
+vocab-parallel over `model` where the vocab divides it (else the head is
+whole on every rank and so is its gradient), FSDP leaves are gathered
+over `data` in their layer and their gradients reduce-scattered there.
+On a mesh whose `model` axis is 1 and without FSDP that is the
+data-parallel step: whole params and AdamW state on every rank.
 """
 from __future__ import annotations
 
@@ -255,24 +258,6 @@ def shard_batch(batch: dict, mesh) -> dict:
     return {k: _split(k, a, n)[i] for k, a in batch.items()}
 
 
-def mean_over_batch_ranks(tree, mesh):
-    """Each leaf's mean over the batch shards (pod, then data): the
-    leaves flattened into one f32 buffer, one sum a batch axis, cast
-    back to each leaf's dtype."""
-    leaves = tree_leaves(tree)
-    _, n = batch_rank(mesh)
-    flat = torch.cat([t.float().reshape(-1) for t in leaves])
-    for a in ("pod", "data"):
-        all_reduce(flat, "sum", mesh, a)
-    flat = flat / n
-    out, at = [], 0
-    for t in leaves:
-        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
-        at += t.numel()
-    it = iter(out)
-    return tree_map(lambda _: next(it), tree)
-
-
 def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
                     remat: bool = True, microbatch: int = 1,
                     mesh=None, fsdp: Optional[bool] = None) -> Callable:
@@ -284,45 +269,38 @@ def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
     checkpoints each decoder layer.
 
     ``mesh`` (a ``DeviceMesh`` with a `data` axis, and maybe `pod` and
-    `model`) runs the step over the mesh.  For the archs the sharded
-    program does not cover (``tensor_parallel.supported`` false) that
-    is the data-parallel step: every rank is handed the same GLOBAL
-    batch and takes its batch shard's rows (``shard_batch``); the
-    gradients and the loss are averaged over the batch shards before
-    AdamW, so params and optimizer state stay equal on every rank, and
-    `model` ranks run the same rows.  The MoE load-balance loss averages
-    its router statistics over the shards (``Model(batch_mesh=)``), so
-    it is the whole batch's and so is its gradient.  The step then gives
-    the one-process step's losses and parameters (with ``microbatch`` 1;
-    a microbatch is then a shard's slice, not the global batch's).  A
-    ``loss_mask`` is refused there: the mean of the shards' masked means
-    is not the batch's.
+    `model`) runs the step over the mesh: every rank is handed the same
+    GLOBAL batch and takes its batch shard's rows (``shard_batch``).  The
+    MoE load-balance loss averages its router statistics over the shards
+    (``Model(batch_mesh=)``), so it is the whole batch's and so is its
+    gradient.  The step gives the one-process step's losses and
+    parameters (with ``microbatch`` 1; a microbatch is then a shard's
+    slice, not the global batch's).  A ``loss_mask`` is refused: the
+    mean of the shards' masked means is not the batch's.
 
-    For the dense decoders ``mesh`` runs the sharded program instead:
-    ``params`` and ``opt_state`` are this rank's shards
-    (``tensor_parallel.shard_params``, then ``init_opt_state``) and so
-    are the returned ones.  Each rank computes its `model` part of
-    its batch shard's step; FSDP (``fsdp``; None applies the
-    reference's rule, ``tensor_parallel.train_fsdp``) gathers the
-    leaves it splits over `data` in their layer and reduce-scatters their
-    gradients; ``TensorParallel.sync_grads`` completes the rest, and the
+    That is the reference's sharded program (``distributed.
+    tensor_parallel``, every arch): ``params`` and
+    ``opt_state`` are this rank's shards (``tensor_parallel.
+    shard_params``, then ``init_opt_state``) and so are the returned
+    ones.  Each rank computes its `model` part of its batch shard's
+    step; FSDP (``fsdp``; None applies the reference's rule,
+    ``tensor_parallel.train_fsdp``) gathers the leaves it splits over
+    `data` in their layer and reduce-scatters their gradients;
+    ``TensorParallel.sync_grads`` completes the rest, and the
     global-norm clip reads the whole gradient's norm
     (``grad_sq_norm``)."""
     tp = None
-    if mesh is not None and tpl.supported(model.cfg):
+    if mesh is not None:
         if fsdp is None:
             fsdp = tpl.train_fsdp(tpl.param_count(model.cfg), mesh)
         tp = tpl.TensorParallel(model.cfg, mesh, fsdp=fsdp)
         model = Model(model.cfg, model.moe_cf, batch_mesh=mesh, tp=tp)
-    elif mesh is not None:
-        model = Model(model.cfg, model.moe_cf, ep_mesh=model.ep_mesh,
-                      batch_mesh=mesh)
     loss_fn = make_loss_fn(model, remat=remat)
 
     def train_step(params, opt_state, batch):
         if mesh is not None:
             if batch.get("loss_mask") is not None:
-                raise ValueError("the data-parallel step takes no "
+                raise ValueError("the step over a mesh takes no "
                                  "loss_mask")
             batch = shard_batch(batch, mesh)
         if microbatch == 1:
@@ -348,10 +326,6 @@ def make_train_step(model: Model, lr=3e-4, weight_decay: float = 0.1,
                                 aux / microbatch)
         if tp is not None:
             grads, loss = tp.sync_grads(grads, loss)
-            total = loss + aux
-        elif mesh is not None:
-            # aux is the whole batch's on every shard already
-            grads, loss = mean_over_batch_ranks((grads, loss), mesh)
             total = loss + aux
         params, opt_state = adamw_update(
             grads, opt_state, params, lr=lr, weight_decay=weight_decay,

@@ -30,10 +30,10 @@ def _shard(t: torch.Tensor, rank: int, world: int, dim: int):
 
 
 def checks(rank: int, world: int, inp: dict) -> dict:
-    from repro_torch.distributed import collectives, expert_parallel
+    from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding, tensor_parallel
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
     from repro_torch.train import train_step as ts
     from repro_torch.train.optimizer import tree_leaves
     out = {}
@@ -50,42 +50,43 @@ def checks(rank: int, world: int, inp: dict) -> dict:
     for cap in inp["softcaps"]:
         out[("decode", cap)] = collectives.flash_decode_seq_sharded(
             inp["q"], ks, vs, inp["q_position"], line, softcap=cap)
-    # expert-parallel MoE over `model` on this rank's experts; a dict
-    # with every expert is refused
+    # expert-parallel MoE over `model`: the sharded program's inference
+    # layout (each rank its whole experts); a dict with every expert is
+    # refused
     ep = mesh_lib.make_mesh((1, world), ("data", "model"), "cpu")
     cfg = inp["moe_cfg"]
-    local = expert_parallel.local_experts(inp["moe_params"], cfg, ep)
+    tp = tensor_parallel.TensorParallel(cfg, ep, moe_ep=True)
+    local = tensor_parallel.cut_tree(inp["moe_params"],
+                                     tp.specs["blocks"][0]["moe"], ep)
     with torch.no_grad():
         for cf in inp["capacity_factors"]:
-            out[("ep", cf)] = expert_parallel.apply_moe_expert_parallel(
-                local, inp["x"], cfg, ep, capacity_factor=cf)
+            out[("ep", cf)] = moe.apply_moe(local, inp["x"], cfg,
+                                            capacity_factor=cf,
+                                            return_aux=True, tp=tp)
         try:
-            expert_parallel.apply_moe_expert_parallel(
-                inp["moe_params"], inp["x"], cfg, ep)
+            moe.apply_moe(inp["moe_params"], inp["x"], cfg, tp=tp)
             out["ep_whole"] = None
         except ValueError as e:   # the message is the result
             out["ep_whole"] = str(e)
-        # Model(ep_mesh=) on a whole tree cut to this rank, and its own
-        # draw: the same slice
+        # Model(tp=) with experts whole over `model` on a whole tree cut
+        # to this rank, and its own draw: the same slice
         mcfg = inp["model_cfg"]
-        m = Model(mcfg, moe_capacity_factor=1.25, ep_mesh=ep)
-        mine = expert_parallel.local_model_params(inp["model_params"], mcfg,
-                                                  ep)
+        m = Model(mcfg, moe_capacity_factor=1.25,
+                  tp=tensor_parallel.TensorParallel(mcfg, ep, moe_ep=True))
+        mine = tensor_parallel.shard_params(inp["model_params"], mcfg, ep,
+                                            moe_ep=True)
         out["ep_model"] = m.forward(mine, inp["tokens"], inp["positions"],
                                     return_aux=True)
         drawn = m.init_params(seed=world, device="cpu", max_seq=64)
         out["ep_init"] = all(torch.equal(a, b) for a, b in zip(
             tree_leaves(drawn), tree_leaves(mine)))
-    # the train step over the mesh: data-parallel, or for a dense decoder
-    # the sharded program (this rank's shards in, the whole tree gathered
-    # after the steps)
+    # the train step over the mesh, the sharded program: this rank's
+    # shards in, the whole tree gathered after the steps
     for (arch, shape, remat), (cfg_a, params, batch) in inp["train"].items():
         if shape[0] * shape[1] != world:
             continue
         mesh = mesh_lib.make_mesh(shape, ("data", "model"), "cpu")
-        sharded = tensor_parallel.supported(cfg_a)
-        if sharded:
-            params = tensor_parallel.shard_params(params, cfg_a, mesh)
+        params = tensor_parallel.shard_params(params, cfg_a, mesh)
         step = ts.make_train_step(Model(cfg_a), lr=inp["lr"], remat=remat,
                                   mesh=mesh, fsdp=False)
         opt = ts.init_opt_state(params)
@@ -93,8 +94,7 @@ def checks(rank: int, world: int, inp: dict) -> dict:
         for _ in range(inp["steps"]):
             params, opt, mt = step(params, opt, batch)
             metrics.append({n: float(v) for n, v in mt.items()})
-        if sharded:
-            params = tensor_parallel.gather_params(params, cfg_a, mesh)
+        params = tensor_parallel.gather_params(params, cfg_a, mesh)
         out[("train", arch, shape, remat)] = (metrics, tree_leaves(params))
     # host meshes clamp to the world; a mesh of another size raises
     out["host_mesh"] = tuple(mesh_lib.make_host_mesh(8, 8, "cpu").shape)

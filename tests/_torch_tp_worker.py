@@ -33,7 +33,8 @@ def _rows(t: torch.Tensor, key: str, i: int, n: int) -> torch.Tensor:
 
 def infer(model, params, case: dict, rows: tuple, shard_seq: bool):
     """Prefill of this rank's rows (``rows`` = (shard, shards)), then
-    greedy decode: (prefill logits, greedy tokens [b, steps])."""
+    greedy decode: (prefill logits, greedy tokens [b, steps], the
+    cache)."""
     i, n = rows
     inp = {k: _rows(v, k, i, n) for k, v in case["prompt"].items()}
     first = _rows(case["first"], "first", i, n)
@@ -42,14 +43,55 @@ def infer(model, params, case: dict, rows: tuple, shard_seq: bool):
     c.first = first.clone()
     with torch.no_grad():
         logits = model.prefill(params, inp["tokens"], inp["positions"], c,
-                               vision_embeds=inp.get("vision_embeds"))
+                               vision_embeds=inp.get("vision_embeds"),
+                               encoder_frames=inp.get("encoder_frames"))
         tok = logits.argmax(-1, keepdim=True).to(torch.int32)
         toks = []
         for _ in range(case["steps"]):
             toks.append(tok)
             tok = model.decode_step(params, tok, c).argmax(
                 -1, keepdim=True).to(torch.int32)
-    return logits, torch.cat(toks, dim=1)
+    return logits, torch.cat(toks, dim=1), c
+
+
+def cache_error(tp, c, want, rows: tuple) -> float:
+    """The largest difference between this rank's cache ``c`` and its
+    part of the one-process cache ``want`` (every row), over the largest
+    magnitude of that part (at least 1): the rank's rows, and of the K/V
+    buffers its slots (a buffer split by sequence) and KV heads (split
+    KV heads); recurrent state whole."""
+    i, n = rows
+    b = c.first.shape[0]
+    lay = c.layout
+
+    def part(t, row_dim, shard, head_dim):
+        t = t.narrow(row_dim, i * b, b)
+        if shard is not None and shard.axes:
+            t = t.narrow(row_dim + 1, shard.off, shard.local)
+        if tp.kv_split and head_dim is not None:
+            t = t.narrow(head_dim, tp.kv0, tp.kv_local)
+        return t
+
+    pairs = [(c.k, part(want.k, 1, lay.attn, 3)),
+             (c.v, part(want.v, 1, lay.attn, 3))]
+    for layer, st in c.state.items():
+        for name, t in st.items():
+            w = want.state[layer][name]
+            if name in ("k", "v"):
+                w = part(w, 0, lay.rolling, 2)
+            elif name in ("xk", "xv"):
+                w = part(w, 0, None, 2)
+            else:
+                w = part(w, 0, None, None)
+            pairs.append((t, w))
+    assert c.length == want.length
+    err = 0.0
+    for got, w in pairs:
+        assert got.shape == w.shape, (got.shape, w.shape)
+        if w.numel():
+            err = max(err, float((got.float() - w.float()).abs().max())
+                      / max(1.0, float(w.float().abs().max())))
+    return err
 
 
 def checks(world: int, inp: dict) -> dict:
@@ -91,16 +133,30 @@ def checks(world: int, inp: dict) -> dict:
                                                       fsdp))
             res["moments"] = [tuple(t.shape) for t in tree_leaves(opt.mu)]
         if run_["infer"]:
-            model = Model(cfg, tp=tpl.TensorParallel(cfg, mesh, fsdp))
+            # the reference's inference layout: whole experts over `model`
+            # where they divide it
+            ep = tpl.infer_moe_ep(cfg, mesh)
+            tp = tpl.TensorParallel(cfg, mesh, fsdp, moe_ep=ep)
+            model = Model(cfg, tp=tp)
+            local = tpl.shard_params(whole, cfg, mesh, fsdp, moe_ep=ep)
+            res["ep"] = tp.moe_ep
+            res["infer_shapes"] = [tuple(t.shape)
+                                   for t in tree_leaves(local)]
             drawn = model.init_params(seed=0, device="cpu", max_seq=64)
             res["init_cut"] = [torch.equal(a, b) for a, b in zip(
                 tree_leaves(drawn), tree_leaves(tpl.shard_params(
                     Model(cfg).init_params(seed=0, device="cpu", max_seq=64),
-                    cfg, mesh, fsdp)))]
+                    cfg, mesh, fsdp, moe_ep=ep)))]
+            res["gathered"] = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(tpl.gather_params(local, cfg, mesh, fsdp,
+                                              moe_ep=ep)),
+                tree_leaves(whole)))
             shard_seq = run_.get("shard_seq", False)
             rows = (0, 1) if shard_seq else batch_rank(mesh)
             res["rows"] = rows
-            res["infer"] = infer(model, local, case, rows, shard_seq)
+            logits, toks, c = infer(model, local, case, rows, shard_seq)
+            res["infer"] = (logits, toks)
+            res["cache_err"] = cache_error(tp, c, case["cache"], rows)
             lay = model.init_cache(1, case["max_len"], "cpu",
                                    shard_seq=shard_seq).layout
             res["layout"] = (lay.attn.axes, lay.attn.local,

@@ -14,24 +14,26 @@ the reference's side runs here, on one device:
   * ``flash_decode_seq_sharded``: a query position in each shard, with
     and without a softcap, within 1e-5 of the reference's one-device
     result;
-  * ``apply_moe_expert_parallel`` over `model` on the rank's slice of
-    the experts, dropless, at capacity factor 1.25 and at 0.5 (drops
-    checked to happen): y within 1e-5 of the reference's ``apply_moe``,
-    aux within 1e-6; a dict of every expert refused; and
-    ``Model(ep_mesh=)``'s forward against the one-process forward, its
-    ``init_params`` drawing the slice of the whole draw;
-  * the train step over a mesh (``make_train_step(mesh=)``) on meshes
-    (2, 1) and (2, 2), for olmo-1b (a dense decoder: the sharded
-    program of ``distributed.tensor_parallel``) and qwen2-moe-a2.7b (the
-    data-parallel step; its aux loss is a product of batch means), and
+  * expert-parallel MoE over `model` (``apply_moe(tp=TensorParallel(
+    moe_ep=True))`` on the rank's whole experts), dropless, at capacity
+    factor 1.25 and at 0.5 (drops checked to happen): y within 1e-5 of
+    the reference's ``apply_moe``, aux within 1e-6; a dict of every
+    expert refused; and ``Model(tp=)``'s forward with experts whole over
+    `model` against the one-process forward, its ``init_params`` drawing
+    the slice of the whole draw;
+  * the train step over a mesh (``make_train_step(mesh=)``, the sharded
+    program of ``distributed.tensor_parallel``) on meshes (2, 1) (data
+    parallel: `model` is 1) and (2, 2), for olmo-1b (a dense decoder)
+    and qwen2-moe-a2.7b (its aux loss a product of batch means), and
     on (2, 1) for qwen2-moe-a2.7b with
     every layer checkpointed (its aux collectives run again in the
     backward's recompute): two steps' losses within 1e-5 and the
     parameters after them within 1e-4 of their largest magnitude, against
     the reference's one-device step and the port's one-process step
     (with the same ``remat``);
-  * ``launch.train --production-mesh``, its mesh shrunk to (2, 1) and
-    (2, 2): the one-process launcher's losses within 1e-5;
+  * ``launch.train --production-mesh`` of qwen2-moe-a2.7b (the sharded
+    program), its mesh shrunk to (2, 1) and (2, 2): the one-process
+    launcher's losses within 1e-5;
   * the host meshes, DTensor placements of ``param_shardings`` and
     ``maybe_constrain`` on a real 2x2 mesh, the size check of
     ``make_mesh``; every rank's results equal.
@@ -250,8 +252,8 @@ def test_expert_parallel_moe_matches_reference(world):
             f"holds {cfg.moe.num_experts} experts" in o["ep_whole"] and \
             f"this rank's {n} expected" in o["ep_whole"]
         assert o["ep_init"] is True
-    # Model(ep_mesh=) routes its MoE layers through the expert-parallel
-    # function: the one-process forward's logits and aux
+    # Model(tp=) with experts whole over `model`: the one-process
+    # forward's logits and aux
     with torch.no_grad():
         logits, aux = Model(inp["model_cfg"], moe_capacity_factor=1.25
                             ).forward(inp["model_params"], inp["tokens"],

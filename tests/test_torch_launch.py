@@ -137,8 +137,8 @@ class _Reached(Exception):
 def test_unported_flags_raise_before_building(launcher, extra, monkeypatch):
     """The flags that raised ``NotImplementedError`` until their slices
     were ported.  ``--ckpt`` (A6) now hands its path to
-    ``build_cluster``.  ``--production-mesh`` (A7a) runs the data-parallel
-    step over the 16x16 mesh: in a world of one it raises the world-size
+    ``build_cluster``.  ``--production-mesh`` (A7a) runs the sharded
+    program over the 16x16 mesh: in a world of one it raises the world-size
     error, naming 1 and the 256 ranks it needs, before the model is built
     or a process group started."""
     seen = {}

@@ -1,5 +1,5 @@
-"""The sharded program of the dense decoders (``repro_torch.distributed.
-tensor_parallel``: tensor parallelism over `model`, FSDP over `data`) on
+"""The sharded program (``repro_torch.distributed.tensor_parallel``:
+tensor parallelism over `model`, FSDP over `data`) of all ten archs on
 gloo process groups on the CPU, held to the reference's one-device
 program and to the port's one-process one.
 
@@ -14,7 +14,18 @@ sides to 2 KV heads for 4 query heads, which on a `model` axis of 4
 leaves ``wk`` / ``wv`` whole on every rank (no smoke config reaches that
 path: all have 4 KV heads); "kv2-local", gemma2-9b's the same way with a
 1032-token window, whose rolling buffer is split by sequence over
-`model` and wraps.
+`model` and wraps.  The other five archs' smoke configs (qwen2-moe-a2.7b
+and qwen3-moe-30b-a3b: experts by FFN column, under EP at inference
+where they divide `model`; hymba-1.5b: Mamba channels, its rolling
+buffer also split by sequence over `data`; xlstm-350m: mLSTM heads and
+sLSTM units; whisper-base: encoder, cross-attention, learned positions)
+on (1, 2), (2, 2) and (2, 1) with FSDP, and variants of the production
+layouts no smoke config reaches, on (1, 4): hymba with 5 heads over 1
+KV head and vocab 97 (attention and vocab whole), xlstm with 2 heads
+(the cells whole beside a cut sLSTM), qwen2-moe with 6 experts (FFN
+columns at inference; on (1, 2) under EP), whisper with 2 heads and
+vocab 97, and qwen3-moe without the load-balance loss (the router's
+gradient from the cross-entropy alone).
 
   * one train step with remat on meshes (data 1, model 2), (2, 2) and
     (2, 1) with FSDP forced (and (2, 2) with FSDP, (1, 4) for kv2): the
@@ -29,10 +40,14 @@ path: all have 4 KV heads); "kv2-local", gemma2-9b's the same way with a
     step hands AdamW (``sync_grads`` of the rank's batch shard's,
     gathered) and its squared norm (``grad_sq_norm``) within 1e-5 of
     the reference's unclipped ones;
-  * every rank's local shapes (params and AdamW moments) equal the
-    reference's ``param_specs`` local shapes;
+  * every rank's local shapes (params and AdamW moments; the inference
+    cut with the reference's ``moe_ep``) equal the reference's
+    ``param_specs`` local shapes, and a gathered tree equals the whole;
   * prefill logits within 1e-5 and greedy decode tokens equal, each
-    data rank on its rows; kv2 over a 1040-slot cache split by sequence
+    data rank on its rows, and every rank's cache its part of the
+    one-process cache within 1e-5 (K/V, rolling and cross-attention
+    buffers by its slots and KV heads, recurrent state whole); kv2
+    over a 1040-slot cache split by sequence
     over `model` (a 270-token prompt crosses into the second chunk),
     kv2-local over 1060 tokens (its buffer wraps in prefill), and kv2's
     long_500k layout (``shard_seq``: the sequence over `data`);
@@ -73,25 +88,61 @@ from repro_torch.train import train_step as ts  # noqa: E402
 from repro_torch.train.optimizer import tree_leaves, tree_map  # noqa: E402
 
 SMOKE = dict(max_d_model=64, vocab=96)
+
+
+def _moe(**kw):
+    return lambda cfg: dataclasses.replace(cfg.moe, **kw)
+
+
+# name -> (arch, fields replaced on both sides; a callable gets the config)
 CASES = {"olmo": ("olmo-1b", {}), "gemma2": ("gemma2-9b", {}),
          "qwen2vl": ("qwen2-vl-72b", {}),
          "kv2": ("llama3-8b", {"num_kv_heads": 2}),
          "kv2-local": ("gemma2-9b", {"num_kv_heads": 2,
-                                     "sliding_window": 1032})}
+                                     "sliding_window": 1032}),
+         "qwen2moe": ("qwen2-moe-a2.7b", {}),
+         "qwen3moe": ("qwen3-moe-30b-a3b", {}),
+         "hymba": ("hymba-1.5b", {}), "xlstm": ("xlstm-350m", {}),
+         "whisper": ("whisper-base", {}),
+         # the production layouts no smoke config reaches: hymba's
+         # attention and vocab whole, xlstm's cells whole beside a cut
+         # sLSTM, qwen2-moe's experts by FFN column at inference (6 on
+         # `model` 4) and under EP (on 2), whisper's attention and vocab
+         # whole; the router's gradient without the load-balance loss
+         "hymba-h5": ("hymba-1.5b", {"num_heads": 5, "num_kv_heads": 1,
+                                     "vocab_size": 97}),
+         "xlstm-h2": ("xlstm-350m", {"num_heads": 2, "num_kv_heads": 2}),
+         "qwen2moe-e6": ("qwen2-moe-a2.7b", {"moe": _moe(num_experts=6)}),
+         "whisper-h2": ("whisper-base", {"num_heads": 2, "num_kv_heads": 2,
+                                         "vocab_size": 97}),
+         "qwen3moe-aux0": ("qwen3-moe-30b-a3b",
+                           {"moe": _moe(router_aux_loss_coef=0.0)})}
 # (prompt tokens, cache slots, greedy steps, first of each row)
 PROMPTS = {"olmo": (12, 48, 6, (0, 3)), "gemma2": (20, 48, 6, (0, 3)),
            "qwen2vl": (12, 48, 6, (0, 0)), "kv2": (270, 1040, 6, (0, 3)),
-           "kv2-local": (1060, 1100, 6, (0, 3))}
+           "kv2-local": (1060, 1100, 6, (0, 3)),
+           "hymba": (20, 48, 6, (0, 3)), "hymba-h5": (20, 48, 6, (0, 3))}
 TRAIN, INFER = {"train": True, "infer": False}, {"train": False,
                                                  "infer": True}
 BOTH = {"train": True, "infer": True}
+NEW = ("qwen2moe", "qwen3moe", "hymba", "xlstm", "whisper")
 RUNS = {("olmo", (1, 2), False): BOTH, ("gemma2", (1, 2), False): BOTH,
         ("qwen2vl", (1, 2), False): BOTH, ("olmo", (2, 1), True): BOTH,
         ("gemma2", (2, 1), True): TRAIN, ("qwen2vl", (2, 1), True): BOTH,
         ("olmo", (2, 2), False): BOTH, ("gemma2", (2, 2), False): BOTH,
         ("qwen2vl", (2, 2), True): BOTH, ("kv2", (1, 4), False): BOTH,
         ("kv2-local", (1, 4), False): INFER,
-        ("kv2", (2, 2), False): dict(INFER, shard_seq=True)}
+        ("kv2", (2, 2), False): dict(INFER, shard_seq=True),
+        **{(n, (1, 2), False): BOTH for n in NEW},
+        **{(n, (2, 2), False): BOTH for n in NEW},
+        **{(n, (2, 1), True): BOTH for n in NEW},
+        ("hymba-h5", (1, 4), False): BOTH, ("xlstm-h2", (1, 4), False): BOTH,
+        ("qwen2moe-e6", (1, 4), False): BOTH,
+        ("qwen2moe-e6", (1, 2), False): INFER,
+        ("whisper-h2", (1, 4), False): BOTH,
+        ("qwen3moe-aux0", (1, 2), False): TRAIN,
+        # hymba's rolling buffer split by sequence over `data`
+        ("hymba", (2, 2), True): dict(INFER, shard_seq=True)}
 WORLDS = (2, 4)
 LR = 1e-3
 LOSS_TOL, PARAM_RTOL, LOGIT_TOL = 1e-5, 1e-4, 1e-5
@@ -107,8 +158,18 @@ def _t(a):
 
 def _cfgs(name):
     arch, kw = CASES[name]
-    return (dataclasses.replace(get_smoke_config(arch, **SMOKE), **kw),
-            dataclasses.replace(port_smoke(arch, **SMOKE), **kw))
+
+    def one(cfg):
+        return dataclasses.replace(cfg, **{k: v(cfg) if callable(v) else v
+                                           for k, v in kw.items()})
+    return (one(get_smoke_config(arch, **SMOKE)),
+            one(port_smoke(arch, **SMOKE)))
+
+
+def _frames(rng, cfg, B):
+    """Stub encoder frames [B, Se, D] of an encoder-decoder config."""
+    return rng.standard_normal((B, cfg.encoder_seq_len, cfg.d_model)
+                               ).astype(np.float32)
 
 
 def _train_batch(cfg):
@@ -124,11 +185,13 @@ def _train_batch(cfg):
     else:
         b["positions"] = np.broadcast_to(np.arange(16, dtype=np.int32),
                                          (4, 16)).copy()
+    if cfg.is_encoder_decoder:
+        b["encoder_frames"] = _frames(rng, cfg, 4)
     return b
 
 
 def _prompt(cfg, name):
-    L, max_len, steps, first = PROMPTS[name]
+    L, max_len, steps, first = PROMPTS.get(name, (12, 48, 6, (0, 3)))
     rng = np.random.default_rng(7)
     first = np.asarray(first, np.int32)
     p = {"tokens": rng.integers(0, cfg.vocab_size, (2, L)).astype(np.int32)}
@@ -141,6 +204,8 @@ def _prompt(cfg, name):
     else:
         p["positions"] = np.where(np.arange(L)[None] >= first[:, None],
                                   np.arange(L)[None], -1).astype(np.int32)
+    if cfg.is_encoder_decoder:
+        p["encoder_frames"] = _frames(rng, cfg, 2)
     return p, first, max_len, steps
 
 
@@ -160,9 +225,9 @@ def _ref_infer(jm, jparams, prompt, first, max_len, steps):
 def _port_infer(cfg, params, prompt, first, max_len, steps):
     case = {"prompt": {k: _t(v) for k, v in prompt.items()},
             "first": _t(first), "max_len": max_len, "steps": steps}
-    lg, toks = _torch_tp_worker.infer(Model(cfg), params, case, (0, 1),
-                                      False)
-    return lg.numpy(), toks.numpy()
+    lg, toks, cache = _torch_tp_worker.infer(Model(cfg), params, case,
+                                             (0, 1), False)
+    return lg.numpy(), toks.numpy(), cache
 
 
 @pytest.fixture(scope="module")
@@ -207,7 +272,7 @@ def reference():
                                       steps)
             r["prompt"] = {"prompt": {k: _t(v) for k, v in prompt.items()},
                            "first": _t(first), "max_len": max_len,
-                           "steps": steps}
+                           "steps": steps, "cache": r["pinfer"][2]}
         out[name] = r
     from repro_torch.launch import train
     out["launcher"] = train.main(LAUNCH)
@@ -321,13 +386,14 @@ def test_sharded_gradient_and_norm_match_one_device(key, reference, worlds):
         assert res["sq_norm"] == pytest.approx(r["jsq"], rel=GRAD_RTOL)
 
 
-def _ref_local_shapes(r, shape, fsdp):
+def _ref_local_shapes(r, shape, fsdp, moe_ep=False):
     """The reference's ``param_specs`` local shape of each port leaf, in
     the port's leaf order."""
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  devices=np.empty(shape))
     sizes = dict(zip(("data", "model"), shape))
-    specs = jsh.param_specs(r["jcfg"], r["jshape"], mesh, fsdp=fsdp)
+    specs = jsh.param_specs(r["jcfg"], r["jshape"], mesh, fsdp=fsdp,
+                            moe_ep=moe_ep)
     flat = {}
     for path, spec in jax.tree_util.tree_flatten_with_path(
             specs, is_leaf=lambda x: isinstance(
@@ -365,10 +431,18 @@ def _ref_local_shapes(r, shape, fsdp):
 def test_local_shapes_are_the_reference_specs(key, reference, worlds):
     name, shape, fsdp = key
     want = _ref_local_shapes(reference[name], shape, fsdp)
+    # the reference's build_step: expert parallelism at inference where
+    # the experts divide `model`
+    cfg = reference[name]["jcfg"]
+    ep = cfg.moe is not None and cfg.moe.num_experts % shape[1] == 0
+    infer = _ref_local_shapes(reference[name], shape, fsdp, moe_ep=ep)
     for res in _ranks(worlds, key):
         assert res["shapes"] == want
         if "moments" in res:
             assert res["moments"] == want
+        if "infer_shapes" in res:
+            assert res["infer_shapes"] == infer
+            assert res["ep"] == ep
     # something is split on every mesh with a `model` axis > 1
     whole = [tuple(t.shape) for t in tree_leaves(reference[name]["params"])]
     assert (want != whole) == (shape != (1, 1))
@@ -377,7 +451,7 @@ def test_local_shapes_are_the_reference_specs(key, reference, worlds):
 @pytest.mark.parametrize("key", INFER_KEYS, ids=_ids(INFER_KEYS))
 def test_sharded_prefill_and_greedy_decode(key, reference, worlds):
     r = reference[key[0]]
-    (jl, jt), (pl, pt) = r["jinfer"], r["pinfer"]
+    (jl, jt), (pl, pt, _) = r["jinfer"], r["pinfer"]
     np.testing.assert_array_equal(jt, pt)
     for res in _ranks(worlds, key):
         i, n = res["rows"]
@@ -389,6 +463,18 @@ def test_sharded_prefill_and_greedy_decode(key, reference, worlds):
                                    atol=LOGIT_TOL)
         np.testing.assert_array_equal(toks.numpy(), jt[rows])
         assert all(res["init_cut"])
+        assert res["gathered"]
+
+
+@pytest.mark.parametrize("key", INFER_KEYS, ids=_ids(INFER_KEYS))
+def test_sharded_cache_equals_one_process_cache(key, reference, worlds):
+    """After prefill and greedy decode every rank's cache is its part of
+    the one-process cache: its rows, slots and KV heads of the K/V
+    buffers (rolling and cross-attention ones too) and the whole
+    recurrent state (Mamba ``h`` / ``conv``, mLSTM and sLSTM), which each
+    rank advances in part and gathers after every step."""
+    for res in _ranks(worlds, key):
+        assert res["cache_err"] < LOGIT_TOL, res["cache_err"]
 
 
 def test_cache_layouts(worlds):
@@ -479,13 +565,15 @@ def _tp(arch, shape, **kw):
 
 
 def test_rank_plan_and_supported_archs():
-    """Rank 0's heads, KV heads and vocab rows; the five dense decoders
-    are the supported archs; a head map that is not one KV group a
-    query run raises."""
+    """Rank 0's heads, KV heads and vocab rows, and the new layouts: MoE
+    experts by FFN column or whole under EP, Mamba channels, mLSTM heads,
+    sLSTM units, whole attention and vocab; all ten archs are supported;
+    a head map that is not one KV group a query run raises, as does a
+    hymba whose rolling buffer would hold KV heads its queries do not
+    read."""
     from repro_torch.configs import ARCH_IDS, get_config
-    assert sorted(a for a in ARCH_IDS if tpl.supported(get_config(a))) == \
-        sorted(["olmo-1b", "llama3-8b", "gemma2-9b", "nemotron-4-15b",
-                "qwen2-vl-72b"])
+    assert all(tpl.supported(get_config(a)) for a in ARCH_IDS)
+    assert len(ARCH_IDS) == 10
     tp = _tp("llama3-8b", (1, 4), num_kv_heads=2)
     assert (tp.heads, tp.kv_split, tp.h_local, tp.kv0, tp.kv_local,
             tp.v_local) == (True, False, 1, 0, 1, 24)
@@ -493,9 +581,75 @@ def test_rank_plan_and_supported_archs():
     assert (tp.kv_split, tp.h_local, tp.kv_local) == (True, 2, 2)
     with pytest.raises(NotImplementedError, match="KV groups"):
         _tp("nemotron-4-15b", (1, 2), num_heads=6, num_kv_heads=3)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tpl.TensorParallel(port_smoke("qwen2-moe-a2.7b"),
-                           MeshShape(("data", "model"), (1, 2)))
+    with pytest.raises(NotImplementedError, match="rolling buffer"):
+        _tp("hymba-1.5b", (1, 4), num_kv_heads=2)
+    # hymba at the published layout: attention and vocab whole, the
+    # Mamba channels and the MLP cut
+    tp = _tp("hymba-1.5b", (1, 4), num_heads=5, num_kv_heads=1,
+             vocab_size=97)
+    assert (tp.heads, tp.vocab, tp.mamba, tp.mlp, tp.v_local) == \
+        (False, False, True, True, 97)
+    # xlstm: cells by heads and sLSTM out rows where the heads divide,
+    # else the mLSTM whole and the sLSTM units cut, out whole
+    tp = _tp("xlstm-350m", (1, 2))
+    assert (tp.mlstm, tp.slstm, tp.slstm_out, tp.mlp) == \
+        (True, True, True, False)
+    tp = _tp("xlstm-350m", (1, 4), num_heads=2, num_kv_heads=2)
+    assert (tp.mlstm, tp.slstm, tp.slstm_out) == (False, True, False)
+    # MoE: FFN columns in training, whole experts under EP where the
+    # experts divide `model`, FFN columns where they do not
+    cfg = port_smoke("qwen2-moe-a2.7b", **SMOKE)
+    m2 = MeshShape(("data", "model"), (1, 2))
+    tp = tpl.TensorParallel(cfg, m2)
+    assert (tp.experts, tp.moe_ffn, tp.moe_ep, tp.shared) == \
+        (True, True, False, True)
+    tp = tpl.TensorParallel(cfg, m2, moe_ep=True)
+    assert (tp.moe_ffn, tp.moe_ep) == (False, True)
+    e6 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=6))
+    m4 = MeshShape(("data", "model"), (1, 4))
+    assert not tpl.infer_moe_ep(e6, m4) and tpl.infer_moe_ep(e6, m2)
+    tp = tpl.TensorParallel(e6, m4, moe_ep=tpl.infer_moe_ep(e6, m4))
+    assert (tp.moe_ffn, tp.moe_ep) == (True, False)
+    # whisper at 2 heads on 4 ranks: attention whole, the MLP cut
+    tp = _tp("whisper-base", (1, 4), num_heads=2, num_kv_heads=2,
+             vocab_size=97)
+    assert (tp.heads, tp.mlp, tp.vocab) == (False, True, False)
+    # the router and the shared gate are partial per rank; so are the
+    # mLSTM's whole gate projections
+    tp = tpl.TensorParallel(cfg, m2)
+    part = dict(zip(_paths(tp.partial), sh.leaves(tp.partial)))
+    assert part["blocks/0/moe/router"]
+    assert part["blocks/0/moe/shared/gate"]
+    assert not part["blocks/0/moe/wi"]
+    tp = _tp("xlstm-350m", (1, 2))
+    part = dict(zip(_paths(tp.partial), sh.leaves(tp.partial)))
+    assert part["blocks/0/cell/wi"] and \
+        not part["blocks/1/cell/w"]
+
+
+def _paths(tree):
+    out = []
+    sh._map(lambda p, _: out.append(p), tree)
+    return out
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_fused_cut_is_each_ranks_own_columns(parts):
+    """``cut`` of a fused leaf takes the rank's chunk of every part (rank
+    0 of 4 on a ``MeshShape``: the first quarter of each part), which
+    leaves name by path."""
+    m = MeshShape(("data", "model"), (1, 4))
+    t = torch.arange(2 * 8 * parts, dtype=torch.float32).reshape(2, -1)
+    got = tpl.cut(t, sh.Spec(None, "model"), m, parts)
+    n = t.shape[1] // (4 * parts)
+    want = torch.cat([t[:, p * 4 * n:p * 4 * n + n] for p in range(parts)],
+                     dim=1)
+    assert torch.equal(got, want)
+    assert tpl.fused_parts("blocks/0/mamba/in_proj") == 2
+    assert tpl.fused_parts("blocks/1/cell/w") == 4
+    assert tpl.fused_parts("blocks/1/cell/r") == 4
+    assert tpl.fused_parts("blocks/0/cell/wq") == 1
 
 
 def test_fsdp_rules_are_the_reference_thresholds():
@@ -505,7 +659,12 @@ def test_fsdp_rules_are_the_reference_thresholds():
                                ("llama3-8b", False, False),
                                ("gemma2-9b", False, False),
                                ("nemotron-4-15b", True, False),
-                               ("qwen2-vl-72b", True, True)):
+                               ("qwen2-vl-72b", True, True),
+                               ("qwen2-moe-a2.7b", True, False),
+                               ("qwen3-moe-30b-a3b", True, False),
+                               ("hymba-1.5b", False, False),
+                               ("xlstm-350m", False, False),
+                               ("whisper-base", False, False)):
         n = tpl.param_count(get_config(arch))
         assert (tpl.train_fsdp(n, m16), tpl.infer_fsdp(n, m16)) == \
             (train, infer), arch
